@@ -1,0 +1,419 @@
+// Flash-attention forward for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_kernel` in deeplearning4j_tpu/ops/flash_attention.py
+// (its grid step `_online_softmax_step`), which `_flash_fwd_bthd(with_lse=False)`
+// launches for `flash_attention`.
+//
+// Computes O = softmax(Q K^T * scale) V over [B, T, H, D] tensors addressed by
+// strides (only the innermost stride must be 1), with an online softmax: the
+// [T, T] scores never reach device memory. The TPU kernel carries its running
+// max m, sum l and accumulator acc across a sequential kv grid dimension; here
+// that dimension is a loop inside one thread block, and m, l, acc live in f32
+// registers.
+//
+// Numerics follow the TPU kernel: scores accumulate in f32 and are scaled
+// after the product; masked scores are -inf (causal keeps row >= col); l sums
+// the f32 probabilities while the PV product takes them rounded to the input
+// type, with f32 accumulation; the output is acc / max(l, 1e-30) in the input
+// type.
+//
+// Bound on an H100 SXM: at the serving shape (B=4, T=8192, H=8, D=64, bf16,
+// causal) the work is 4*B*H*D*T(T+1)/2 = 2.75e11 FLOP, 0.28 ms at 989 TFLOP/s,
+// against 134 MB of q/k/v/o traffic, 0.04 ms at 3.35 TB/s: compute-bound, so
+// the products go through the tensor cores.
+//
+// Design (a first, simple version; wgmma, TMA and warp specialisation come
+// later):
+//  * bf16/fp16: one block of 4 warps per (batch*head, 64-query tile), each warp
+//    owning 16 query rows. Q fragments stay in registers; K tiles of 64 keys
+//    are staged row-major in shared memory and V tiles transposed, both padded
+//    against bank conflicts. QK^T and PV run on mma.sync.m16n8k16 with f32
+//    accumulation; the probabilities are reused from the score accumulators as
+//    the A operand of PV without a trip through shared memory.
+//  * f32: the same online softmax in plain f32 FMA (no TF32), one block per
+//    (batch*head, 16-query tile), tiles of 32 keys in shared memory.
+//  * Causal: the kv loop stops at the diagonal tile. A ragged last tile is
+//    masked by bounds, so any T works. The heaviest causal tiles are scheduled
+//    first.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = kWarps * 16;  // tensor-core path: query rows per block
+constexpr int kBlockK = 64;           // tensor-core path: keys per tile
+constexpr int kF32BlockQ = 16;        // f32 path
+constexpr int kF32BlockK = 32;
+
+struct Strides {
+  long long b, t, h;  // in elements; the innermost (head-dim) stride is 1
+};
+
+template <typename Elem>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <typename Elem>
+__device__ __forceinline__ uint32_t ld32(const Elem* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Tensor-core path. mma.m16n8k16 fragments, with g = lane / 4, t = lane % 4:
+//   A (16x16, row-major): a0 = (row g, k 2t..2t+1), a1 = (row g+8, same k),
+//                         a2 = (row g, k 2t+8..2t+9), a3 = (row g+8, same k)
+//   B (16x8, col-major):  b0 = (k 2t..2t+1, col g), b1 = (k 2t+8..2t+9, col g)
+//   C (16x8, f32):        c0, c1 = (row g, cols 2t, 2t+1), c2, c3 = (row g+8, same cols)
+template <typename Elem, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_mma_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                         const Elem* __restrict__ v, Elem* __restrict__ o, int heads,
+                         int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
+                         float scale, int causal) {
+  constexpr int kPadK = D + 8;        // K row pitch (elements)
+  constexpr int kPadV = kBlockK + 8;  // transposed-V row pitch
+  constexpr int kChunks = D / 8;      // 16-byte chunks per row
+  __shared__ __align__(16) Elem Ks[kBlockK][kPadK];
+  __shared__ __align__(16) Elem Vt[D][kPadV];
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int qtile = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const Elem* qb = q + b * sq.b + h * sq.h;
+  const Elem* kb = k + b * sk.b + h * sk.h;
+  const Elem* vb = v + b * sv.b + h * sv.h;
+  Elem* ob = o + b * so.b + h * so.h;
+  const int row0 = qtile * kBlockQ + warp * 16 + g;
+  const int row1 = row0 + 8;
+
+  // Q as the A operand of S = Q K^T, held for the whole kv loop.
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const int c = kc * 16 + 2 * t;
+    qa[kc][0] = row0 < seq_len ? ld32(qb + row0 * sq.t + c) : 0u;
+    qa[kc][1] = row1 < seq_len ? ld32(qb + row1 * sq.t + c) : 0u;
+    qa[kc][2] = row0 < seq_len ? ld32(qb + row0 * sq.t + c + 8) : 0u;
+    qa[kc][3] = row1 < seq_len ? ld32(qb + row1 * sq.t + c + 8) : 0u;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  // kBlockQ == kBlockK, so the diagonal tile of query tile i is kv tile i.
+  const int n_kv = causal ? qtile + 1 : (seq_len + kBlockK - 1) / kBlockK;
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k_start = kt * kBlockK;
+    __syncthreads();  // every warp is done with the previous tile
+    for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const int key = k_start + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (key < seq_len) val = *reinterpret_cast<const uint4*>(kb + key * sk.t + c);
+      *reinterpret_cast<uint4*>(&Ks[r][c]) = val;
+    }
+    for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
+      const int r = i % kBlockK, c = (i / kBlockK) * 8;  // neighbours along keys
+      const int key = k_start + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (key < seq_len) val = *reinterpret_cast<const uint4*>(vb + key * sv.t + c);
+      const Elem* e = reinterpret_cast<const Elem*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Vt[c + j][r] = e[j];
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    float s[kBlockK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const Elem* kr = &Ks[nt * 8 + g][kc * 16 + 2 * t];
+        Mma<Elem>::run(s[nt], qa[kc], ld32(kr), ld32(kr + 8));
+      }
+    }
+
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k_start + nt * 8 + 2 * t + j;
+        float x0 = s[nt][j] * scale, x1 = s[nt][2 + j] * scale;
+        if (col >= seq_len || (causal && col > row0)) x0 = -INFINITY;
+        if (col >= seq_len || (causal && col > row1)) x1 = -INFINITY;
+        s[nt][j] = x0;
+        s[nt][2 + j] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    // A row that has seen only masked keys keeps m = -inf; subtracting 0
+    // instead keeps exp() free of NaN (its p and alpha are then 0).
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0, mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float alpha0 = expf(m0 - mu0), alpha1 = expf(m1 - mu1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[nt][j] = expf(s[nt][j] - mu0);
+        s[nt][2 + j] = expf(s[nt][2 + j] - mu1);
+        rs0 += s[nt][j];
+        rs1 += s[nt][2 + j];
+      }
+    }
+    l0 = l0 * alpha0 + quad_sum(rs0);
+    l1 = l1 * alpha1 + quad_sum(rs1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      acc[nd][0] *= alpha0;
+      acc[nd][1] *= alpha0;
+      acc[nd][2] *= alpha1;
+      acc[nd][3] *= alpha1;
+    }
+
+    // acc += P V, P rounded to the input type straight from the S fragments.
+#pragma unroll
+    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+      const uint32_t pa[4] = {Mma<Elem>::pack(s[2 * kc][0], s[2 * kc][1]),
+                              Mma<Elem>::pack(s[2 * kc][2], s[2 * kc][3]),
+                              Mma<Elem>::pack(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                              Mma<Elem>::pack(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const Elem* vr = &Vt[nd * 8 + g][kc * 16 + 2 * t];
+        Mma<Elem>::run(acc[nd], pa, ld32(vr), ld32(vr + 8));
+      }
+    }
+  }
+
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (row0 < seq_len)
+      *reinterpret_cast<uint32_t*>(ob + row0 * so.t + c) =
+          Mma<Elem>::pack(acc[nd][0] / d0, acc[nd][1] / d0);
+    if (row1 < seq_len)
+      *reinterpret_cast<uint32_t*>(ob + row1 * so.t + c) =
+          Mma<Elem>::pack(acc[nd][2] / d1, acc[nd][3] / d1);
+  }
+}
+
+// f32 path: full-precision FMA. Each thread owns BQ*D/kThreads accumulator
+// entries; the row statistics are kept in shared memory.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int heads,
+                         int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
+                         float scale, int causal) {
+  constexpr int BQ = kF32BlockQ, BK = kF32BlockK;
+  constexpr int kPer = BQ * D / kThreads;
+  __shared__ float Qs[BQ][D + 1];
+  __shared__ float Ks[BK][D + 1];
+  __shared__ float Vs[BK][D];
+  __shared__ float Ss[BQ][BK + 1];
+  __shared__ float m_s[BQ], l_s[BQ], alpha_s[BQ];
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int tid = threadIdx.x;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  float* ob = o + b * so.b + h * so.h;
+
+  for (int i = tid; i < BQ * D; i += kThreads) {
+    const int r = i / D, c = i % D, row = q_start + r;
+    Qs[r][c] = row < seq_len ? qb[row * sq.t + c] : 0.f;
+  }
+  if (tid < BQ) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  float acc[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
+
+  const int last_key = causal ? min(seq_len, q_start + BQ) - 1 : seq_len - 1;
+  const int n_kv = last_key / BK + 1;
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k_start = kt * BK;
+    __syncthreads();
+    for (int i = tid; i < BK * D; i += kThreads) {
+      const int r = i / D, c = i % D, key = k_start + r;
+      Ks[r][c] = key < seq_len ? kb[key * sk.t + c] : 0.f;
+      Vs[r][c] = key < seq_len ? vb[key * sv.t + c] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < BQ * BK; i += kThreads) {
+      const int r = i / BK, c = i % BK;
+      float dot = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) dot = fmaf(Qs[r][d], Ks[c][d], dot);
+      float x = dot * scale;
+      const int key = k_start + c;
+      if (key >= seq_len || (causal && key > q_start + r)) x = -INFINITY;
+      Ss[r][c] = x;
+    }
+    __syncthreads();
+    if (tid < BQ) {
+      float mx = -INFINITY;
+      for (int c = 0; c < BK; ++c) mx = fmaxf(mx, Ss[tid][c]);
+      const float mn = fmaxf(m_s[tid], mx);
+      const float mu = mn == -INFINITY ? 0.f : mn;
+      const float alpha = expf(m_s[tid] - mu);
+      float sum = 0.f;
+      for (int c = 0; c < BK; ++c) {
+        const float p = expf(Ss[tid][c] - mu);
+        Ss[tid][c] = p;
+        sum += p;
+      }
+      l_s[tid] = l_s[tid] * alpha + sum;
+      m_s[tid] = mn;
+      alpha_s[tid] = alpha;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = tid + e * kThreads, r = i / D, c = i % D;
+      float pv = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < BK; ++j) pv = fmaf(Ss[r][j], Vs[j][c], pv);
+      acc[e] = acc[e] * alpha_s[r] + pv;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int i = tid + e * kThreads, r = i / D, c = i % D, row = q_start + r;
+    if (row < seq_len) ob[row * so.t + c] = acc[e] / fmaxf(l_s[r], 1e-30f);
+  }
+}
+
+template <typename Elem, int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+               int seq_len, Strides sq, Strides sk, Strides sv, Strides so, float scale,
+               int causal, cudaStream_t stream) {
+  const dim3 grid(batch * heads, (seq_len + kBlockQ - 1) / kBlockQ);
+  flash_fwd_mma_kernel<Elem, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
+      static_cast<Elem*>(o), heads, seq_len, sq, sk, sv, so, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+               int seq_len, Strides sq, Strides sk, Strides sv, Strides so, float scale,
+               int causal, cudaStream_t stream) {
+  const dim3 grid(batch * heads, (seq_len + kF32BlockQ - 1) / kF32BlockQ);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), heads, seq_len, sq, sk, sv, so, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, int batch,
+           int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so, float scale,
+           int causal, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_f32<D>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
+                           stream);
+    case 1:
+      return launch_mma<__half, D>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale,
+                                   causal, stream);
+    case 2:
+      return launch_mma<__nv_bfloat16, D>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so,
+                                          scale, causal, stream);
+  }
+  return -1;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements.
+// Returns cudaGetLastError() after the launch, or -1 for a dtype or head dim
+// this kernel does not take.
+extern "C" int dl4j_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
+                              const void* v, void* o, int batch, int heads, int seq_len,
+                              long long q_sb, long long q_st, long long q_sh, long long k_sb,
+                              long long k_st, long long k_sh, long long v_sb, long long v_st,
+                              long long v_sh, long long o_sb, long long o_st, long long o_sh,
+                              float scale, int causal, void* stream) {
+  const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh}, sv{v_sb, v_st, v_sh},
+      so{o_sb, o_st, o_sh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch<16>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
+                        st);
+    case 32:
+      return launch<32>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
+                        st);
+    case 64:
+      return launch<64>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
+                        st);
+    case 128:
+      return launch<128>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale,
+                         causal, st);
+  }
+  return -1;
+}
