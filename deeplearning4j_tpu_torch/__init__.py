@@ -8,9 +8,10 @@ what it needs.
 Importing it is light: no kernel is built and CUDA need not be present.
 Kernels are compiled with `nvcc` on first use (`ops/_build.py`).
 
-Ported so far: the inference half of the TransformerLM zoo model
-(`models.zoo.transformer`) and the flash-attention forward kernel
-(`ops.flash_attention`). ROADMAP.md queues the rest.
+Ported so far: the TransformerLM zoo model, training (`fit_batch`) and
+inference (`models.zoo.transformer`), the flash-attention kernels it runs,
+forward and backward (`ops.flash_attention`), and the SGD-with-momentum
+update (`parallel.pipeline`). ROADMAP.md queues the rest.
 """
 from .common.device import resolve_device
 

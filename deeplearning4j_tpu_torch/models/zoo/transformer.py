@@ -1,11 +1,18 @@
-"""Decoder-only transformer LM, inference half: port of
-deeplearning4j_tpu/models/zoo/transformer.py.
+"""Decoder-only transformer LM: port of
+deeplearning4j_tpu/models/zoo/transformer.py (training with `fit_batch`,
+inference with `logits`, `generate`, `generate_batch`).
 
 Block = pre-LN multi-head causal self-attention + residual, then pre-LN GeLU
 (tanh form, as `jax.nn.gelu`) MLP + residual. `attention="flash"` runs the
-full causal forward through the CUDA flash kernel (`ops/flash_attention`);
-the KV-cache decode and the batched prefill use the dense attention, as in
-the JAX package.
+full causal forward through the CUDA flash kernels (`ops/flash_attention`):
+K1 for inference; K2 forward and K4/K5 backward when `fit_batch` trains. The
+KV-cache decode and the batched prefill use the dense attention, as in the
+JAX package.
+
+`fit_batch` is one step of SGD with momentum on the mean next-token cross
+entropy, as the JAX package's jitted step: gradients by autograd, then the
+update in place (`parallel/pipeline.sgd_momentum_update`), so parameter
+names and the KV-cache paths are unchanged.
 
 Weights keep the JAX package's orientation (`x @ W`, W is [in, out]) and its
 nested names, so the state-dict key `blocks.0.attn.wqkv` is JAX's
@@ -17,8 +24,8 @@ with no card and no device given they raise.
 
 The KV cache is updated in place (JAX returns a new one).
 
-Not ported yet (ROADMAP.md queues them): `fit_batch` (training), `draft=`
-(speculative decoding), and the serving programs of serving/decode.py.
+Not ported yet (ROADMAP.md queues them): `draft=` (speculative decoding)
+and the serving programs of serving/decode.py.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from torch import nn
 
 from ...common.device import resolve_device
 from ...ops.flash_attention import flash_attention
+from ...parallel.pipeline import sgd_momentum_update
 
 _NOT_PORTED = "is not ported yet; ROADMAP.md queues it"
 _TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64,
@@ -38,7 +46,7 @@ _TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64,
 
 
 def _param(t):
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class LayerNorm(nn.Module):
@@ -280,20 +288,30 @@ def logits_fn(aux, h):
     return _layer_norm(h, aux.lnf.g, aux.lnf.b) @ aux.head
 
 
+def lm_loss(aux, h, targets):
+    """Mean next-token cross entropy; h [B, T, D], targets [B, T] ints.
+    The logits are cast to f32 before the log-softmax."""
+    logp = torch.log_softmax(logits_fn(aux, h).float(), -1)
+    return -logp.gather(-1, targets[..., None]).mean()
+
+
 class TransformerLM(nn.Module):
-    """Single-device inference: `logits`, `generate`,
-    `generate_batch`. Runs on `device` (default: the CUDA card; pass
-    device="cpu" for the CPU)."""
+    """Single-device training (`fit_batch`: SGD with momentum, learning
+    rate `learning_rate`, momentum `momentum`) and inference (`logits`,
+    `generate`, `generate_batch`). Runs on `device` (default: the CUDA card;
+    pass device="cpu" for the CPU)."""
 
     def __init__(self, vocab_size, d_model=128, n_heads=4, n_layers=4,
                  d_ff=None, max_len=256, seed=0, dtype=torch.float32,
-                 attention="dense", device=None):
+                 learning_rate=0.1, momentum=0.9, attention="dense",
+                 device=None):
         super().__init__()
         aux, blocks = init_lm(vocab_size, d_model, n_heads, n_layers, d_ff,
                               max_len, seed, dtype, device)
-        self._setup(aux, blocks, n_heads, attention)
+        self._setup(aux, blocks, n_heads, attention, learning_rate, momentum)
 
-    def _setup(self, aux, blocks, n_heads, attention):
+    def _setup(self, aux, blocks, n_heads, attention, learning_rate,
+               momentum):
         if attention not in ("dense", "flash"):
             raise ValueError(f"attention must be 'dense' or 'flash', "
                              f"not {attention!r}")
@@ -303,10 +321,13 @@ class TransformerLM(nn.Module):
         self.attention = attention
         self.block_fn = make_block_fn(self.n_heads, attention)
         self._block_decode = make_decode_block_fn(self.n_heads)
+        self.lr, self.mu = float(learning_rate), float(momentum)
+        self._vel = None
 
     @classmethod
     def from_jax_params(cls, aux, blocks, n_heads, attention="dense",
-                        dtype=None, device=None):
+                        dtype=None, device=None, learning_rate=0.1,
+                        momentum=0.9):
         """The weight bridge: a model holding the JAX package's `(aux,
         blocks)` (nested dicts of numpy arrays, e.g. from `init_lm` there).
         dtype defaults to each array's own; bf16 goes through float32."""
@@ -314,7 +335,7 @@ class TransformerLM(nn.Module):
         nn.Module.__init__(lm)
         lm._setup(*_params_from_jax(aux, blocks, dtype,
                                     resolve_device(device)),
-                  n_heads, attention)
+                  n_heads, attention, learning_rate, momentum)
         return lm
 
     @property
@@ -331,8 +352,24 @@ class TransformerLM(nn.Module):
         return torch.as_tensor(np.asarray(x), dtype=torch.long,
                                device=self.device)
 
+    def _loss(self, x, y):
+        """The training loss of token batch x [B, T] against targets y."""
+        h = embed_fn(self.aux, x)
+        for p in self.blocks:
+            h = self.block_fn(p, h)
+        return lm_loss(self.aux, h, y)
+
     def fit_batch(self, x, y):
-        raise NotImplementedError(f"training (fit_batch) {_NOT_PORTED}")
+        """One SGD-with-momentum step on tokens x [B, T] with targets y
+        [B, T]; returns the loss before the step. Velocities start at zero
+        in the parameter dtype, as the JAX package's `zeros_like`."""
+        params = list(self.parameters())
+        if self._vel is None:
+            self._vel = [torch.zeros_like(p) for p in params]
+        loss = self._loss(self._tokens(x), self._tokens(y))
+        grads = torch.autograd.grad(loss, params)
+        sgd_momentum_update(params, self._vel, grads, self.lr, self.mu)
+        return float(loss.detach())
 
     @torch.inference_mode()
     def logits(self, x):

@@ -3,7 +3,8 @@
 Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 with a plain C interface, at first use, into `build/kernels/` at the root of
 the checkout (listed in .gitignore). The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt. Nothing is built when a
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+or header is rebuilt. Nothing is built when a
 module is imported, and only sources in the repository are built. A build
 failure raises with nvcc's output.
 """
@@ -37,8 +38,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from `csrc/<name>.cu` lives."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

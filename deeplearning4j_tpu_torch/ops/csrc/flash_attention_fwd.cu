@@ -1,8 +1,16 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a).
-//
-// Replaces the TPU kernel `_kernel` in deeplearning4j_tpu/ops/flash_attention.py
-// (its grid step `_online_softmax_step`), which `_flash_fwd_bthd(with_lse=False)`
-// launches for `flash_attention`.
+// Flash-attention forward for NVIDIA Hopper (sm_90a), in two instantiations:
+//  * K1 (`dl4j_flash_fwd`) replaces the TPU kernel `_kernel` in
+//    deeplearning4j_tpu/ops/flash_attention.py (its grid step
+//    `_online_softmax_step`), which `_flash_fwd_bthd(with_lse=False)` launches
+//    for inference;
+//  * K2 (`dl4j_flash_fwd_lse`) replaces `_kernel_lse`, which
+//    `_flash_fwd_bthd(with_lse=True)` launches for the training forward `_fwd`.
+//    It is K1 with the compile-time flag kLse set: the epilogue also writes
+//    the per-row logsumexp lse = m + log(max(l, 1e-30)) as f32 [B, H, T], the
+//    one residual the backward kernels (flash_attention_bwd.cu) need beyond
+//    q, k, v, o. A row that saw only masked keys (m = -inf, l = 0) gets
+//    lse = -inf, as on the TPU; causal self-attention has none, since the
+//    diagonal is always kept.
 //
 // Computes O = softmax(Q K^T * scale) V over [B, T, H, D] tensors addressed by
 // strides (only the innermost stride must be 1), with an online softmax: the
@@ -35,86 +43,25 @@
 //  * Causal: the kv loop stops at the diagonal tile. A ragged last tile is
 //    masked by bounds, so any T works. The heaviest causal tiles are scheduled
 //    first.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;  // tensor-core path: query rows per block
 constexpr int kBlockK = 64;           // tensor-core path: keys per tile
 constexpr int kF32BlockQ = 16;        // f32 path
 constexpr int kF32BlockK = 32;
 
-struct Strides {
-  long long b, t, h;  // in elements; the innermost (head-dim) stride is 1
-};
-
-template <typename Elem>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <typename Elem>
-__device__ __forceinline__ uint32_t ld32(const Elem* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Tensor-core path. mma.m16n8k16 fragments, with g = lane / 4, t = lane % 4:
-//   A (16x16, row-major): a0 = (row g, k 2t..2t+1), a1 = (row g+8, same k),
-//                         a2 = (row g, k 2t+8..2t+9), a3 = (row g+8, same k)
-//   B (16x8, col-major):  b0 = (k 2t..2t+1, col g), b1 = (k 2t+8..2t+9, col g)
-//   C (16x8, f32):        c0, c1 = (row g, cols 2t, 2t+1), c2, c3 = (row g+8, same cols)
-template <typename Elem, int D>
+// Tensor-core path (fragment layouts in flash_common.cuh). With kLse, lse is
+// [B, H, T] f32; without, it is not touched.
+template <typename Elem, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                         const Elem* __restrict__ v, Elem* __restrict__ o, int heads,
-                         int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
-                         float scale, int causal) {
+                         const Elem* __restrict__ v, Elem* __restrict__ o,
+                         float* __restrict__ lse, int heads, int seq_len, Strides sq,
+                         Strides sk, Strides sv, Strides so, float scale, int causal) {
   constexpr int kPadK = D + 8;        // K row pitch (elements)
   constexpr int kPadV = kBlockK + 8;  // transposed-V row pitch
   constexpr int kChunks = D / 8;      // 16-byte chunks per row
@@ -135,14 +82,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // Q as the A operand of S = Q K^T, held for the whole kv loop.
   uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    qa[kc][0] = row0 < seq_len ? ld32(qb + row0 * sq.t + c) : 0u;
-    qa[kc][1] = row1 < seq_len ? ld32(qb + row1 * sq.t + c) : 0u;
-    qa[kc][2] = row0 < seq_len ? ld32(qb + row0 * sq.t + c + 8) : 0u;
-    qa[kc][3] = row1 < seq_len ? ld32(qb + row1 * sq.t + c + 8) : 0u;
-  }
+  load_a<Elem, D>(qa, qb, sq.t, row0, seq_len, t);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -154,13 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k_start = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous tile
-    for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const int key = k_start + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (key < seq_len) val = *reinterpret_cast<const uint4*>(kb + key * sk.t + c);
-      *reinterpret_cast<uint4*>(&Ks[r][c]) = val;
-    }
+    stage_rows<Elem, D, kBlockK, kPadK>(Ks, kb, sk.t, k_start, seq_len);
     for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
       const int r = i % kBlockK, c = (i / kBlockK) * 8;  // neighbours along keys
       const int key = k_start + r;
@@ -230,10 +164,8 @@ __global__ void __launch_bounds__(kThreads)
     // acc += P V, P rounded to the input type straight from the S fragments.
 #pragma unroll
     for (int kc = 0; kc < kBlockK / 16; ++kc) {
-      const uint32_t pa[4] = {Mma<Elem>::pack(s[2 * kc][0], s[2 * kc][1]),
-                              Mma<Elem>::pack(s[2 * kc][2], s[2 * kc][3]),
-                              Mma<Elem>::pack(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              Mma<Elem>::pack(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+      uint32_t pa[4];
+      c_to_a<Elem>(pa, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int nd = 0; nd < D / 8; ++nd) {
         const Elem* vr = &Vt[nd * 8 + g][kc * 16 + 2 * t];
@@ -253,16 +185,22 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint32_t*>(ob + row1 * so.t + c) =
           Mma<Elem>::pack(acc[nd][2] / d1, acc[nd][3] / d1);
   }
+  if constexpr (kLse) {
+    // every lane of a quad holds its rows' m and l; one lane writes
+    float* lb = lse + static_cast<long long>(bh) * seq_len;
+    if (t == 0 && row0 < seq_len) lb[row0] = m0 + logf(d0);
+    if (t == 0 && row1 < seq_len) lb[row1] = m1 + logf(d1);
+  }
 }
 
 // f32 path: full-precision FMA. Each thread owns BQ*D/kThreads accumulator
 // entries; the row statistics are kept in shared memory.
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o, int heads,
-                         int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
-                         float scale, int causal) {
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int heads, int seq_len, Strides sq,
+                         Strides sk, Strides sv, Strides so, float scale, int causal) {
   constexpr int BQ = kF32BlockQ, BK = kF32BlockK;
   constexpr int kPer = BQ * D / kThreads;
   __shared__ float Qs[BQ][D + 1];
@@ -345,75 +283,96 @@ __global__ void __launch_bounds__(kThreads)
     const int i = tid + e * kThreads, r = i / D, c = i % D, row = q_start + r;
     if (row < seq_len) ob[row * so.t + c] = acc[e] / fmaxf(l_s[r], 1e-30f);
   }
+  if constexpr (kLse) {
+    const int row = q_start + tid;
+    if (tid < BQ && row < seq_len)
+      lse[static_cast<long long>(bh) * seq_len + row] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+  }
 }
 
-template <typename Elem, int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
-               int seq_len, Strides sq, Strides sk, Strides sv, Strides so, float scale,
-               int causal, cudaStream_t stream) {
+template <typename Elem, int D, bool kLse>
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+               int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
+               float scale, int causal, cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq_len + kBlockQ - 1) / kBlockQ);
-  flash_fwd_mma_kernel<Elem, D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_mma_kernel<Elem, D, kLse><<<grid, kThreads, 0, stream>>>(
       static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
-      static_cast<Elem*>(o), heads, seq_len, sq, sk, sv, so, scale, causal);
+      static_cast<Elem*>(o), lse, heads, seq_len, sq, sk, sv, so, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int batch, int heads,
-               int seq_len, Strides sq, Strides sk, Strides sv, Strides so, float scale,
-               int causal, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+               int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
+               float scale, int causal, cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq_len + kF32BlockQ - 1) / kF32BlockQ);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_f32_kernel<D, kLse><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), heads, seq_len, sq, sk, sv, so, scale, causal);
+      static_cast<float*>(o), lse, heads, seq_len, sq, sk, sv, so, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v, void* o, int batch,
-           int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so, float scale,
-           int causal, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
+           float scale, int causal, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch_f32<D>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
-                           stream);
+      return launch_f32<D, kLse>(q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so, scale,
+                                 causal, stream);
     case 1:
-      return launch_mma<__half, D>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale,
-                                   causal, stream);
+      return launch_mma<__half, D, kLse>(q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv,
+                                         so, scale, causal, stream);
     case 2:
-      return launch_mma<__nv_bfloat16, D>(q, k, v, o, batch, heads, seq_len, sq, sk, sv, so,
-                                          scale, causal, stream);
+      return launch_mma<__nv_bfloat16, D, kLse>(q, k, v, o, lse, batch, heads, seq_len, sq,
+                                                sk, sv, so, scale, causal, stream);
+  }
+  return -1;
+}
+
+template <bool kLse>
+int dispatch(int dtype, int head_dim, const void* q, const void* k, const void* v, void* o,
+             float* lse, int batch, int heads, int seq_len, const long long* st, float scale,
+             int causal, void* stream) {
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
+      so{st[9], st[10], st[11]};
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch<16, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
+                              scale, causal, cs);
+    case 32:
+      return launch<32, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
+                              scale, causal, cs);
+    case 64:
+      return launch<64, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
+                              scale, causal, cs);
+    case 128:
+      return launch<128, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
+                               scale, causal, cs);
   }
   return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements.
-// Returns cudaGetLastError() after the launch, or -1 for a dtype or head dim
-// this kernel does not take.
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16. `strides` holds the (batch,
+// time, head) strides of q, k, v and o, in elements. Each returns
+// cudaGetLastError() after the launch, or -1 for a dtype or head dim this
+// kernel does not take.
 extern "C" int dl4j_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                               const void* v, void* o, int batch, int heads, int seq_len,
-                              long long q_sb, long long q_st, long long q_sh, long long k_sb,
-                              long long k_st, long long k_sh, long long v_sb, long long v_st,
-                              long long v_sh, long long o_sb, long long o_st, long long o_sh,
-                              float scale, int causal, void* stream) {
-  const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh}, sv{v_sb, v_st, v_sh},
-      so{o_sb, o_st, o_sh};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-      return launch<16>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
-                        st);
-    case 32:
-      return launch<32>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
-                        st);
-    case 64:
-      return launch<64>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale, causal,
-                        st);
-    case 128:
-      return launch<128>(dtype, q, k, v, o, batch, heads, seq_len, sq, sk, sv, so, scale,
-                         causal, st);
-  }
-  return -1;
+                              const long long* strides, float scale, int causal,
+                              void* stream) {
+  return dispatch<false>(dtype, head_dim, q, k, v, o, nullptr, batch, heads, seq_len, strides,
+                         scale, causal, stream);
+}
+
+// K2: as dl4j_flash_fwd, plus lse, f32 [batch, heads, seq_len] contiguous.
+extern "C" int dl4j_flash_fwd_lse(int dtype, int head_dim, const void* q, const void* k,
+                                  const void* v, void* o, float* lse, int batch, int heads,
+                                  int seq_len, const long long* strides, float scale,
+                                  int causal, void* stream) {
+  return dispatch<true>(dtype, head_dim, q, k, v, o, lse, batch, heads, seq_len, strides, scale,
+                        causal, stream);
 }

@@ -1,20 +1,35 @@
-"""Flash attention forward: a hand-written CUDA kernel for Hopper.
+"""Flash attention: hand-written CUDA kernels for Hopper, forward and
+backward.
 
-Port of `flash_attention` in deeplearning4j_tpu/ops/flash_attention.py,
-forward only (the Pallas `_kernel`). The kernel is
-`csrc/flash_attention_fwd.cu`; its design and bound are in that file.
+Port of `flash_attention` in deeplearning4j_tpu/ops/flash_attention.py, a
+`jax.custom_vjp` over four Pallas kernels, each of which has a CUDA kernel
+here:
+  K1 `_kernel`          -> `csrc/flash_attention_fwd.cu` `dl4j_flash_fwd`
+  K2 `_kernel_lse`      -> `csrc/flash_attention_fwd.cu` `dl4j_flash_fwd_lse`
+  K4 `_bwd_dq_kernel`   -> `csrc/flash_attention_bwd.cu` `dl4j_flash_bwd_dq`
+  K5 `_bwd_dkv_kernel`  -> `csrc/flash_attention_bwd.cu` `dl4j_flash_bwd_dkv`
+Their designs and bounds are in those files. The ring-attention partial (K3)
+and the backward's global offsets and f32 outputs for the ring are not
+ported yet (ROADMAP.md).
 
-Layout is the JAX package's: q, k, v and the output are [B, T, H, D]. The
-kernel reads them through strides, so the q/k/v views that
+`flash_attention` picks its route as the custom VJP does: with grad enabled
+and an input that requires grad, it runs `_FlashAttention` (forward K2, which
+saves the logsumexp; backward delta = rowsum(dO * O), then K4, then K5);
+otherwise the single-output forward K1.
+
+Layout is the JAX package's: q, k, v, the output and the gradients are
+[B, T, H, D]; lse and delta are f32 [B, H, T] (JAX's [B*H, T, 1] without the
+unit axis). The kernels read q, k, v through strides, so the views that
 `flash_causal_attention` splits out of one qkv projection go in without a
 copy; only the innermost stride must be 1.
 
-On a CUDA tensor `flash_attention` launches the kernel or raises. On a CPU
-tensor it runs `flash_attention_reference`, the plain PyTorch version of the
-same arithmetic. The tiling (the JAX `block_q`/`block_k`/`interpret`) is the
-kernel's own business and is not a parameter here.
+Each wrapper launches its kernel on CUDA tensors or raises, and on CPU
+tensors runs the kernel's plain PyTorch version (`*_reference`). The tiling
+(the JAX `block_q`/`block_k`/`interpret`) is the kernels' own business and is
+not a parameter here.
 
-`launches` counts kernel launches; reset it to 0 to count one run.
+`launches` counts kernel launches by kernel; `reset_launches()` sets every
+count to 0.
 """
 from __future__ import annotations
 
@@ -25,46 +40,127 @@ import torch
 
 from . import _build
 
-launches = 0
+launches = {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_SOURCE = "flash_attention_fwd"
-_fn = None
+# launch counter -> (source, C function, pointer args, strided tensors)
+_KERNELS = {
+    "fwd": ("flash_attention_fwd", "dl4j_flash_fwd", 4, 4),
+    "fwd_lse": ("flash_attention_fwd", "dl4j_flash_fwd_lse", 5, 4),
+    "bwd_dq": ("flash_attention_bwd", "dl4j_flash_bwd_dq", 7, 5),
+    "bwd_dkv": ("flash_attention_bwd", "dl4j_flash_bwd_dkv", 8, 6),
+}
+_fns = {}
 
 
-def flash_attention_reference(q, k, v, causal=True, scale=None):
-    """Plain PyTorch version of the kernel's arithmetic, [B, T, H, D].
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
 
-    Scores in f32 (products of the input type, f32 accumulation), scaled
-    after the product, masked with -inf (row >= col when causal). The
-    probabilities are left unnormalised in f32: their sum is taken in f32,
-    while the PV product takes them rounded to v's type. The output is
-    acc / max(l, 1e-30) in q's type. It materialises the [T, T] scores."""
-    D = q.shape[-1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
+
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _scores(q, k, causal, scale):
+    """[B, H, Tq, Tk] f32 scores: products of the input type accumulated in
+    f32, scaled after the product, masked with -inf (row >= col kept)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         T = q.shape[1]
         keep = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, float("-inf"))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return s
+
+
+def _softmax_parts(q, k, v, causal, scale):
+    """(acc [B, T, H, D] f32, m [B, H, T], l [B, H, T]) of the plain forward:
+    the probabilities p = exp(s - row max) are left unnormalised in f32;
+    their sum l is taken in f32 while the PV product takes them rounded to
+    v's type."""
+    s = _scores(q, k, causal, _scale(q, scale))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    l = p.sum(-1).clamp_min(1e-30).transpose(1, 2)[..., None]   # [B, T, H, 1]
-    return (acc / l).to(q.dtype)
+    return acc, m, p.sum(-1)
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.load(_SOURCE).dl4j_flash_fwd
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+def flash_attention_reference(q, k, v, causal=True, scale=None):
+    """Plain PyTorch version of K1, [B, T, H, D]: acc / max(l, 1e-30) in
+    q's type. It materialises the [T, T] scores."""
+    acc, _, l = _softmax_parts(q, k, v, causal, scale)
+    return (acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def flash_attention_lse_reference(q, k, v, causal=True, scale=None):
+    """Plain PyTorch version of K2: (o as `flash_attention_reference` gives
+    it, lse = m + log(max(l, 1e-30)) as f32 [B, H, T])."""
+    acc, m, l = _softmax_parts(q, k, v, causal, scale)
+    l = l.clamp_min(1e-30)
+    return ((acc / l.transpose(1, 2)[..., None]).to(q.dtype),
+            m + torch.log(l))
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in f32, [B, H, T]: computed once per backward
+    and read by both backward kernels (plain torch ops on every device, as
+    the JAX package leaves it to XLA)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_panels(q, k, v, do, lse, delta, causal, scale):
+    """(p, ds) [B, H, T, T] f32: p = exp(s - lse), 0 where masked;
+    ds = p * (dO vᵀ - delta)."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
+                                     scale=None):
+    """Plain PyTorch version of K4: dQ = (ds in k's type) K, accumulated in
+    f32, times scale, in q's type."""
+    scale = _scale(q, scale)
+    _, ds = _bwd_panels(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return (dq * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
+                                      scale=None):
+    """Plain PyTorch version of K5: (dK = (ds in q's type)ᵀ Q · scale,
+    dV = (p in dO's type)ᵀ dO), accumulated in f32, in k's / v's type."""
+    scale = _scale(q, scale)
+    p, ds = _bwd_panels(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                  scale=None):
+    """The plain backward: delta, the dQ pass, the dK/dV pass. Returns
+    (dq, dk, dv)."""
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                          scale)
+    return (dq, *flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   causal, scale))
+
+
+def _kernel_fn(name):
+    fn = _fns.get(name)
+    if fn is None:
+        source, symbol, n_ptr, _ = _KERNELS[name]
+        fn = getattr(_build.load(source), symbol)
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_int] * 3
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(q, k, v):
@@ -80,7 +176,9 @@ def _check(q, k, v):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _check_kernel_input(q, k, v):
+def _check_kernel_input(q, named):
+    """`q` sets device, dtype and shape; `named` are (name, tensor) pairs of
+    [B, T, H, D] tensors the kernel reads or writes through strides."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -92,7 +190,10 @@ def _check_kernel_input(q, k, v):
     B, T, H, _ = q.shape
     if T > 65535 * 16 or B * H > 2**31 - 1:   # CUDA grid limits
         raise ValueError(f"shape {tuple(q.shape)} is too large for the grid")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in named:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's shape, dtype and device; "
+                             f"got {tuple(t.shape)} {t.dtype} {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride in its last dim; "
                              f"got strides {t.stride()}")
@@ -103,31 +204,143 @@ def _check_kernel_input(q, k, v):
                              f"{q.dtype}; got strides {t.stride()}")
 
 
-def flash_attention(q, k, v, causal=True, scale=None):
-    """softmax(q kᵀ · scale, causal) v over [B, T, H, D]; scale defaults to
-    1/sqrt(D). On CUDA tensors: the hand-written kernel (raises on input it
-    does not take). On CPU tensors: `flash_attention_reference`."""
-    global launches
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale)
-    _check_kernel_input(q, k, v)
+def _launch(name, q, pointers, strided, scale, causal):
+    """Launch kernel `name` on q's stream: dtype, head dim, `pointers`
+    (data pointers in the C function's order), B, H, T, the (batch, time,
+    head) strides of the `strided` tensors, scale, causal."""
     B, T, H, D = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    fn = _kernel_fn()
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    strides = [s for t in strided for s in t.stride()[:3]]
+    fn = _kernel_fn(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), B, H, T, *strides,
-                float(scale), int(bool(causal)), stream)
+        rc = fn(_DTYPE_CODE[q.dtype], D, *pointers, B, H, T,
+                (ctypes.c_longlong * len(strides))(*strides),
+                float(_scale(q, scale)), int(bool(causal)), stream)
     if rc:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {rc} ({_SOURCE}.cu, shape {tuple(q.shape)}, "
-                           f"{q.dtype})")
-    launches += 1
+        raise RuntimeError(f"flash attention kernel {name} launch failed: "
+                           f"CUDA error {rc} ({_KERNELS[name][0]}.cu, shape "
+                           f"{tuple(q.shape)}, {q.dtype})")
+    launches[name] += 1
+
+
+def _forward(q, k, v, causal, scale):
+    """K1: the single-output forward (plain version on the CPU)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, scale)
+    _check_kernel_input(q, (("q", q), ("k", k), ("v", v)))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel():
+        _launch("fwd", q, [t.data_ptr() for t in (q, k, v, out)],
+                (q, k, v, out), scale, causal)
     return out
+
+
+def flash_attention_fwd_lse(q, k, v, causal=True, scale=None):
+    """K2: (o [B, T, H, D] in q's type, lse f32 [B, H, T]). On CUDA tensors
+    the kernel (raises on input it does not take); on CPU tensors
+    `flash_attention_lse_reference`."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_lse_reference(q, k, v, causal, scale)
+    _check_kernel_input(q, (("q", q), ("k", k), ("v", v)))
+    B, T, H, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    if out.numel():
+        _launch("fwd_lse", q,
+                [t.data_ptr() for t in (q, k, v, out, lse)],
+                (q, k, v, out), scale, causal)
+    return out, lse
+
+
+def _check_stats(q, lse, delta):
+    B, T, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (B, H, T) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be f32 [B, H, T] = {(B, H, T)}, "
+                             f"contiguous, on {q.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _contiguous_do(do):
+    """dO as autograd hands it over may be strided or expanded (stride 0,
+    e.g. from out.sum()); the kernels take it as a fresh contiguous copy."""
+    if do.is_contiguous() and do.data_ptr() % 16 == 0:
+        return do
+    return do.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None):
+    """K4: dQ [B, T, H, D] in q's type, from the residuals q, k, v, lse
+    (f32 [B, H, T], from K2), the output gradient do and
+    delta = `attention_delta(o, do)`. CPU tensors:
+    `flash_attention_bwd_dq_reference`."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                causal, scale)
+    do = _contiguous_do(do)
+    _check_kernel_input(q, (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_stats(q, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel():
+        _launch("bwd_dq", q,
+                [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
+                (q, k, v, do, dq), scale, causal)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True,
+                            scale=None):
+    """K5: (dK, dV) [B, T, H, D] in k's / v's type, from the same inputs as
+    `flash_attention_bwd_dq`. CPU tensors:
+    `flash_attention_bwd_dkv_reference`."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal, scale)
+    do = _contiguous_do(do)
+    _check_kernel_input(q, (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_stats(q, lse, delta)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dk.numel():
+        _launch("bwd_dkv", q,
+                [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
+                (q, k, v, do, dk, dv), scale, causal)
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP pair `_fwd` / `_bwd`: residuals (q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd_lse(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = attention_delta(o, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
+                                    ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=True, scale=None):
+    """softmax(q kᵀ · scale, causal) v over [B, T, H, D]; scale defaults to
+    1/sqrt(D). Differentiable: with grad enabled and an input requiring
+    grad, forward K2 and backward K4 + K5; otherwise forward K1. On CUDA
+    tensors the kernels run (raising on input they do not take); on CPU
+    tensors their plain versions."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return _forward(q, k, v, causal, scale)

@@ -1,9 +1,15 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's.
 
-On the CPU the port's `flash_attention` runs its plain PyTorch version; the
-JAX side runs the Pallas kernel in interpret mode, as its own tests do. The
+On the CPU the port's `flash_attention` runs its plain PyTorch versions (the
+forward, the forward with logsumexp, the dQ pass and the dK/dV pass); the
+JAX side runs the Pallas kernels in interpret mode, as its own tests do. The
 same inputs, made with numpy from a seed, go to both. Tolerances: 1e-5 abs
-in f32; rel 2e-2 (abs floor 1e-2, about one bf16 step near 1) in bf16.
+in f32 (outputs, lse, gradients, each backward pass; the gradients of
+mean(out**2) read within 3e-10); rel 2e-2 (abs floor 1e-2, about one bf16
+step near 1) for the bf16 forward; bf16 gradients within 0.03 of the
+largest f32 reference gradient, JAX's own bound
+(tests/test_flash_attention.py; read: 0.0052).
 
 Tests marked `gpu` hold the CUDA kernel against the plain version on the
 card and skip without one. JAX is imported inside fixtures, so the card-only
@@ -31,6 +37,31 @@ def jax_flash():
     jnp = pytest.importorskip("jax.numpy")
     from deeplearning4j_tpu.ops.flash_attention import flash_attention
     return flash_attention, jnp
+
+
+@pytest.fixture(scope="module")
+def jax_flash_vjp():
+    """The JAX package's custom-VJP pieces: jax, jnp, the training forward
+    `_fwd`, the backward entry `_flash_bwd_bthd` and `flash_attention`."""
+    jax = pytest.importorskip("jax")
+    import importlib
+
+    import jax.numpy as jnp
+    # the module, not the function that deeplearning4j_tpu.ops exports
+    jfa = importlib.import_module("deeplearning4j_tpu.ops.flash_attention")
+    return jax, jnp, jfa
+
+
+def _to_bhtd(a):
+    """[B, T, H, D] -> JAX's [B*H, T, D]."""
+    b, t, h, d = a.shape
+    return a.transpose(0, 2, 1, 3).reshape(b * h, t, d)
+
+
+def _from_bhtd(a):
+    """JAX's [B*H, T, D] -> [B, T, H, D]."""
+    a = np.asarray(a)
+    return a.reshape(B, H, a.shape[1], D).transpose(0, 2, 1, 3)
 
 
 @pytest.mark.parametrize("t,causal,scale", [
@@ -61,12 +92,125 @@ def test_matches_jax_bf16(jax_flash):
 
 def test_cpu_runs_plain_version_and_counts_no_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv_np(3, 40))
-    before = fa.launches
+    before = dict(fa.launches)
     out = fa.flash_attention(q, k, v, False, 0.2)
     assert fa.launches == before
     torch.testing.assert_close(
         out, fa.flash_attention_reference(q, k, v, False, 0.2), rtol=0,
         atol=0)
+
+
+_T_MASK = [(256, True), (256, False), (96, True), (96, False)]
+
+
+@pytest.mark.parametrize("t,causal", _T_MASK)
+def test_lse_matches_jax_f32(jax_flash_vjp, t, causal):
+    """The plain forward-with-lse (K2's plain version) against the residuals
+    of JAX's training forward `_fwd`: o, and lse [B*H, T, 1]."""
+    _, jnp, jfa = jax_flash_vjp
+    qkv = _qkv_np(10 + t + int(causal), t)
+    want_o, (*_, want_lse) = jfa._fwd(*(jnp.asarray(a) for a in qkv),
+                                      causal, None, 1024, 1024, True)
+    o, lse = fa.flash_attention_fwd_lse(*(torch.from_numpy(a) for a in qkv),
+                                        causal)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, t)
+    np.testing.assert_allclose(lse.reshape(B * H, t, 1).numpy(),
+                               np.asarray(want_lse), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=0,
+                               atol=1e-5)
+
+
+def _port_grads(qkv, causal, dtype=torch.float32):
+    """Gradients of mean(out**2) (out in f32) through the port's
+    `flash_attention` (on the CPU: the autograd Function over the plain
+    versions)."""
+    q, k, v = (torch.from_numpy(a).to(dtype).requires_grad_()
+               for a in qkv)
+    out = fa.flash_attention(q, k, v, causal)
+    return torch.autograd.grad((out.float() ** 2).mean(), (q, k, v))
+
+
+def _jax_grads(jax_flash_vjp, qkv, causal):
+    jax, jnp, jfa = jax_flash_vjp
+    loss = lambda q, k, v: jnp.mean(
+        jfa.flash_attention(q, k, v, causal, None, 1024, 1024, True) ** 2)
+    return jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.float32) for a in qkv))
+
+
+@pytest.mark.parametrize("t,causal", _T_MASK)
+def test_grads_match_jax_f32(jax_flash_vjp, t, causal):
+    """autodiff through the port's flash_attention == jax.grad through the
+    JAX custom VJP (fused Pallas backward, interpret mode)."""
+    qkv = _qkv_np(20 + t + int(causal), t)
+    for got, want in zip(_port_grads(qkv, causal),
+                         _jax_grads(jax_flash_vjp, qkv, causal)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+
+
+def test_grads_bf16_track_jax_f32(jax_flash_vjp):
+    """bf16 inputs: the grads keep bf16 and every entry lies within 0.03 of
+    the largest f32 reference gradient (JAX's own bound for its bf16
+    backward)."""
+    qkv = [a.astype(np.float32) for a in
+           (torch.from_numpy(a).bfloat16().float().numpy()
+            for a in _qkv_np(30, 256))]
+    for got, want in zip(_port_grads(qkv, True, torch.bfloat16),
+                         _jax_grads(jax_flash_vjp, qkv, True)):
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want)
+        top = np.abs(want).max()
+        assert top > 0
+        np.testing.assert_allclose(got.float().numpy() / top, want / top,
+                                   rtol=0, atol=0.03)
+
+
+@pytest.mark.parametrize("t,causal", _T_MASK)
+def test_plain_backward_passes_match_jax(jax_flash_vjp, t, causal):
+    """The dQ pass (K4's plain version) and the dK/dV pass (K5's) against
+    JAX's `_flash_bwd_bthd` on identical (q, k, v, o, lse, do): each pass
+    held on its own, not only their sum through autograd."""
+    _, jnp, jfa = jax_flash_vjp
+    qkv = _qkv_np(40 + t + int(causal), t)
+    do = np.random.default_rng(50 + t).standard_normal(
+        (B, t, H, D)).astype(np.float32)
+    o, (*_, lse) = jfa._fwd(*(jnp.asarray(a) for a in qkv), causal, None,
+                            1024, 1024, True)
+    o, lse = np.array(o), np.array(lse)
+    want = jfa._flash_bwd_bthd(
+        *(jnp.asarray(_to_bhtd(a)) for a in (*qkv, o)), jnp.asarray(lse),
+        jnp.asarray(_to_bhtd(do)), causal, 1.0 / D ** 0.5, 512, 512, True)
+    q, k, v, o_t, do_t = (torch.from_numpy(a) for a in (*qkv, o, do))
+    lse_t = torch.from_numpy(lse).reshape(B, H, t)
+    delta = fa.attention_delta(o_t, do_t)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do_t, lse_t, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do_t, lse_t, delta, causal)
+    for name, got, ref in (("dq", dq, want[0]), ("dk", dk, want[1]),
+                           ("dv", dv, want[2])):
+        np.testing.assert_allclose(got.numpy(), _from_bhtd(ref), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_grad_route_on_cpu_counts_no_launch():
+    """With grad: the autograd Function (forward with lse, backward passes);
+    without: the single-output forward. Same output both ways, and on the
+    CPU no kernel counter moves. An expanded dO (from out.sum()) is taken."""
+    qkv = [torch.from_numpy(a) for a in _qkv_np(5, 33)]
+    before = dict(fa.launches)
+    leaves = [a.clone().requires_grad_() for a in qkv]
+    out = fa.flash_attention(*leaves, True)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    torch.testing.assert_close(out.detach(),
+                               fa.flash_attention(*qkv, True), rtol=0, atol=0)
+    out.sum().backward()
+    o, lse = fa.flash_attention_fwd_lse(*qkv, True)
+    want = fa.flash_attention_bwd_reference(*qkv, o, lse,
+                                            torch.ones_like(o), True)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)
+    assert fa.launches == before
 
 
 def test_rejects_mismatched_inputs():
@@ -142,9 +286,9 @@ def test_kernel_matches_plain_on_card(cuda, dtype, d):
     for t in (1, 63, 64, 200, 257):
         for causal in (True, False):
             q, k, v = _strided_qkv(t, d, dtype, cuda, seed=t)
-            before = fa.launches
+            before = fa.launches["fwd"]
             out = fa.flash_attention(q, k, v, causal)
-            assert fa.launches == before + 1
+            assert fa.launches["fwd"] == before + 1
             want = fa.flash_attention_reference(q, k, v, causal)
             torch.cuda.synchronize()
             assert out.dtype == dtype and out.shape == q.shape
@@ -171,3 +315,89 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="unit stride"):
         fa.flash_attention(q.transpose(1, 3), k.transpose(1, 3),
                            v.transpose(1, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_fwd_lse_kernel_matches_plain_on_card(cuda, dtype, d):
+    """K2 against its plain version: o as K1 is held, lse (f32) to 1e-5
+    (the kernel's running max and sum against the row's, both in f32)."""
+    for t in (1, 63, 64, 200, 257):
+        for causal in (True, False):
+            q, k, v = _strided_qkv(t, d, dtype, cuda, seed=t)
+            before = fa.launches["fwd_lse"]
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
+            assert fa.launches["fwd_lse"] == before + 1
+            want, want_lse = fa.flash_attention_lse_reference(q, k, v,
+                                                              causal)
+            torch.cuda.synchronize()
+            _assert_close_on_card(out, want)
+            torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+def _assert_grad_close_on_card(got, want):
+    """As `_assert_close_on_card`, with the row bound floored at the
+    element-wise atol: a gradient row can be ~0 (at T=1, dS = p(dP - delta)
+    is a difference of two equal sums), and a relative bound on it would
+    measure rounding noise."""
+    atol, rtol = _TOL[got.dtype]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    diff = (got.float() - want.float()).norm(dim=-1)
+    bound = _ROW_RTOL[got.dtype] * want.float().norm(dim=-1) + atol
+    assert (diff <= bound).all(), (diff - bound).max().item()
+
+
+def _bwd_inputs(t, d, dtype, device, causal, seed):
+    q, k, v = _strided_qkv(t, d, dtype, device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    o, lse = fa.flash_attention_lse_reference(q, k, v, causal)
+    return q, k, v, do, lse, fa.attention_delta(o, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_bwd_kernels_match_plain_on_card(cuda, dtype, d):
+    """K4 (dq) and K5 (dk, dv) against their plain versions on the same
+    (q, k, v, dO, lse, delta); T=63, 200 and 257 leave padded keys and
+    padded queries in the last tiles."""
+    for t in (1, 63, 64, 200, 257):
+        for causal in (True, False):
+            args = _bwd_inputs(t, d, dtype, cuda, causal, seed=t)
+            before = dict(fa.launches)
+            dq = fa.flash_attention_bwd_dq(*args, causal)
+            dk, dv = fa.flash_attention_bwd_dkv(*args, causal)
+            assert fa.launches["bwd_dq"] == before["bwd_dq"] + 1
+            assert fa.launches["bwd_dkv"] == before["bwd_dkv"] + 1
+            want_dq = fa.flash_attention_bwd_dq_reference(*args, causal)
+            want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(*args,
+                                                                    causal)
+            torch.cuda.synchronize()
+            for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+                assert got.dtype == dtype and got.shape == args[0].shape
+                _assert_grad_close_on_card(got, want)
+
+
+@pytest.mark.gpu
+def test_autograd_on_card_takes_expanded_grad(cuda):
+    """out.sum().backward() hands the backward an expanded dO (stride 0);
+    the wrapper copies it and the kernels run: K2 once, K4 and K5 once
+    each, no K1, and the grads match the plain backward."""
+    q, k, v = (a.detach().requires_grad_() for a in
+               _strided_qkv(130, 64, torch.bfloat16, cuda, seed=9))
+    before = dict(fa.launches)
+    out = fa.flash_attention(q, k, v, True)
+    out.sum().backward()
+    counts = {n: fa.launches[n] - before[n] for n in before}
+    assert counts == {"fwd": 0, "fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    o, lse = fa.flash_attention_lse_reference(q.detach(), k.detach(),
+                                              v.detach(), True)
+    want = fa.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), o, lse, torch.ones_like(o), True)
+    torch.cuda.synchronize()
+    for leaf, w in zip((q, k, v), want):
+        _assert_grad_close_on_card(leaf.grad, w)

@@ -17,11 +17,12 @@ import sys
 import deeplearning4j_tpu_torch
 import deeplearning4j_tpu_torch.models.zoo.transformer
 import deeplearning4j_tpu_torch.ops.flash_attention as fa
+import deeplearning4j_tpu_torch.parallel.pipeline
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 assert not leaked, leaked
-assert fa.launches == 0 and fa._fn is None and not _build._libs
+assert not any(fa.launches.values()) and not fa._fns and not _build._libs
 print("ok")
 """
 
