@@ -34,16 +34,39 @@ Phases, in order; any failure raises and exits non-zero:
      set to 0 just before and read just after: 4 launches each of K2, K4
      and K5 per step and none of K1; the losses are finite and fall;
  10. a small-depth f32 copy (same seed) trains three steps on the card
-     (kernels) and on the CPU (plain versions); losses and parameters agree.
+     (kernels) and on the CPU (plain versions); losses and parameters agree;
+ 11. the ring-attention partial (K3) against its plain version on the card
+     at the hop shape of T=8192 over a ring of 4 (B=4, Tq=Tk=2048, H=8, D=64,
+     bf16): the diagonal, a visible, a wholly masked and a non-causal hop,
+     and at edge shapes (ragged T=1025, fp16 D=128, f32);
+ 12. K4 and K5 with a hop's global offsets and f32 outputs against their
+     plain versions on the same hops and edge shapes;
+ 13. K3, K4 and K5 (f32 outputs) timed on the visible hop beside their
+     plain versions, their bounds and, for K4+K5, SDPA's backward;
+ 14. the ring main path at full width: four rank processes on one card
+     (cuda:0), rotating K/V through the host over gloo, run
+     `ring_self_attention(causal=True, use_flash=True)` on the global B=4,
+     T=8192, H=8, D=64 bf16 input, each on its 2048-token chunk, with every
+     launch counter set to 0 just before and read just after: (a) without
+     grad, 4 launches of K3 per rank; (b) with grad (loss mean(o**2)), 4 of
+     K3 and 4 each of K4 and K5 per rank; never K1 or K2. The gathered
+     output and gradients agree with the single-card flash attention; an
+     f32 ring (T=1024) on the card agrees with the same ring on the CPU.
+     With four cards it runs again over NCCL, one rank per card; with fewer
+     it says that it skipped that step.
 Then it prints one {"kernels": [...]} JSON line and, as the last line,
 {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from functools import partial
+from pathlib import Path
 
 import torch
 
@@ -56,6 +79,9 @@ FULL = dict(vocab_size=512, d_model=512, n_heads=8, n_layers=4,
 B, T = 4, 8192
 TRAIN_STEPS = 8
 LSE_ATOL = 1e-5   # read 1.9e-6 (bf16, T=8192) on an H100
+RING = 4          # ranks of the ring main path (phase 14)
+HOP_T = T // RING
+RING_GROUP_TIMEOUT_S, RING_JOIN_TIMEOUT_S = 60, 300
 
 
 def card_line():
@@ -298,8 +324,9 @@ def main():
         print(f"  {name}: prompt 1024 -> 8 new tokens {new} in "
               f"{wall_ms:.1f} ms wall, {added} flash launches")
     main_launches = fa.launches["fwd"]    # read before the timing below
-    if sum(fa.launches.values()) != main_launches:
-        raise SystemExit(f"serving launched training kernels: {fa.launches}")
+    if fa.launches != {"fwd": main_launches, "fwd_lse": 0, "partial": 0,
+                       "bwd_dq": 0, "bwd_dkv": 0}:
+        raise SystemExit(f"serving launched other kernels: {fa.launches}")
     warm_ms = cuda_ms(lambda: lm.logits(tokens), iters=3, warmup=1)
     print(f"  main path: {main_launches} flash launches; warm logits "
           f"[{B}, {T}] {warm_ms:.2f} ms ({B * T / warm_ms:.0f} tokens/ms), "
@@ -331,6 +358,7 @@ def main():
 
     del gpu, cpu
     train = training_phases(fa, TransformerLM, H, D)
+    ring = ring_phases(fa, H, D)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -349,7 +377,11 @@ def main():
             "name": f"flash_attention_{name}", "route": "cuda",
             "source": src + source, "replaces": ref + line,
             "launches": train["launches"][name]}, **train["kernels"][name],
-            shape=shape))
+            shape=shape, **ring["extra"].get(name, {})))
+    kernels.insert(2, dict({
+        "name": "flash_attention_partial", "route": "cuda",
+        "source": src + "flash_attention_fwd.cu", "replaces": ref + "203"},
+        **ring["partial"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -449,9 +481,10 @@ def training_phases(fa, TransformerLM, H, D):
         step_ms.append(start.elapsed_time(end))
     launches = dict(fa.launches)
     n = FULL["n_layers"] * TRAIN_STEPS
-    if launches != {"fwd": 0, "fwd_lse": n, "bwd_dq": n, "bwd_dkv": n}:
+    if launches != {"fwd": 0, "fwd_lse": n, "partial": 0, "bwd_dq": n,
+                    "bwd_dkv": n}:
         raise SystemExit(f"fit_batch launches {launches}: want {n} each of "
-                         f"K2, K4, K5 and no K1")
+                         f"K2, K4, K5 and no K1 or K3")
     warm_ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
     print(f"  losses {losses}")
     print(f"  step ms (CUDA events) {[round(t, 2) for t in step_ms]}; warm "
@@ -481,6 +514,410 @@ def training_phases(fa, TransformerLM, H, D):
     if not (loss_err <= 1e-5 and param_err <= 1e-5):
         raise SystemExit("card and CPU training disagree")
     return {"launches": launches, "kernels": kernels}
+
+
+def check_partial(fa, label, q, k, v, q_off, k_off, causal, tol):
+    """K3 (acc, m, l) against its plain version. acc is held after dividing
+    both by the plain l, which puts it on the output's scale, where K1's
+    bounds (phase 3) apply; a row that sees no key of the hop (l = 0) must
+    have exactly acc 0, m -1e30, l 0. Returns (max abs err of acc / l,
+    (acc, m, l))."""
+    got = fa.flash_attention_partial(q, k, v, q_off, k_off, causal)
+    want = per_row(partial(fa.flash_attention_partial_reference, q_off=q_off,
+                           k_off=k_off, causal=causal), q, k, v)
+    torch.cuda.synchronize()
+    (acc, m, l), (w_acc, w_m, w_l) = got, want
+    norm = w_l.clamp_min(1e-30).transpose(1, 2)[..., None]
+    err = compare(f"K3 acc/l {label}", acc / norm, w_acc / norm, *tol)
+    # m: the max of the same f32 scores, summed in another order (K2's lse
+    # reads 1.9e-6 at T=8192). l: f32 sums of up to T p's in another order,
+    # each p carrying expf's error and one rescale per kv tile.
+    m_err = (m - w_m).abs().max().item()
+    l_rel = ((l - w_l).abs() / w_l.clamp_min(1e-30)).max().item()
+    unseen = w_l == 0
+    exact = bool((m[unseen] == fa.FINITE_NEG).all() and (l[unseen] == 0).all()
+                 and not acc.transpose(1, 2)[unseen].any())
+    ok = (m_err <= 1e-5 and l_rel <= 1e-4 and exact
+          and bool(torch.isfinite(m).all() and torch.isfinite(l).all()))
+    print(f"  K3 m, l {label}: m max_abs_err {m_err:.3e} (<= 1e-5), l max "
+          f"rel err {l_rel:.3e} (<= 1e-4), {int(unseen.sum())} rows that see "
+          f"no key exactly (0, -1e30, 0): {exact} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"K3 m/l disagree with the plain version ({label})")
+    return err, want
+
+
+def check_hop_backward(fa, label, q, k, v, q_off, k_off, causal, tol, seed,
+                       fwd):
+    """K4 (dq) and K5 (dk, dv) with the hop's offsets and f32 outputs against
+    their plain versions. lse and delta come from the plain partial `fwd`
+    of the same hop, so every row with a visible key has its exact softmax.
+    Returns ((q, k, v, delta, do, lse), {kernel: max abs err})."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    acc, m, l = fwd
+    lc = l.clamp_min(1e-30)
+    lse = m + torch.log(lc)
+    delta = fa.attention_delta((acc / lc.transpose(1, 2)[..., None]).to(
+        q.dtype), do)
+    dq, dk, dv = fa.flash_attention_bwd_partial(q, k, v, delta, do, lse,
+                                                q_off, k_off, causal)
+    kw = dict(causal=causal, q_off=q_off, k_off=k_off,
+              out_dtype=torch.float32)
+    args = (q, k, v, do, lse, delta)
+    want_dq = per_row(partial(fa.flash_attention_bwd_dq_reference, **kw),
+                      *args)
+    want_dk, want_dv = per_row(
+        partial(fa.flash_attention_bwd_dkv_reference, **kw), *args)
+    torch.cuda.synchronize()
+    if causal and k_off >= q_off + q.shape[1] and (
+            dq.any() or dk.any() or dv.any()):
+        raise SystemExit(f"K4/K5 wrote a gradient for a wholly masked hop "
+                         f"({label})")
+    errs = {"bwd_dq": compare(f"K4 dq f32  {label}", dq, want_dq, *tol,
+                              tol[0])}
+    errs["bwd_dkv"] = max(
+        compare(f"K5 dk f32  {label}", dk, want_dk, *tol, tol[0]),
+        compare(f"K5 dv f32  {label}", dv, want_dv, *tol, tol[0]))
+    return (q, k, v, delta, do, lse), errs
+
+
+def ring_qkv(b, t, h, d, dtype, seed, device="cuda"):
+    """The ring's global q, k, v, [B, T, H, D] contiguous, from a seed; the
+    same on every process that asks."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(3, b, t, h, d, generator=gen, device=device)
+    return [a.to(dtype).contiguous() for a in qkv]
+
+
+def ring_rank(rank, world, store, out_dir, backend, seed):
+    """One rank of the ring main path (phase 14), started by spawn: join the
+    group, run (a) and (b) on this rank's chunk with the counters set to 0
+    before each and read after, time both warm, run the f32 case on the card
+    and on the CPU, and save what the parent checks."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import ring_attention as ra
+    ring_self_attention = ra.ring_self_attention
+    device = rank if backend == "nccl" else 0
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=RING_GROUP_TIMEOUT_S))
+    barrier = (partial(dist.barrier, device_ids=[device])
+               if backend == "nccl" else dist.barrier)
+    # the f32 case's CPU ring needs a group that carries CPU tensors
+    cpu_group = dist.new_group(backend="gloo") if backend == "nccl" else None
+    tq = T // world
+    mine = slice(rank * tq, (rank + 1) * tq)
+    q, k, v = (a[:, mine].contiguous() for a in ring_qkv(
+        B, T, FULL["n_heads"], FULL["d_model"] // FULL["n_heads"],
+        torch.bfloat16, seed))
+    ring = partial(ring_self_attention, causal=True, use_flash=True)
+    n_total = q.numel() * world
+
+    def inference():
+        with torch.no_grad():
+            return ring(q, k, v)
+
+    def training():
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        out = ring(*leaves)
+        loss = (out.float() ** 2).sum() / n_total    # mean over the global o
+        return out.detach(), torch.autograd.grad(loss, leaves)
+
+    res = {}
+    fa.reset_launches()
+    res["out"] = inference()
+    torch.cuda.synchronize()
+    res["launches_inference"] = dict(fa.launches)
+    fa.reset_launches()
+    res["out_train"], res["grads"] = training()
+    torch.cuda.synchronize()
+    res["launches_training"] = dict(fa.launches)
+    barrier()
+    res["fwd_ms"] = cuda_ms(inference, iters=5, warmup=1)
+    barrier()
+    res["fwd_bwd_ms"] = cuda_ms(training, iters=3, warmup=1)
+    # one rotation as the forward moves it (k, v) and as the backward does
+    # (k, v and the f32 dk, dv accumulators)
+    acc32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for key, payload in (("rotate_fwd_ms", (k, v)),
+                         ("rotate_bwd_ms", (k, v, acc32, acc32))):
+        barrier()
+        res[key] = cuda_ms(lambda: ra._ppermute(payload, None), iters=5,
+                           warmup=1)
+
+    # f32, T=1024: the kernels on the card against the plain versions on the
+    # CPU, through the same ring; loss sum(o**2)/2, so dO = o
+    f32 = [a[:, rank * 256:(rank + 1) * 256].contiguous() for a in ring_qkv(
+        2, 1024, 4, 64, torch.float32, seed + 1, "cpu")]
+    f32_res = []
+    for dev, group in (("cuda", None), ("cpu", cpu_group)):
+        leaves = [a.to(dev).requires_grad_() for a in f32]
+        out = ring(*leaves, group=group)
+        grads = torch.autograd.grad((out ** 2).sum() / 2, leaves)
+        f32_res.append([t.detach().cpu() for t in (out, *grads)])
+    res["f32_err"] = max((a - b).abs().max().item()
+                         for a, b in zip(*f32_res))
+    res["f32_finite"] = all(bool(torch.isfinite(a).all())
+                            for a in f32_res[0])
+    to_cpu = lambda x: x.cpu() if torch.is_tensor(x) else x
+    res = {key: ([to_cpu(t) for t in val] if isinstance(val, tuple)
+                 else to_cpu(val)) for key, val in res.items()}
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def run_ring(world, backend, seed):
+    """Spawn `world` ranks of `ring_rank`, wait at most
+    RING_JOIN_TIMEOUT_S, kill what is left and fail unless every rank exits
+    0. Returns each rank's saved results."""
+    import torch.multiprocessing as mp
+    work = Path(__file__).resolve().parent / "build" / f"ring_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=ring_rank, args=(
+        r, world, str(work / "store"), str(work), backend, seed))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RING_JOIN_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise SystemExit(f"ring ranks over {backend} exited {codes}")
+    results = [torch.load(work / f"rank{r}.pt") for r in range(world)]
+    shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
+def check_ring(ranks, backend, want, label):
+    """The ring's counts, its f32 case, and its gathered output and
+    gradients against the single-card flash attention `want` = (o, dq,
+    dk, dv). Returns the timings of the slowest rank."""
+    n = len(ranks)
+    inference = {"fwd": 0, "fwd_lse": 0, "partial": n, "bwd_dq": 0,
+                 "bwd_dkv": 0}
+    training = dict(inference, bwd_dq=n, bwd_dkv=n)
+    for r, res in enumerate(ranks):
+        if (res["launches_inference"] != inference
+                or res["launches_training"] != training):
+            raise SystemExit(
+                f"ring rank {r} ({backend}) launched "
+                f"{res['launches_inference']} without grad and "
+                f"{res['launches_training']} with grad: want {inference} "
+                f"and {training}")
+        # f32: the kernels' FMA order against the CPU's products
+        if not (res["f32_finite"] and res["f32_err"] <= 1e-5):
+            raise SystemExit(f"f32 ring on the card disagrees with the CPU "
+                             f"ring on rank {r}: {res['f32_err']:.3e}")
+    print(f"  {label}: launches per rank {inference} without grad, "
+          f"{training} with grad; f32 T=1024 ring card vs CPU max abs err "
+          f"{max(r['f32_err'] for r in ranks):.3e} (<= 1e-5)")
+    gather = lambda get: torch.cat([get(r).cuda() for r in ranks], 1)
+    out = gather(lambda r: r["out"])
+    if not torch.equal(out, gather(lambda r: r["out_train"])):
+        raise SystemExit("the ring's outputs with and without grad differ")
+    # bf16 as in phases 3 and 7: a step of bf16 may flip between two
+    # roundings of nearly equal f32 sums, and the ring rounds p against each
+    # hop's max where the single-card kernel rounds it against its running
+    # max. The loss's scale is arbitrary, and a gradient entry can be far
+    # smaller than the terms it sums (ds = p(dP - delta) cancels), so both
+    # gradients are divided by the single-card gradient's rms before the
+    # element-wise bound; the per-row bound does not depend on the scale.
+    errs = {"out": compare(f"{label} o  vs single card", out, want[0],
+                           1e-2, 1e-2, 1e-2)}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        rms = want[1 + i].float().pow(2).mean().sqrt()
+        errs[name] = compare(
+            f"{label} {name}/rms vs single card",
+            gather(lambda r: r["grads"][i]).float() / rms,
+            want[1 + i].float() / rms, 1e-2, 1e-2, 1e-2, 1e-2)
+    slowest = {key: max(r[key] for r in ranks) for key in (
+        "fwd_ms", "fwd_bwd_ms", "rotate_fwd_ms", "rotate_bwd_ms")}
+    print(f"  {label}: warm ring forward {slowest['fwd_ms']:.2f} ms, "
+          f"forward+backward {slowest['fwd_bwd_ms']:.2f} ms; one rotation "
+          f"of (k, v) {slowest['rotate_fwd_ms']:.2f} ms, of (k, v, dk, dv) "
+          f"{slowest['rotate_bwd_ms']:.2f} ms (CUDA events, slowest rank)")
+    return dict(slowest, errs=errs)
+
+
+def ring_main_path(fa, H, D, backend):
+    """Phase 14 over one backend: the ranks (gloo: all on cuda:0; NCCL: one
+    per card), the single-card flash attention on the same global input as
+    the reference (K2, then K4 and K5, on cuda:0), the checks. Returns the
+    slowest rank's timings and the launches summed over the ranks."""
+    seed = 51
+    ranks = run_ring(RING, backend, seed)
+    leaves = [a.requires_grad_() for a in ring_qkv(B, T, H, D,
+                                                   torch.bfloat16, seed)]
+    o = fa.flash_attention(*leaves, True)
+    grads = torch.autograd.grad((o.float() ** 2).mean(), leaves)
+    want = (o.detach(), *grads)
+    del leaves, o, grads
+    label = (f"{RING} ranks sharing one card over gloo" if backend == "gloo"
+             else f"{RING} ranks, one per card, over NCCL")
+    result = check_ring(ranks, backend, want, label)
+    result["launches"] = {
+        name: sum(r["launches_inference"][name]
+                  + r["launches_training"][name] for r in ranks)
+        for name in ("partial", "bwd_dq", "bwd_dkv")}
+    print("ring: " + json.dumps({
+        "ranks": RING, "backend": backend,
+        "cards": 1 if backend == "gloo" else RING,
+        **{key: result[key] for key in ("fwd_ms", "fwd_bwd_ms",
+                                        "rotate_fwd_ms", "rotate_bwd_ms")},
+        "note": ("four ranks share one card and rotate K/V through the "
+                 "host; not a multi-card figure") if backend == "gloo"
+        else "one rank per card; NCCL P2P over NVLink"}))
+    return result
+
+
+def ring_phases(fa, H, D):
+    """Phases 11-14. Returns {"partial": K3's kernels-line fields, "extra":
+    {kernel: K4/K5 hop fields}}."""
+    print(f"phase 11: ring partial (K3) against its plain version, hop of "
+          f"T={T} over a ring of {RING}")
+    bf16_tol, fp16_tol, f32_tol = (1e-2, 1e-2, 1e-2), (2e-3, 2e-3, 2e-3), (
+        1e-5, 1e-5, 1e-5)
+    q, k, v = ring_qkv(B, HOP_T, H, D, torch.bfloat16, seed=21)
+    hops = [("diagonal", HOP_T, HOP_T, True), ("visible", 2 * HOP_T, 0, True),
+            ("wholly masked", 0, HOP_T, True),
+            ("non-causal", 0, HOP_T, False)]
+    shape = f"B={B} Tq=Tk={HOP_T} H={H} D={D} bf16"
+    fwds, k3_err = {}, 0.0
+    for label, q_off, k_off, causal in hops:
+        err, fwds[label] = check_partial(
+            fa, f"{shape} {label} ({q_off}, {k_off})", q, k, v, q_off, k_off,
+            causal, bf16_tol)
+        k3_err = max(k3_err, err)
+    # T=1025: 63 padded keys and queries in the last tiles; part overlaps
+    # leave rows that see no key of the hop inside computed tiles
+    edges = [("B=2 T=1025 H=8 D=64 bf16 visible", (2, 1025, 8, 64,
+                                                   torch.bfloat16),
+              1025, 0, True, bf16_tol),
+             ("B=2 T=1025 H=8 D=64 bf16 diagonal", (2, 1025, 8, 64,
+                                                    torch.bfloat16),
+              0, 0, True, bf16_tol),
+             ("B=2 T=1000 H=8 D=128 fp16 part overlap", (2, 1000, 8, 128,
+                                                         torch.float16),
+              0, 500, True, fp16_tol),
+             ("B=2 T=300 H=4 D=64 f32 part overlap", (2, 300, 4, 64,
+                                                      torch.float32),
+              150, 300, True, f32_tol)]
+    edge_inputs = {}
+    for i, (label, shp, q_off, k_off, causal, tol) in enumerate(edges):
+        eq, ek, ev = strided_qkv(*shp, seed=22 + i)
+        _, fwd = check_partial(fa, f"{label} ({q_off}, {k_off})", eq, ek, ev,
+                               q_off, k_off, causal, tol)
+        edge_inputs[label] = (eq, ek, ev, fwd)
+
+    print("phase 12: K4 and K5 with hop offsets and f32 outputs against "
+          "their plain versions")
+    hop_errs = {"bwd_dq": 0.0, "bwd_dkv": 0.0}
+    for i, (label, q_off, k_off, causal) in enumerate(hops):
+        args, errs = check_hop_backward(
+            fa, f"{shape} {label}", q, k, v, q_off, k_off, causal, bf16_tol,
+            31 + i, fwds[label])
+        hop_errs = {n: max(hop_errs[n], errs[n]) for n in hop_errs}
+        if label == "visible":
+            visible = args
+    for i, (label, _, q_off, k_off, causal, tol) in enumerate(edges):
+        eq, ek, ev, fwd = edge_inputs[label]
+        check_hop_backward(fa, label, eq, ek, ev, q_off, k_off, causal, tol,
+                           41 + i, fwd)
+    del edge_inputs, fwds
+
+    print(f"phase 13: K3, K4, K5 timed on the visible hop ({shape}, "
+          f"q_off {2 * HOP_T}, k_off 0)")
+    q, k, v, delta, do, lse = visible
+    off = dict(q_off=2 * HOP_T, k_off=0)
+    f32_out = dict(off, out_dtype=torch.float32)
+    bwd_args = (q, k, v, do, lse, delta)
+    calls = {  # kernel wrapper, plain version, inputs
+        "partial": (partial(fa.flash_attention_partial, causal=True, **off),
+                    partial(fa.flash_attention_partial_reference,
+                            causal=True, **off), (q, k, v)),
+        "bwd_dq": (partial(fa.flash_attention_bwd_dq, causal=True,
+                           **f32_out),
+                   partial(fa.flash_attention_bwd_dq_reference, causal=True,
+                           **f32_out), bwd_args),
+        "bwd_dkv": (partial(fa.flash_attention_bwd_dkv, causal=True,
+                            **f32_out),
+                    partial(fa.flash_attention_bwd_dkv_reference,
+                            causal=True, **f32_out), bwd_args),
+    }
+    pairs = B * H * HOP_T * HOP_T              # every pair of the hop visible
+    panel = B * HOP_T * H * D * q.element_size()
+    panel32 = B * HOP_T * H * D * 4
+    row_stats = B * H * HOP_T * 4
+    work = {  # (FLOP, bytes: each input read once, each output written once)
+        "partial": (4 * D * pairs, 3 * panel + panel32 + 2 * row_stats),
+        "bwd_dq": (6 * D * pairs, 4 * panel + 2 * row_stats + panel32),
+        "bwd_dkv": (8 * D * pairs, 4 * panel + 2 * row_stats + 2 * panel32),
+    }
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
+                  for a in (q, k, v))
+    gt = do.transpose(1, 2).contiguous()
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt), iters=20)
+        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(qt, kt, vt), (qt, kt, vt), gt), iters=10)
+    lib_bwd = lib_fwd_bwd - lib_fwd
+    library = {"partial": None, "bwd_dq": lib_bwd, "bwd_dkv": lib_bwd}
+    timed = {}
+    for name, (kernel_fn, plain_fn, inputs) in calls.items():
+        k_ms = cuda_ms(lambda: kernel_fn(*inputs), iters=20)
+        p_ms = cuda_ms(lambda: per_row(plain_fn, *inputs), iters=2,
+                       warmup=1)
+        b_ms, b_by = bound(*work[name])
+        timed[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": library[name]}
+        lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+              f"library {lib}, bound {b_ms:.4f} ms ({b_by}), roofline share "
+              f"{b_ms / k_ms:.3f}, {work[name][0] / k_ms / 1e9:.1f} TFLOP/s")
+    print(f"  SDPA flash, non-causal, [{B}, {H}, {HOP_T}, {D}] bf16: forward "
+          f"{lib_fwd:.4f} ms, forward+backward {lib_fwd_bwd:.4f} ms, "
+          f"backward {lib_bwd:.4f} ms (the same dq, dk, dv rounded to bf16)")
+    del visible, q, k, v, delta, do, lse, bwd_args, calls, qt, kt, vt, gt
+
+    print(f"phase 14: ring main path at full width: {RING} ranks on cuda:0 "
+          f"over gloo, global B={B} T={T} H={H} D={D} bf16 causal")
+    torch.cuda.empty_cache()
+    gloo = ring_main_path(fa, H, D, "gloo")
+    if torch.cuda.device_count() >= RING:
+        ring_main_path(fa, H, D, "nccl")
+    else:
+        print(f"  NCCL ring skipped: it needs {RING} cards, one per rank "
+              f"(NCCL refuses two ranks on one device); this machine has "
+              f"{torch.cuda.device_count()}")
+    ring_launches = gloo["launches"]
+    hop_shape = f"{shape}, visible hop (q_off {2 * HOP_T}, k_off 0)"
+    return {
+        "partial": dict(timed["partial"], launches=ring_launches["partial"],
+                        max_abs_err=k3_err, shape=hop_shape,
+                        err_on="acc / plain l",
+                        launches_per_rank={"inference": RING,
+                                           "training": RING}),
+        "extra": {name: {"ring_launches": ring_launches[name], "hop": dict(
+            timed[name], max_abs_err=hop_errs[name], shape=hop_shape,
+            out_dtype="float32",
+            library_call="SDPA flash backward, non-causal, dq/dk/dv "
+                         "together, rounded to bf16 (fwd+bwd minus fwd)")}
+            for name in ("bwd_dq", "bwd_dkv")},
+    }
 
 
 if __name__ == "__main__":

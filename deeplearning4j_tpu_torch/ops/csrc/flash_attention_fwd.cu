@@ -1,16 +1,28 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), in two instantiations:
+// Flash-attention forward for NVIDIA Hopper (sm_90a), in three modes:
 //  * K1 (`dl4j_flash_fwd`) replaces the TPU kernel `_kernel` in
 //    deeplearning4j_tpu/ops/flash_attention.py (its grid step
 //    `_online_softmax_step`), which `_flash_fwd_bthd(with_lse=False)` launches
 //    for inference;
 //  * K2 (`dl4j_flash_fwd_lse`) replaces `_kernel_lse`, which
 //    `_flash_fwd_bthd(with_lse=True)` launches for the training forward `_fwd`.
-//    It is K1 with the compile-time flag kLse set: the epilogue also writes
+//    It is K1 in the compile-time mode kLse: the epilogue also writes
 //    the per-row logsumexp lse = m + log(max(l, 1e-30)) as f32 [B, H, T], the
 //    one residual the backward kernels (flash_attention_bwd.cu) need beyond
 //    q, k, v, o. A row that saw only masked keys (m = -inf, l = 0) gets
 //    lse = -inf, as on the TPU; causal self-attention has none, since the
-//    diagonal is always kept.
+//    diagonal is always kept;
+//  * K3 (`dl4j_flash_fwd_partial`) replaces `_partial_kernel`, which
+//    `flash_attention_partial` launches once per hop of ring attention
+//    (parallel/ring_attention.py). It writes the UNNORMALISED partial: acc as
+//    f32 [B, T, H, D] with no division, and the row max m and sum l as f32
+//    [B, H, T], for the ring to fold across hops. The causal mask compares
+//    global positions, q_off + row >= k_off + col, where q_off and k_off are
+//    the offsets of this q chunk and of the visiting kv chunk. A masked score
+//    is the finite -1e30 (kNeg) instead of -inf and p is zeroed where
+//    s <= kNeg / 2, so a row that sees no key of the hop keeps m = -1e30,
+//    l = 0, acc = 0 (a -inf there would give NaN in the ring's fold). A hop
+//    that is wholly masked (k_off > q_off + T - 1) runs no kv tile at all and
+//    writes exactly that for every row, as the TPU kernel's skipped grid does.
 //
 // Computes O = softmax(Q K^T * scale) V over [B, T, H, D] tensors addressed by
 // strides (only the innermost stride must be 1), with an online softmax: the
@@ -28,7 +40,10 @@
 // Bound on an H100 SXM: at the serving shape (B=4, T=8192, H=8, D=64, bf16,
 // causal) the work is 4*B*H*D*T(T+1)/2 = 2.75e11 FLOP, 0.28 ms at 989 TFLOP/s,
 // against 134 MB of q/k/v/o traffic, 0.04 ms at 3.35 TB/s: compute-bound, so
-// the products go through the tensor cores.
+// the products go through the tensor cores. K3 at one visible hop of T=8192
+// over a ring of 4 (B=4, Tq=Tk=2048, H=8, D=64, bf16): 4*B*H*Tq*Tk*D =
+// 3.44e10 FLOP, 0.035 ms, against 42 MB (q, k, v read; f32 acc, m, l
+// written), 0.013 ms: compute-bound too.
 //
 // Design (a first, simple version; wgmma, TMA and warp specialisation come
 // later):
@@ -40,9 +55,10 @@
 //    the A operand of PV without a trip through shared memory.
 //  * f32: the same online softmax in plain f32 FMA (no TF32), one block per
 //    (batch*head, 16-query tile), tiles of 32 keys in shared memory.
-//  * Causal: the kv loop stops at the diagonal tile. A ragged last tile is
-//    masked by bounds, so any T works. The heaviest causal tiles are scheduled
-//    first.
+//  * Causal: the kv loop stops at the last tile that holds a key the tile's
+//    last query may see (the diagonal tile when the offsets are equal). A
+//    ragged last tile is masked by bounds, so any T works. The heaviest causal
+//    tiles are scheduled first.
 #include <math.h>
 
 #include "flash_common.cuh"
@@ -54,14 +70,28 @@ constexpr int kBlockK = 64;           // tensor-core path: keys per tile
 constexpr int kF32BlockQ = 16;        // f32 path
 constexpr int kF32BlockK = 32;
 
-// Tensor-core path (fragment layouts in flash_common.cuh). With kLse, lse is
-// [B, H, T] f32; without, it is not touched.
-template <typename Elem, int D, bool kLse>
+// What a forward kernel writes: K1 o; K2 o and lse; K3 the partial.
+enum Mode { kPlain = 0, kLse = 1, kPartial = 2 };
+
+// Index of the last kv tile of `tile` keys that holds a key which a query in
+// [0, last_q] may see, or -1 if none: keys run to last_q + dlt (causal,
+// dlt = q_off - k_off) and to seq_len - 1.
+__device__ __forceinline__ int last_kv_tile(int last_q, int dlt, int seq_len, int tile) {
+  const int last_key = min(seq_len - 1, last_q + dlt);
+  return last_key < 0 ? -1 : last_key / tile;
+}
+
+// Tensor-core path (fragment layouts in flash_common.cuh). `o` is Elem
+// [B, T, H, D] (K1, K2) or K3's f32 acc; `st0` is lse (K2) or m (K3), `st1`
+// is l (K3), each f32 [B, H, T]; what a mode does not write is not touched.
+template <typename Elem, int D, int kMode>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                         const Elem* __restrict__ v, Elem* __restrict__ o,
-                         float* __restrict__ lse, int heads, int seq_len, Strides sq,
-                         Strides sk, Strides sv, Strides so, float scale, int causal) {
+                         const Elem* __restrict__ v, void* __restrict__ o,
+                         float* __restrict__ st0, float* __restrict__ st1, int heads,
+                         int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
+                         float scale, int causal, int q_off, int k_off) {
+  constexpr float neg = kMode == kPartial ? -1e30f : -INFINITY;  // masked score
   constexpr int kPadK = D + 8;        // K row pitch (elements)
   constexpr int kPadV = kBlockK + 8;  // transposed-V row pitch
   constexpr int kChunks = D / 8;      // 16-byte chunks per row
@@ -76,9 +106,10 @@ __global__ void __launch_bounds__(kThreads)
   const Elem* qb = q + b * sq.b + h * sq.h;
   const Elem* kb = k + b * sk.b + h * sk.h;
   const Elem* vb = v + b * sv.b + h * sv.h;
-  Elem* ob = o + b * so.b + h * so.h;
   const int row0 = qtile * kBlockQ + warp * 16 + g;
   const int row1 = row0 + 8;
+  // key col is masked for query row when col > row + dlt (0 but for K3)
+  const int dlt = kMode == kPartial ? q_off - k_off : 0;
 
   // Q as the A operand of S = Q K^T, held for the whole kv loop.
   uint32_t qa[D / 16][4];
@@ -87,10 +118,12 @@ __global__ void __launch_bounds__(kThreads)
   float acc[D / 8][4];
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float m0 = neg, m1 = neg, l0 = 0.f, l1 = 0.f;
 
-  // kBlockQ == kBlockK, so the diagonal tile of query tile i is kv tile i.
-  const int n_kv = causal ? qtile + 1 : (seq_len + kBlockK - 1) / kBlockK;
+  // At dlt = 0, kBlockQ == kBlockK makes this qtile + 1: the diagonal tile.
+  const int n_kv = causal ? last_kv_tile(min(seq_len, (qtile + 1) * kBlockQ) - 1, dlt, seq_len,
+                                         kBlockK) + 1
+                          : (seq_len + kBlockK - 1) / kBlockK;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k_start = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous tile
@@ -118,15 +151,15 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    float mx0 = neg, mx1 = neg;
 #pragma unroll
     for (int nt = 0; nt < kBlockK / 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = k_start + nt * 8 + 2 * t + j;
         float x0 = s[nt][j] * scale, x1 = s[nt][2 + j] * scale;
-        if (col >= seq_len || (causal && col > row0)) x0 = -INFINITY;
-        if (col >= seq_len || (causal && col > row1)) x1 = -INFINITY;
+        if (col >= seq_len || (causal && col > row0 + dlt)) x0 = neg;
+        if (col >= seq_len || (causal && col > row1 + dlt)) x1 = neg;
         s[nt][j] = x0;
         s[nt][2 + j] = x1;
         mx0 = fmaxf(mx0, x0);
@@ -134,19 +167,27 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    // A row that has seen only masked keys keeps m = -inf; subtracting 0
-    // instead keeps exp() free of NaN (its p and alpha are then 0).
-    const float mu0 = mn0 == -INFINITY ? 0.f : mn0, mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    // K1/K2: a row that has seen only masked keys keeps m = -inf; subtracting
+    // 0 instead keeps exp() free of NaN (its p and alpha are then 0). K3's m
+    // is finite, and its masked p are zeroed below instead.
+    const float mu0 = kMode != kPartial && mn0 == -INFINITY ? 0.f : mn0;
+    const float mu1 = kMode != kPartial && mn1 == -INFINITY ? 0.f : mn1;
     const float alpha0 = expf(m0 - mu0), alpha1 = expf(m1 - mu1);
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kBlockK / 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        s[nt][j] = expf(s[nt][j] - mu0);
-        s[nt][2 + j] = expf(s[nt][2 + j] - mu1);
-        rs0 += s[nt][j];
-        rs1 += s[nt][2 + j];
+        float p0 = expf(s[nt][j] - mu0), p1 = expf(s[nt][2 + j] - mu1);
+        if constexpr (kMode == kPartial) {
+          // a row still at m = -1e30 would get exp(0) = 1 for a masked key
+          if (s[nt][j] <= 0.5f * neg) p0 = 0.f;
+          if (s[nt][2 + j] <= 0.5f * neg) p1 = 0.f;
+        }
+        s[nt][j] = p0;
+        s[nt][2 + j] = p1;
+        rs0 += p0;
+        rs1 += p1;
       }
     }
     l0 = l0 * alpha0 + quad_sum(rs0);
@@ -174,34 +215,47 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // every lane of a quad holds its rows' m and l; one lane writes them
+  const long long stat_row = static_cast<long long>(bh) * seq_len;
+  if constexpr (kMode == kPartial) {
+    float* ob = static_cast<float*>(o) + b * so.b + h * so.h;
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (row0 < seq_len)
-      *reinterpret_cast<uint32_t*>(ob + row0 * so.t + c) =
-          Mma<Elem>::pack(acc[nd][0] / d0, acc[nd][1] / d0);
-    if (row1 < seq_len)
-      *reinterpret_cast<uint32_t*>(ob + row1 * so.t + c) =
-          Mma<Elem>::pack(acc[nd][2] / d1, acc[nd][3] / d1);
-  }
-  if constexpr (kLse) {
-    // every lane of a quad holds its rows' m and l; one lane writes
-    float* lb = lse + static_cast<long long>(bh) * seq_len;
-    if (t == 0 && row0 < seq_len) lb[row0] = m0 + logf(d0);
-    if (t == 0 && row1 < seq_len) lb[row1] = m1 + logf(d1);
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int c = nd * 8 + 2 * t;
+      if (row0 < seq_len) store2(ob + row0 * so.t + c, acc[nd][0], acc[nd][1]);
+      if (row1 < seq_len) store2(ob + row1 * so.t + c, acc[nd][2], acc[nd][3]);
+    }
+    float *mb = st0 + stat_row, *lb = st1 + stat_row;
+    if (t == 0 && row0 < seq_len) mb[row0] = m0, lb[row0] = l0;
+    if (t == 0 && row1 < seq_len) mb[row1] = m1, lb[row1] = l1;
+  } else {
+    Elem* ob = static_cast<Elem*>(o) + b * so.b + h * so.h;
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int c = nd * 8 + 2 * t;
+      if (row0 < seq_len) store2(ob + row0 * so.t + c, acc[nd][0] / d0, acc[nd][1] / d0);
+      if (row1 < seq_len) store2(ob + row1 * so.t + c, acc[nd][2] / d1, acc[nd][3] / d1);
+    }
+    if constexpr (kMode == kLse) {
+      float* lse = st0 + stat_row;
+      if (t == 0 && row0 < seq_len) lse[row0] = m0 + logf(d0);
+      if (t == 0 && row1 < seq_len) lse[row1] = m1 + logf(d1);
+    }
   }
 }
 
 // f32 path: full-precision FMA. Each thread owns BQ*D/kThreads accumulator
 // entries; the row statistics are kept in shared memory.
-template <int D, bool kLse>
+template <int D, int kMode>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int heads, int seq_len, Strides sq,
-                         Strides sk, Strides sv, Strides so, float scale, int causal) {
+                         const float* __restrict__ v, void* __restrict__ o,
+                         float* __restrict__ st0, float* __restrict__ st1, int heads,
+                         int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
+                         float scale, int causal, int q_off, int k_off) {
   constexpr int BQ = kF32BlockQ, BK = kF32BlockK;
+  constexpr float neg = kMode == kPartial ? -1e30f : -INFINITY;  // masked score
   constexpr int kPer = BQ * D / kThreads;
   __shared__ float Qs[BQ][D + 1];
   __shared__ float Ks[BK][D + 1];
@@ -216,22 +270,23 @@ __global__ void __launch_bounds__(kThreads)
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  float* ob = o + b * so.b + h * so.h;
+  float* ob = static_cast<float*>(o) + b * so.b + h * so.h;
+  const int dlt = kMode == kPartial ? q_off - k_off : 0;
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D, row = q_start + r;
     Qs[r][c] = row < seq_len ? qb[row * sq.t + c] : 0.f;
   }
   if (tid < BQ) {
-    m_s[tid] = -INFINITY;
+    m_s[tid] = neg;
     l_s[tid] = 0.f;
   }
   float acc[kPer];
 #pragma unroll
   for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
 
-  const int last_key = causal ? min(seq_len, q_start + BQ) - 1 : seq_len - 1;
-  const int n_kv = last_key / BK + 1;
+  const int n_kv = causal ? last_kv_tile(min(seq_len, q_start + BQ) - 1, dlt, seq_len, BK) + 1
+                          : (seq_len + BK - 1) / BK;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k_start = kt * BK;
     __syncthreads();
@@ -248,19 +303,22 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < D; ++d) dot = fmaf(Qs[r][d], Ks[c][d], dot);
       float x = dot * scale;
       const int key = k_start + c;
-      if (key >= seq_len || (causal && key > q_start + r)) x = -INFINITY;
+      if (key >= seq_len || (causal && key > q_start + r + dlt)) x = neg;
       Ss[r][c] = x;
     }
     __syncthreads();
     if (tid < BQ) {
-      float mx = -INFINITY;
+      float mx = neg;
       for (int c = 0; c < BK; ++c) mx = fmaxf(mx, Ss[tid][c]);
       const float mn = fmaxf(m_s[tid], mx);
-      const float mu = mn == -INFINITY ? 0.f : mn;
+      const float mu = kMode != kPartial && mn == -INFINITY ? 0.f : mn;
       const float alpha = expf(m_s[tid] - mu);
       float sum = 0.f;
       for (int c = 0; c < BK; ++c) {
-        const float p = expf(Ss[tid][c] - mu);
+        float p = expf(Ss[tid][c] - mu);
+        if constexpr (kMode == kPartial) {
+          if (Ss[tid][c] <= 0.5f * neg) p = 0.f;
+        }
         Ss[tid][c] = p;
         sum += p;
       }
@@ -281,75 +339,79 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int e = 0; e < kPer; ++e) {
     const int i = tid + e * kThreads, r = i / D, c = i % D, row = q_start + r;
-    if (row < seq_len) ob[row * so.t + c] = acc[e] / fmaxf(l_s[r], 1e-30f);
+    if (row < seq_len)
+      ob[row * so.t + c] = kMode == kPartial ? acc[e] : acc[e] / fmaxf(l_s[r], 1e-30f);
   }
-  if constexpr (kLse) {
-    const int row = q_start + tid;
-    if (tid < BQ && row < seq_len)
-      lse[static_cast<long long>(bh) * seq_len + row] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+  const int row = q_start + tid;
+  if (tid < BQ && row < seq_len) {
+    const long long at = static_cast<long long>(bh) * seq_len + row;
+    if constexpr (kMode == kLse) st0[at] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+    if constexpr (kMode == kPartial) st0[at] = m_s[tid], st1[at] = l_s[tid];
   }
 }
 
-template <typename Elem, int D, bool kLse>
-int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
-               int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
-               float scale, int causal, cudaStream_t stream) {
-  const dim3 grid(batch * heads, (seq_len + kBlockQ - 1) / kBlockQ);
-  flash_fwd_mma_kernel<Elem, D, kLse><<<grid, kThreads, 0, stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
-      static_cast<Elem*>(o), lse, heads, seq_len, sq, sk, sv, so, scale, causal);
+// The arguments every forward launch shares.
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float *st0, *st1;
+  int batch, heads, seq_len;
+  Strides sq, sk, sv, so;
+  float scale;
+  int causal, q_off, k_off;
+  cudaStream_t stream;
+};
+
+template <typename Elem, int D, int kMode>
+int launch_mma(const Args& a) {
+  const dim3 grid(a.batch * a.heads, (a.seq_len + kBlockQ - 1) / kBlockQ);
+  flash_fwd_mma_kernel<Elem, D, kMode><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const Elem*>(a.q), static_cast<const Elem*>(a.k),
+      static_cast<const Elem*>(a.v), a.o, a.st0, a.st1, a.heads, a.seq_len, a.sq, a.sk, a.sv,
+      a.so, a.scale, a.causal, a.q_off, a.k_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kLse>
-int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
-               int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
-               float scale, int causal, cudaStream_t stream) {
-  const dim3 grid(batch * heads, (seq_len + kF32BlockQ - 1) / kF32BlockQ);
-  flash_fwd_f32_kernel<D, kLse><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, heads, seq_len, sq, sk, sv, so, scale, causal);
+template <int D, int kMode>
+int launch_f32(const Args& a) {
+  const dim3 grid(a.batch * a.heads, (a.seq_len + kF32BlockQ - 1) / kF32BlockQ);
+  flash_fwd_f32_kernel<D, kMode><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.o, a.st0, a.st1, a.heads, a.seq_len, a.sq, a.sk, a.sv,
+      a.so, a.scale, a.causal, a.q_off, a.k_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kLse>
-int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
-           int batch, int heads, int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, int causal, cudaStream_t stream) {
+template <int D, int kMode>
+int launch(int dtype, const Args& a) {
   switch (dtype) {
     case 0:
-      return launch_f32<D, kLse>(q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so, scale,
-                                 causal, stream);
+      return launch_f32<D, kMode>(a);
     case 1:
-      return launch_mma<__half, D, kLse>(q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv,
-                                         so, scale, causal, stream);
+      return launch_mma<__half, D, kMode>(a);
     case 2:
-      return launch_mma<__nv_bfloat16, D, kLse>(q, k, v, o, lse, batch, heads, seq_len, sq,
-                                                sk, sv, so, scale, causal, stream);
+      return launch_mma<__nv_bfloat16, D, kMode>(a);
   }
   return -1;
 }
 
-template <bool kLse>
+template <int kMode>
 int dispatch(int dtype, int head_dim, const void* q, const void* k, const void* v, void* o,
-             float* lse, int batch, int heads, int seq_len, const long long* st, float scale,
-             int causal, void* stream) {
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
-      so{st[9], st[10], st[11]};
-  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+             float* st0, float* st1, int batch, int heads, int seq_len, const long long* st,
+             float scale, int causal, int q_off, int k_off, void* stream) {
+  const Args a{q, k, v, o, st0, st1, batch, heads, seq_len,
+               Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+               Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+               scale, causal, q_off, k_off, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
     case 16:
-      return launch<16, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
-                              scale, causal, cs);
+      return launch<16, kMode>(dtype, a);
     case 32:
-      return launch<32, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
-                              scale, causal, cs);
+      return launch<32, kMode>(dtype, a);
     case 64:
-      return launch<64, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
-                              scale, causal, cs);
+      return launch<64, kMode>(dtype, a);
     case 128:
-      return launch<128, kLse>(dtype, q, k, v, o, lse, batch, heads, seq_len, sq, sk, sv, so,
-                               scale, causal, cs);
+      return launch<128, kMode>(dtype, a);
   }
   return -1;
 }
@@ -364,8 +426,8 @@ extern "C" int dl4j_flash_fwd(int dtype, int head_dim, const void* q, const void
                               const void* v, void* o, int batch, int heads, int seq_len,
                               const long long* strides, float scale, int causal,
                               void* stream) {
-  return dispatch<false>(dtype, head_dim, q, k, v, o, nullptr, batch, heads, seq_len, strides,
-                         scale, causal, stream);
+  return dispatch<kPlain>(dtype, head_dim, q, k, v, o, nullptr, nullptr, batch, heads, seq_len,
+                          strides, scale, causal, 0, 0, stream);
 }
 
 // K2: as dl4j_flash_fwd, plus lse, f32 [batch, heads, seq_len] contiguous.
@@ -373,6 +435,20 @@ extern "C" int dl4j_flash_fwd_lse(int dtype, int head_dim, const void* q, const 
                                   const void* v, void* o, float* lse, int batch, int heads,
                                   int seq_len, const long long* strides, float scale,
                                   int causal, void* stream) {
-  return dispatch<true>(dtype, head_dim, q, k, v, o, lse, batch, heads, seq_len, strides, scale,
-                        causal, stream);
+  return dispatch<kLse>(dtype, head_dim, q, k, v, o, lse, nullptr, batch, heads, seq_len,
+                        strides, scale, causal, 0, 0, stream);
+}
+
+// K3: the unnormalised partial of one ring hop. acc is f32 [batch, seq_len,
+// heads, head_dim] addressed by the fourth strides; m and l are f32 [batch,
+// heads, seq_len] contiguous. q_off and k_off are the global positions of
+// the q chunk's and the kv chunk's first rows (the causal mask keeps
+// q_off + row >= k_off + col).
+extern "C" int dl4j_flash_fwd_partial(int dtype, int head_dim, const void* q, const void* k,
+                                      const void* v, float* acc, float* m, float* l,
+                                      int batch, int heads, int seq_len,
+                                      const long long* strides, float scale, int causal,
+                                      int q_off, int k_off, void* stream) {
+  return dispatch<kPartial>(dtype, head_dim, q, k, v, acc, m, l, batch, heads, seq_len, strides,
+                            scale, causal, q_off, k_off, stream);
 }

@@ -1,6 +1,6 @@
 // Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): strides, the mma.sync m16n8k16 wrapper and its
-// fragment helpers, quad reductions.
+// fragment helpers, paired stores, quad reductions.
 //
 // mma.m16n8k16 fragments, with g = lane / 4, t = lane % 4:
 //   A (16x16, row-major): a0 = (row g, k 2t..2t+1), a1 = (row g+8, same k),
@@ -16,6 +16,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -60,6 +62,17 @@ struct Mma<__half> {
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
+
+// Two neighbouring f32 results stored to neighbouring elements of an output
+// row: as they are for f32, rounded and packed for the 16-bit types.
+template <typename Out>
+__device__ __forceinline__ void store2(Out* p, float lo, float hi) {
+  if constexpr (std::is_same<Out, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = Mma<Out>::pack(lo, hi);
+  }
+}
 
 // Two neighbouring elements of a row as one 32-bit register.
 template <typename Elem>

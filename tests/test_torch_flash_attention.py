@@ -11,8 +11,15 @@ step near 1) for the bf16 forward; bf16 gradients within 0.03 of the
 largest f32 reference gradient, JAX's own bound
 (tests/test_flash_attention.py; read: 0.0052).
 
-Tests marked `gpu` hold the CUDA kernel against the plain version on the
-card and skip without one. JAX is imported inside fixtures, so the card-only
+The ring pieces: the plain K3 (`flash_attention_partial`) against JAX's
+`flash_attention_partial` and the offset/f32 backward
+(`flash_attention_bwd_partial`) against JAX's, on the hops of a causal ring
+(diagonal, visible, wholly masked, part overlap) and non-causal: acc, m, l
+and the f32 gradients at 1e-5 abs for f32 inputs; a row that sees no key of
+the hop has exactly m = -1e30, l = 0, acc = 0 on both sides.
+
+Tests marked `gpu` hold the CUDA kernels against their plain versions on
+the card and skip without one. JAX is imported inside fixtures, so the card-only
 tests also run where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_flash_attention.py -m gpu
 """
@@ -213,6 +220,140 @@ def test_grad_route_on_cpu_counts_no_launch():
     assert fa.launches == before
 
 
+# (q_off, k_off, causal) of a hop of T=32 chunks: diagonal, visible, wholly
+# masked, the two part overlaps (rows 0-15 see nothing / every key), and
+# non-causal
+_HOPS = [(32, 32, True), (64, 0, True), (0, 32, True), (0, 16, True),
+         (16, 0, True), (0, 32, False)]
+_HOP_T = 32
+
+
+def _hop_inputs(seed, dtype=np.float32):
+    """q, k, v, do [B, T, H, D] as numpy f32 holding `dtype` values."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, _HOP_T, H, D)).astype(np.float32)
+            for _ in range(4)]
+    if dtype is not np.float32:
+        arrs = [torch.from_numpy(a).to(dtype).float().numpy() for a in arrs]
+    return arrs
+
+
+@pytest.fixture(scope="module")
+def jax_hop(jax_flash_vjp):
+    """JAX's ring-hop pieces on [B, T, H, D] numpy inputs, jitted once per
+    (input dtype, causal) with the offsets traced, as the JAX ring passes
+    them: the Pallas `flash_attention_partial` (interpret mode, 16-row
+    blocks, so its online softmax folds two kv blocks), then
+    `flash_attention_bwd_partial` on lse and delta from that partial (every
+    row with a visible key gets its exact softmax). Returns numpy (acc, m,
+    l, lse, delta, dq, dk, dv) in the port's layouts."""
+    jax, jnp, jfa = jax_flash_vjp
+
+    def hop(q, k, v, do, q_off, k_off, causal):
+        acc, m, l = jfa.flash_attention_partial(q, k, v, q_off, k_off, causal,
+                                                None, 16, 16, True)
+        lc = jnp.maximum(l, 1e-30)
+        lse = (m + jnp.log(lc))[..., None]
+        o = (acc / lc[..., None]).astype(q.dtype)
+        delta = jnp.sum(do.astype(jnp.float32) * o.astype(jnp.float32), -1,
+                        keepdims=True)
+        grads = jfa.flash_attention_bwd_partial(
+            q, k, v, delta, do, lse, q_off, k_off, causal, None, 16, 16, True)
+        return (acc, m, l, lse[..., 0], delta[..., 0], *grads)
+
+    jitted = jax.jit(hop, static_argnames="causal")
+
+    def run(arrays, dtype, q_off, k_off, causal):
+        outs = jitted(*(jnp.asarray(_to_bhtd(a), dtype) for a in arrays),
+                      q_off, k_off, causal=causal)
+        acc, *stats, dq, dk, dv = (np.array(a) for a in outs)
+        stats = [a.reshape(B, H, _HOP_T) for a in stats]
+        return (_from_bhtd(acc), *stats,
+                *(_from_bhtd(g) for g in (dq, dk, dv)))
+    return jnp, run
+
+
+@pytest.mark.parametrize("q_off,k_off,causal", _HOPS)
+def test_partial_matches_jax(jax_hop, q_off, k_off, causal):
+    """K3's plain version against JAX's Pallas `flash_attention_partial`:
+    acc, m, l at 1e-5; masked rows exactly (acc 0, m -1e30, l 0)."""
+    jnp, run = jax_hop
+    q, k, v, do = _hop_inputs(60 + q_off + k_off)
+    w_acc, w_m, w_l = run((q, k, v, do), jnp.float32, q_off, k_off,
+                          causal)[:3]
+    acc, m, l = fa.flash_attention_partial(
+        *(torch.from_numpy(a) for a in (q, k, v)), q_off, k_off, causal)
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    assert acc.shape == (B, _HOP_T, H, D) and m.shape == (B, H, _HOP_T)
+    np.testing.assert_allclose(acc.numpy(), w_acc, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(m.numpy(), w_m, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), w_l, rtol=0, atol=1e-5)
+    rows = np.arange(_HOP_T)
+    unseen = (q_off + rows < k_off) if causal else np.zeros(_HOP_T, bool)
+    for got_m, got_l, got_acc in ((m.numpy(), l.numpy(), acc.numpy()),
+                                  (w_m, w_l, w_acc)):
+        assert (got_m[..., unseen] == np.float32(fa.FINITE_NEG)).all()
+        assert (got_l[..., unseen] == 0).all()
+        assert (got_acc[:, unseen] == 0).all()
+        assert (got_l[..., ~unseen] > 0).all()
+
+
+@pytest.mark.parametrize("q_off,k_off,causal", _HOPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_partial_matches_jax(jax_hop, q_off, k_off, causal, dtype):
+    """The offset/f32 backward (K4's and K5's plain versions, through
+    `flash_attention_bwd_partial`) against JAX's on the same lse and delta:
+    f32 gradients; 1e-5 abs for f32 inputs. bf16 inputs: ds and p are
+    rounded to bf16 from f32 values that the two sides sum in another
+    order, so a rounding may flip; the bound is 1e-2 of the largest
+    gradient."""
+    jnp, run = jax_hop
+    q, k, v, do = _hop_inputs(70 + q_off + k_off, dtype)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    *_, lse, delta, dq, dk, dv = run((q, k, v, do), jdt, q_off, k_off, causal)
+    before = dict(fa.launches)
+    got = fa.flash_attention_bwd_partial(
+        *(torch.from_numpy(a).to(dtype) for a in (q, k, v)),
+        torch.from_numpy(delta), torch.from_numpy(do).to(dtype),
+        torch.from_numpy(lse), q_off, k_off, causal)
+    assert fa.launches == before
+    for name, g, w in zip(("dq", "dk", "dv"), got, (dq, dk, dv)):
+        assert g.dtype == torch.float32, name
+        atol = 1e-5 if dtype == torch.float32 else 1e-2 * np.abs(w).max()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=atol,
+                                   err_msg=name)
+    if causal and k_off >= q_off + _HOP_T:       # wholly masked: no gradient
+        assert all(not g.any() for g in got)
+
+
+def test_offset_backward_defaults_are_the_plain_backward():
+    """Offsets 0 and the default output type give the single-device passes
+    bit for bit; an f32 output is the unrounded accumulator."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _hop_inputs(5))
+    o, lse = fa.flash_attention_lse_reference(q, k, v, True)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, True)
+    dq = fa.flash_attention_bwd_dq(*args, None, 0, 0, None)
+    assert dq.dtype == torch.bfloat16
+    assert torch.equal(dq, fa.flash_attention_bwd_dq_reference(*args))
+    dq32 = fa.flash_attention_bwd_dq(*args, out_dtype=torch.float32)
+    assert dq32.dtype == torch.float32 and torch.equal(dq32.bfloat16(), dq)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, out_dtype=torch.float32)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(*args)
+    assert torch.equal(dk.bfloat16(), want_dk)
+    assert torch.equal(dv.bfloat16(), want_dv)
+    with pytest.raises(TypeError, match="out_dtype"):
+        fa.flash_attention_bwd_dq(*args, out_dtype=torch.float16)
+
+
+def test_partial_rejects_unequal_chunks_and_bad_offsets():
+    q, k, v, _ = (torch.from_numpy(a) for a in _hop_inputs(6))
+    with pytest.raises(ValueError, match="one shape"):
+        fa.flash_attention_partial(q, k[:, :16], v[:, :16], 0, 0)
+    with pytest.raises(ValueError, match="offsets"):
+        fa.flash_attention_partial(q, k, v, -1, 0)
+
+
 def test_rejects_mismatched_inputs():
     q, k, v = (torch.from_numpy(a) for a in _qkv_np(4, 8))
     with pytest.raises(ValueError, match="one shape"):
@@ -393,7 +534,8 @@ def test_autograd_on_card_takes_expanded_grad(cuda):
     out = fa.flash_attention(q, k, v, True)
     out.sum().backward()
     counts = {n: fa.launches[n] - before[n] for n in before}
-    assert counts == {"fwd": 0, "fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    assert counts == {"fwd": 0, "fwd_lse": 1, "partial": 0, "bwd_dq": 1,
+                      "bwd_dkv": 1}
     o, lse = fa.flash_attention_lse_reference(q.detach(), k.detach(),
                                               v.detach(), True)
     want = fa.flash_attention_bwd_reference(
@@ -401,3 +543,92 @@ def test_autograd_on_card_takes_expanded_grad(cuda):
     torch.cuda.synchronize()
     for leaf, w in zip((q, k, v), want):
         _assert_grad_close_on_card(leaf.grad, w)
+
+
+def _hops_for(t):
+    """(q_off, k_off, causal) for chunks of t rows: diagonal, visible,
+    wholly masked, the two part overlaps, non-causal."""
+    return [(t, t, True), (2 * t, 0, True), (0, t, True),
+            (0, t // 2, True), (t // 2, 0, True), (0, t, False)]
+
+
+def _assert_partial_close_on_card(got, want, dtype):
+    """acc element-wise and per row after dividing both by the plain l,
+    which puts it on the output's scale, where K1's bounds for the input
+    type apply; a row that sees no key has l = 0 and its acc must be
+    exactly 0. m: 1e-5 abs (the same f32 scores, maxed in another order;
+    masked rows exactly -1e30). l: 1e-5 relative, 1e-6 abs: f32 sums of
+    the same p in another order, rescaled once per kv tile."""
+    acc, m, l = got
+    w_acc, w_m, w_l = want
+    norm = w_l.clamp_min(1e-30).transpose(1, 2)[..., None]
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(acc / norm, w_acc / norm, atol=atol,
+                               rtol=rtol)
+    assert _row_rel_err(acc / norm, w_acc / norm).max() <= _ROW_RTOL[dtype]
+    torch.testing.assert_close(m, w_m, atol=1e-5, rtol=0)
+    torch.testing.assert_close(l, w_l, atol=1e-6, rtol=1e-5)
+    unseen = w_l == 0
+    assert (m[unseen] == fa.FINITE_NEG).all() and (l[unseen] == 0).all()
+    assert not acc.transpose(1, 2)[unseen].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_partial_kernel_matches_plain_on_card(cuda, dtype, d):
+    """K3 against its plain version on every kind of hop, with ragged T."""
+    for t in (1, 63, 64, 200, 257):
+        q, k, v = _strided_qkv(t, d, dtype, cuda, seed=t)
+        for q_off, k_off, causal in _hops_for(t):
+            before = fa.launches["partial"]
+            got = fa.flash_attention_partial(q, k, v, q_off, k_off, causal)
+            assert fa.launches["partial"] == before + 1
+            want = fa.flash_attention_partial_reference(q, k, v, q_off,
+                                                        k_off, causal)
+            torch.cuda.synchronize()
+            _assert_partial_close_on_card(got, want, dtype)
+
+
+def _hop_bwd_inputs(t, d, dtype, device, q_off, k_off, causal, seed):
+    """As `_bwd_inputs`, with lse and delta from the plain partial of the
+    same hop, so every row with a visible key has its exact softmax."""
+    q, k, v = _strided_qkv(t, d, dtype, device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    acc, m, l = fa.flash_attention_partial_reference(q, k, v, q_off, k_off,
+                                                     causal)
+    l = l.clamp_min(1e-30)
+    o = (acc / l.transpose(1, 2)[..., None]).to(dtype)
+    return q, k, v, do, m + torch.log(l), fa.attention_delta(o, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_bwd_kernels_with_offsets_on_card(cuda, dtype, d):
+    """K4 and K5 with a hop's offsets, f32 outputs and the input type,
+    against their plain versions; a wholly masked hop gives exact zeros."""
+    for t in (1, 63, 200, 257):
+        for q_off, k_off, causal in _hops_for(t):
+            args = _hop_bwd_inputs(t, d, dtype, cuda, q_off, k_off, causal,
+                                   seed=t)
+            for out_dtype in (torch.float32, dtype):
+                kw = dict(q_off=q_off, k_off=k_off, out_dtype=out_dtype)
+                dq = fa.flash_attention_bwd_dq(*args, causal, **kw)
+                dk, dv = fa.flash_attention_bwd_dkv(*args, causal, **kw)
+                want_dq = fa.flash_attention_bwd_dq_reference(*args, causal,
+                                                              **kw)
+                want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
+                    *args, causal, **kw)
+                torch.cuda.synchronize()
+                for got, want in ((dq, want_dq), (dk, want_dk),
+                                  (dv, want_dv)):
+                    assert got.dtype == out_dtype
+                    if got.dtype != dtype:   # f32 outputs: input-type bounds
+                        got, want = got.to(dtype), want.to(dtype)
+                    _assert_grad_close_on_card(got, want)
+                    if causal and k_off >= q_off + t:
+                        assert not got.any()

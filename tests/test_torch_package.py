@@ -18,6 +18,7 @@ import deeplearning4j_tpu_torch
 import deeplearning4j_tpu_torch.models.zoo.transformer
 import deeplearning4j_tpu_torch.ops.flash_attention as fa
 import deeplearning4j_tpu_torch.parallel.pipeline
+import deeplearning4j_tpu_torch.parallel.ring_attention
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))

@@ -189,7 +189,7 @@ def test_flash_training_on_card_matches_cpu(cuda):
     y = (x + 1) % 128
     fa.reset_launches()
     got = [gpu.fit_batch(x, y) for _ in range(STEPS)]
-    assert fa.launches == {"fwd": 0, "fwd_lse": 2 * STEPS,
+    assert fa.launches == {"fwd": 0, "fwd_lse": 2 * STEPS, "partial": 0,
                            "bwd_dq": 2 * STEPS, "bwd_dkv": 2 * STEPS}
     want = [cpu.fit_batch(x, y) for _ in range(STEPS)]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

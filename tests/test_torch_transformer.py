@@ -210,7 +210,8 @@ def test_flash_model_on_card_matches_cpu(cuda):
     x = _prompts(2, b=2, p=200) % 128
     fa.reset_launches()
     got = gpu.logits(x)
-    assert fa.launches == {"fwd": 2, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    assert fa.launches == {"fwd": 2, "fwd_lse": 0, "partial": 0, "bwd_dq": 0,
+                           "bwd_dkv": 0}
     torch.testing.assert_close(got.cpu(), cpu.logits(x), rtol=0, atol=1e-4)
     prompt = x[0, :50]
     assert (gpu.generate(prompt, 6, use_cache=False)
