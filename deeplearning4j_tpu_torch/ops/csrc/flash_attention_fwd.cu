@@ -1,13 +1,13 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), in three modes:
+// Flash-attention forward for NVIDIA Hopper (sm_90a), three entries:
 //  * K1 (`dl4j_flash_fwd`) replaces the TPU kernel `_kernel` in
 //    deeplearning4j_tpu/ops/flash_attention.py (its grid step
 //    `_online_softmax_step`), which `_flash_fwd_bthd(with_lse=False)` launches
 //    for inference;
 //  * K2 (`dl4j_flash_fwd_lse`) replaces `_kernel_lse`, which
 //    `_flash_fwd_bthd(with_lse=True)` launches for the training forward `_fwd`.
-//    It is K1 in the compile-time mode kLse: the epilogue also writes
-//    the per-row logsumexp lse = m + log(max(l, 1e-30)) as f32 [B, H, T], the
-//    one residual the backward kernels (flash_attention_bwd.cu) need beyond
+//    It is K1's kernel with kWithLse: the epilogue also writes the per-row
+//    logsumexp lse = m + log(max(l, 1e-30)) as f32 [B, H, T], the one
+//    residual the backward kernels (flash_attention_bwd.cu) need beyond
 //    q, k, v, o. A row that saw only masked keys (m = -inf, l = 0) gets
 //    lse = -inf, as on the TPU; causal self-attention has none, since the
 //    diagonal is always kept;
@@ -40,33 +40,69 @@
 // Bound on an H100 SXM: at the serving shape (B=4, T=8192, H=8, D=64, bf16,
 // causal) the work is 4*B*H*D*T(T+1)/2 = 2.75e11 FLOP, 0.28 ms at 989 TFLOP/s,
 // against 134 MB of q/k/v/o traffic, 0.04 ms at 3.35 TB/s: compute-bound, so
-// the products go through the tensor cores. K3 at one visible hop of T=8192
+// the products go through the tensor cores, and the design is measured by its
+// share of 989 TFLOP/s (PERF.md). K3 at one visible hop of T=8192
 // over a ring of 4 (B=4, Tq=Tk=2048, H=8, D=64, bf16): 4*B*H*Tq*Tk*D =
 // 3.44e10 FLOP, 0.035 ms, against 42 MB (q, k, v read; f32 acc, m, l
 // written), 0.013 ms: compute-bound too.
 //
-// Design (a first, simple version; wgmma, TMA and warp specialisation come
-// later):
-//  * bf16/fp16: one block of 4 warps per (batch*head, 64-query tile), each warp
-//    owning 16 query rows. Q fragments stay in registers; K tiles of 64 keys
-//    are staged row-major in shared memory and V tiles transposed, both padded
-//    against bank conflicts. QK^T and PV run on mma.sync.m16n8k16 with f32
-//    accumulation; the probabilities are reused from the score accumulators as
-//    the A operand of PV without a trip through shared memory.
-//  * f32: the same online softmax in plain f32 FMA (no TF32), one block per
-//    (batch*head, 16-query tile), tiles of 32 keys in shared memory.
+// Three kernels, one job each:
+//  * K1 and K2, 16-bit (bf16, fp16, D in {16, 32, 64, 128}): the Hopper
+//    kernel `flash_fwd_hopper_kernel`. Against the compute bound it keeps the
+//    tensor cores fed from shared memory without spending threads on loads
+//    (0.74 ms, 372 TFLOP/s at the serving shape on an H100, PERF.md):
+//    - tiles: one block per (batch*head, query tile) with 128-key kv tiles;
+//      the query tile is 64 rows per consumer warpgroup: 192 rows at D <= 64
+//      (three consumers), 128 at D = 128 (two);
+//    - warp roles: warpgroup 0 is the producer: it drops to 24 registers
+//      (setmaxnreg) and one of its threads issues every load. The consumers
+//      own 64 query rows each and rise to 160 registers (three, 512 threads
+//      a block) or 240 (two, 384 threads); ptxas reports the launch cap of
+//      128 or 168, with no spills;
+//    - loads: TMA over 4-D tensor maps of the strided [B, T, H, D] inputs,
+//      built by the C entry for each launch; Q once per block, K and V through
+//      a ring of 4 shared-memory stages (2 at D = 128), each with a "full"
+//      mbarrier (the TMA's transaction bytes) and an "empty" one (one arrival
+//      per consumer warp once its last wgmma on the stage has completed).
+//      Rows of 32, 64 or 128 bytes are swizzled to their width (D = 128 loads
+//      as two 64-column boxes); rows past T arrive as zeros and are masked
+//      like causal keys. Shared memory: 24 KB of Q + 4 x 2 x 16 KB of K/V at
+//      D = 64 (152 KB, and 1 KB of alignment), 160 KB at D = 128: one block
+//      per SM;
+//    - S = Q K^T on wgmma m64n128k16, both operands K-major in shared memory,
+//      f32 accumulators (64 a thread);
+//    - online softmax on the accumulator fragments, reductions within a quad.
+//      The f32 scores are scaled after the product by scale * log2(e), so
+//      each probability and each rescale factor is one ex2 (the special
+//      function unit's rate, not the products', bounds the softmax at D=64);
+//      the running max is kept in those units and lse converts it back;
+//    - O += P V on register-A wgmma m64nDk16: P is rounded to the input type
+//      straight from the S accumulators, V is read as TMA left it, as an
+//      MN-major operand (the transpose bit): no transpose through registers.
+//      A tile's P V is left in flight while the next tile's S is issued, and O
+//      is rescaled only after both have been waited for. With three
+//      consumers, one warpgroup's softmax overlaps the others' products; no
+//      schedule orders them (no ping-pong).
+//  * K3 (ring partial), 16-bit: `flash_fwd_partial_mma_kernel`, on mma.sync:
+//    one block of 4 warps per (batch*head, 64-query tile), each warp owning
+//    16 query rows; K tiles of 64 keys row-major and V tiles transposed in
+//    padded shared memory; QK^T and PV on mma.sync.m16n8k16, the
+//    probabilities reused from the score accumulators as PV's A operand.
+//  * f32, all three modes: the same online softmax in plain f32 FMA (no
+//    TF32), one block per (batch*head, 16-query tile), tiles of 32 keys.
 //  * Causal: the kv loop stops at the last tile that holds a key the tile's
 //    last query may see (the diagonal tile when the offsets are equal). A
-//    ragged last tile is masked by bounds, so any T works. The heaviest causal
-//    tiles are scheduled first.
+//    ragged last tile is masked, so any T works. The heaviest causal tiles
+//    are scheduled first.
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = kWarps * 16;  // tensor-core path: query rows per block
-constexpr int kBlockK = 64;           // tensor-core path: keys per tile
+constexpr int kBlockQ = kWarps * 16;  // K3 (mma.sync): query rows per block
+constexpr int kBlockK = 64;           // K3: keys per tile
 constexpr int kF32BlockQ = 16;        // f32 path
 constexpr int kF32BlockK = 32;
 
@@ -81,17 +117,235 @@ __device__ __forceinline__ int last_kv_tile(int last_q, int dlt, int seq_len, in
   return last_key < 0 ? -1 : last_key / tile;
 }
 
-// Tensor-core path (fragment layouts in flash_common.cuh). `o` is Elem
-// [B, T, H, D] (K1, K2) or K3's f32 acc; `st0` is lse (K2) or m (K3), `st1`
-// is l (K3), each f32 [B, H, T]; what a mode does not write is not touched.
-template <typename Elem, int D, int kMode>
+// ------------------------------------------------ K1, K2: the Hopper kernel
+
+// Tiles of the Hopper kernel for head dim D. One block: a producer warpgroup
+// (one thread issues every TMA load) and kConsumers warpgroups of 64 query
+// rows each.
+template <int D>
+struct HopperTiles {
+  // D <= 64: three consumers, so that while one warpgroup runs its softmax
+  // the others keep the tensor cores busy; D = 128 has registers for two
+  static constexpr int kConsumers = D <= 64 ? 3 : 2;
+  static constexpr int kBlockQ = 64 * kConsumers;  // query rows per block
+  static constexpr int kBlockK = 128;              // keys per kv tile
+  static constexpr int kStages = D <= 64 ? 4 : 2;  // K/V ring depth (shared memory)
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  // registers after setmaxnreg: the producer's 24 and the consumers' share
+  // of the rest (65536 per SM, one block per SM)
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static constexpr int kBoxCols = D < 64 ? D : 64;  // columns of one TMA box
+  static constexpr int kRowBytes = kBoxCols * 2;    // 32, 64 or 128: the swizzle
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kQBytes = kBlockQ * D * 2;
+  static constexpr int kKVBytes = kBlockK * D * 2;  // one K or V tile
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  // + 1024 to align the tiles to a 1024-byte swizzle atom; barriers after
+  static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
+
+// O = softmax(Q K^T * scale) V for one (batch*head, kBlockQ-query tile);
+// with kWithLse also lse = m + log(max(l, 1e-30)) as f32 [B, H, T]. q, k, v are
+// read through 4-D tensor maps over [B, T, H, D] (dims D, H, T, B); rows at or
+// past seq_len load as zeros and are masked like causal keys.
+template <typename Elem, int D, bool kWithLse>
+__global__ void __launch_bounds__(HopperTiles<D>::kThreads, 1)
+    flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, Elem* __restrict__ o,
+                            float* __restrict__ lse, int heads, int seq_len, Strides so,
+                            float scale, int causal) {
+  using L = HopperTiles<D>;
+  constexpr int BQ = L::kBlockQ, BK = L::kBlockK, S = L::kStages, CB = L::kBoxCols;
+  constexpr int kLayout = swizzle_layout(L::kRowBytes);
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;  // 8-row group stride
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base;                        // Q: kBoxes boxes of [BQ][CB]
+  const uint32_t k_s = q_s + L::kQBytes;            // K stage s: + s * kKVBytes
+  const uint32_t v_s = k_s + S * L::kKVBytes;       // V stage s: + s * kKVBytes
+  const uint32_t q_full = base + L::kBarOffset;     // barriers, 8 bytes each
+  const uint32_t full = q_full + 8;                 // full[s]: + 8 s
+  const uint32_t empty = full + 8 * S;              // empty[s]: + 8 s
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int qtile = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q_start = qtile * BQ;
+  // causal: the tiles up to the one holding the block's last query
+  const int n_kv = ((causal ? min(seq_len, q_start + BQ) : seq_len) + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * L::kConsumers);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: give registers to the consumers; one thread keeps the ring
+    // full, a stage at a time once both warpgroups have released it.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < L::kBoxes; ++c)
+        tma_load_4d(q_s + c * BQ * L::kRowBytes, &tq, q_full, c * CB, h, q_start, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % S;
+        if (j >= S) mbar_wait(empty + 8 * s, ((j / S) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < L::kBoxes; ++c) {
+          const uint32_t box = s * L::kKVBytes + c * BK * L::kRowBytes;
+          tma_load_4d(k_s + box, &tk, full + 8 * s, c * CB, h, j * BK, b);
+          tma_load_4d(v_s + box, &tv, full + 8 * s, c * CB, h, j * BK, b);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<L::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wg_row0 = q_start + 64 * cw;
+    const int row0 = wg_row0 + 16 * warp + g, row1 = row0 + 8;
+    // a kv tile needs no mask when every key in it is < seq_len and, causal,
+    // <= this warpgroup's first row
+    const int clear_to = causal ? min(seq_len, wg_row0 + 1) : seq_len;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    // scores are scaled after the product into log2 units, so every
+    // exponential is one ex2; m is kept in those units
+    const float sl = scale * 1.4426950408889634f;  // log2(e)
+    const uint32_t q_wg = q_s + 64 * cw * L::kRowBytes;  // this warpgroup's rows
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % S;
+      const int k_start = j * BK;
+      mbar_wait(full + 8 * s, (j / S) & 1);
+
+      // S = Q K^T: D/16 slices of 16 columns, both operands K-major.
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk * 16 % CB) * 2;  // bytes into a row
+        const uint32_t qa = q_wg + (kk * 16 / CB) * BQ * L::kRowBytes + col;
+        const uint32_t kb = k_s + s * L::kKVBytes + (kk * 16 / CB) * BK * L::kRowBytes + col;
+        wgmma_ss_n128<Elem>(sc, wgmma_desc(qa, 16, kSbo, kLayout),
+                            wgmma_desc(kb, 16, kSbo, kLayout), kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();  // this S, and the previous tile's P V
+      fence_regs(sc);
+      fence_regs(acc);
+      // the previous stage's V has been read by its last wgmma
+      if (j > 0 && lane == 0) mbar_arrive(empty + 8 * ((j - 1) % S));
+
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      const bool masked = k_start + BK > clear_to;
+#pragma unroll
+      for (int n8 = 0; n8 < BK / 8; ++n8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x0 = sc[4 * n8 + e] * sl, x1 = sc[4 * n8 + 2 + e] * sl;
+          if (masked) {
+            const int col = k_start + n8 * 8 + 2 * t + e;
+            if (col >= seq_len || (causal && col > row0)) x0 = -INFINITY;
+            if (col >= seq_len || (causal && col > row1)) x1 = -INFINITY;
+          }
+          sc[4 * n8 + e] = x0;
+          sc[4 * n8 + 2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      // a row that has seen only masked keys keeps m = -inf; subtracting 0
+      // instead keeps exp() free of NaN (its p and alpha are then 0)
+      const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float alpha0 = ex2_approx(m0 - mu0), alpha1 = ex2_approx(m1 - mu1);
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int n8 = 0; n8 < BK / 8; ++n8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = ex2_approx(sc[4 * n8 + e] - mu0),
+                      p1 = ex2_approx(sc[4 * n8 + 2 + e] - mu1);
+          sc[4 * n8 + e] = p0;
+          sc[4 * n8 + 2 + e] = p1;
+          rs0 += p0;
+          rs1 += p1;
+        }
+      }
+      l0 = l0 * alpha0 + quad_sum(rs0);
+      l1 = l1 * alpha1 + quad_sum(rs1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n8 = 0; n8 < D / 8; ++n8) {
+        acc[4 * n8 + 0] *= alpha0;
+        acc[4 * n8 + 1] *= alpha0;
+        acc[4 * n8 + 2] *= alpha1;
+        acc[4 * n8 + 3] *= alpha1;
+      }
+
+      // O += P V: P rounded to Elem straight from the S fragments (register
+      // A), V MN-major from the stage as TMA wrote it.
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) c_to_a<Elem>(pa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        const uint32_t vb = v_s + s * L::kKVBytes + kc * 16 * L::kRowBytes;
+        wgmma_rs_t<Elem, D>(acc, pa[kc], wgmma_desc(vb, BK * L::kRowBytes, kSbo, kLayout));
+      }
+      wgmma_commit();
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    // every lane of a quad holds its rows' m and l; one lane writes lse
+    Elem* ob = o + b * so.b + h * so.h;
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      const int c = n8 * 8 + 2 * t;
+      if (row0 < seq_len) store2(ob + row0 * so.t + c, acc[4 * n8] / d0, acc[4 * n8 + 1] / d0);
+      if (row1 < seq_len)
+        store2(ob + row1 * so.t + c, acc[4 * n8 + 2] / d1, acc[4 * n8 + 3] / d1);
+    }
+    if constexpr (kWithLse) {
+      constexpr float kLn2 = 0.6931471805599453f;  // m back to natural units
+      float* lb = lse + static_cast<long long>(bh) * seq_len;
+      if (t == 0 && row0 < seq_len) lb[row0] = m0 * kLn2 + logf(d0);
+      if (t == 0 && row1 < seq_len) lb[row1] = m1 * kLn2 + logf(d1);
+    }
+  }
+}
+
+// K3, the ring partial, on mma.sync (fragment layouts in flash_common.cuh):
+// `acc` is f32 [B, T, H, D] addressed by `so`, m and l f32 [B, H, T].
+template <typename Elem, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_mma_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                         const Elem* __restrict__ v, void* __restrict__ o,
-                         float* __restrict__ st0, float* __restrict__ st1, int heads,
-                         int seq_len, Strides sq, Strides sk, Strides sv, Strides so,
-                         float scale, int causal, int q_off, int k_off) {
-  constexpr float neg = kMode == kPartial ? -1e30f : -INFINITY;  // masked score
+    flash_fwd_partial_mma_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                                 const Elem* __restrict__ v, float* __restrict__ acc_out,
+                                 float* __restrict__ m_out, float* __restrict__ l_out,
+                                 int heads, int seq_len, Strides sq, Strides sk, Strides sv,
+                                 Strides so, float scale, int causal, int q_off, int k_off) {
+  constexpr float neg = -1e30f;  // masked score
   constexpr int kPadK = D + 8;        // K row pitch (elements)
   constexpr int kPadV = kBlockK + 8;  // transposed-V row pitch
   constexpr int kChunks = D / 8;      // 16-byte chunks per row
@@ -108,8 +362,8 @@ __global__ void __launch_bounds__(kThreads)
   const Elem* vb = v + b * sv.b + h * sv.h;
   const int row0 = qtile * kBlockQ + warp * 16 + g;
   const int row1 = row0 + 8;
-  // key col is masked for query row when col > row + dlt (0 but for K3)
-  const int dlt = kMode == kPartial ? q_off - k_off : 0;
+  // key col is masked for query row when col > row + dlt
+  const int dlt = q_off - k_off;
 
   // Q as the A operand of S = Q K^T, held for the whole kv loop.
   uint32_t qa[D / 16][4];
@@ -166,24 +420,19 @@ __global__ void __launch_bounds__(kThreads)
         mx1 = fmaxf(mx1, x1);
       }
     }
+    // m is finite (-1e30 for a row that has seen nothing); the masked p are
+    // zeroed below
     const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    // K1/K2: a row that has seen only masked keys keeps m = -inf; subtracting
-    // 0 instead keeps exp() free of NaN (its p and alpha are then 0). K3's m
-    // is finite, and its masked p are zeroed below instead.
-    const float mu0 = kMode != kPartial && mn0 == -INFINITY ? 0.f : mn0;
-    const float mu1 = kMode != kPartial && mn1 == -INFINITY ? 0.f : mn1;
-    const float alpha0 = expf(m0 - mu0), alpha1 = expf(m1 - mu1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kBlockK / 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        float p0 = expf(s[nt][j] - mu0), p1 = expf(s[nt][2 + j] - mu1);
-        if constexpr (kMode == kPartial) {
-          // a row still at m = -1e30 would get exp(0) = 1 for a masked key
-          if (s[nt][j] <= 0.5f * neg) p0 = 0.f;
-          if (s[nt][2 + j] <= 0.5f * neg) p1 = 0.f;
-        }
+        float p0 = expf(s[nt][j] - mn0), p1 = expf(s[nt][2 + j] - mn1);
+        // a row still at m = -1e30 would get exp(0) = 1 for a masked key
+        if (s[nt][j] <= 0.5f * neg) p0 = 0.f;
+        if (s[nt][2 + j] <= 0.5f * neg) p1 = 0.f;
         s[nt][j] = p0;
         s[nt][2 + j] = p1;
         rs0 += p0;
@@ -216,33 +465,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // every lane of a quad holds its rows' m and l; one lane writes them
-  const long long stat_row = static_cast<long long>(bh) * seq_len;
-  if constexpr (kMode == kPartial) {
-    float* ob = static_cast<float*>(o) + b * so.b + h * so.h;
+  float* ob = acc_out + b * so.b + h * so.h;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int c = nd * 8 + 2 * t;
-      if (row0 < seq_len) store2(ob + row0 * so.t + c, acc[nd][0], acc[nd][1]);
-      if (row1 < seq_len) store2(ob + row1 * so.t + c, acc[nd][2], acc[nd][3]);
-    }
-    float *mb = st0 + stat_row, *lb = st1 + stat_row;
-    if (t == 0 && row0 < seq_len) mb[row0] = m0, lb[row0] = l0;
-    if (t == 0 && row1 < seq_len) mb[row1] = m1, lb[row1] = l1;
-  } else {
-    Elem* ob = static_cast<Elem*>(o) + b * so.b + h * so.h;
-    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int c = nd * 8 + 2 * t;
-      if (row0 < seq_len) store2(ob + row0 * so.t + c, acc[nd][0] / d0, acc[nd][1] / d0);
-      if (row1 < seq_len) store2(ob + row1 * so.t + c, acc[nd][2] / d1, acc[nd][3] / d1);
-    }
-    if constexpr (kMode == kLse) {
-      float* lse = st0 + stat_row;
-      if (t == 0 && row0 < seq_len) lse[row0] = m0 + logf(d0);
-      if (t == 0 && row1 < seq_len) lse[row1] = m1 + logf(d1);
-    }
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (row0 < seq_len) store2(ob + row0 * so.t + c, acc[nd][0], acc[nd][1]);
+    if (row1 < seq_len) store2(ob + row1 * so.t + c, acc[nd][2], acc[nd][3]);
   }
+  const long long stat_row = static_cast<long long>(bh) * seq_len;
+  float *mb = m_out + stat_row, *lb = l_out + stat_row;
+  if (t == 0 && row0 < seq_len) mb[row0] = m0, lb[row0] = l0;
+  if (t == 0 && row1 < seq_len) mb[row1] = m1, lb[row1] = l1;
 }
 
 // f32 path: full-precision FMA. Each thread owns BQ*D/kThreads accumulator
@@ -362,13 +595,90 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Elem, int D, int kMode>
-int launch_mma(const Args& a) {
+template <typename Elem>
+struct TmaType;
+template <>
+struct TmaType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct TmaType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+constexpr int kNoEncoder = 900;       // the CUDA driver has no cuTensorMapEncodeTiled
+constexpr int kEncodeFailed = 1000;   // + the CUDA driver's CUresult
+
+// The tensor map of a strided [B, T, H, D] input, dims (D, H, T, B) innermost
+// first, boxes of (kBoxCols, 1, rows, 1), swizzled to the box's row width.
+template <typename Elem, int D>
+int make_map(CUtensorMap* map, const void* ptr, const Args& a, const Strides& st, int rows) {
+  using L = HopperTiles<D>;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(a.heads),
+                              static_cast<cuuint64_t>(a.seq_len),
+                              static_cast<cuuint64_t>(a.batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * sizeof(Elem),
+                                 static_cast<cuuint64_t>(st.t) * sizeof(Elem),
+                                 static_cast<cuuint64_t>(st.b) * sizeof(Elem)};
+  const cuuint32_t box[4] = {L::kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, TmaType<Elem>::value, 4, const_cast<void*>(ptr), dims, strides,
+                             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             tma_swizzle(L::kRowBytes), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(rc);
+}
+
+template <typename Elem, int D, bool kWithLse>
+int launch_hopper(const Args& a) {
+  using L = HopperTiles<D>;
+  CUtensorMap tq, tk, tv;
+  int rc = make_map<Elem, D>(&tq, a.q, a, a.sq, L::kBlockQ);
+  if (rc == 0) rc = make_map<Elem, D>(&tk, a.k, a, a.sk, L::kBlockK);
+  if (rc == 0) rc = make_map<Elem, D>(&tv, a.v, a, a.sv, L::kBlockK);
+  if (rc) return rc;
+  const auto kernel = flash_fwd_hopper_kernel<Elem, D, kWithLse>;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes));
+  if (rc) return rc;
+  const dim3 grid(a.batch * a.heads, (a.seq_len + L::kBlockQ - 1) / L::kBlockQ);
+  kernel<<<grid, L::kThreads, L::kSmemBytes, a.stream>>>(
+      tq, tk, tv, static_cast<Elem*>(a.o), a.st0, a.heads, a.seq_len, a.so, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of the Hopper kernel, after the shared-memory opt-in.
+template <typename Elem, int D, bool kWithLse>
+int hopper_blocks_per_sm() {
+  using L = HopperTiles<D>;
+  const auto kernel = flash_fwd_hopper_kernel<Elem, D, kWithLse>;
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::kSmemBytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, L::kThreads,
+                                                    L::kSmemBytes) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+template <int D>
+int hopper_occupancy(int dtype, int with_lse) {
+  if (dtype == 1) return with_lse ? hopper_blocks_per_sm<__half, D, true>()
+                                  : hopper_blocks_per_sm<__half, D, false>();
+  if (dtype == 2) return with_lse ? hopper_blocks_per_sm<__nv_bfloat16, D, true>()
+                                  : hopper_blocks_per_sm<__nv_bfloat16, D, false>();
+  return -1;
+}
+
+template <typename Elem, int D>
+int launch_partial(const Args& a) {
   const dim3 grid(a.batch * a.heads, (a.seq_len + kBlockQ - 1) / kBlockQ);
-  flash_fwd_mma_kernel<Elem, D, kMode><<<grid, kThreads, 0, a.stream>>>(
+  flash_fwd_partial_mma_kernel<Elem, D><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const Elem*>(a.q), static_cast<const Elem*>(a.k),
-      static_cast<const Elem*>(a.v), a.o, a.st0, a.st1, a.heads, a.seq_len, a.sq, a.sk, a.sv,
-      a.so, a.scale, a.causal, a.q_off, a.k_off);
+      static_cast<const Elem*>(a.v), static_cast<float*>(a.o), a.st0, a.st1, a.heads, a.seq_len,
+      a.sq, a.sk, a.sv, a.so, a.scale, a.causal, a.q_off, a.k_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,17 +692,17 @@ int launch_f32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32 on the FMA kernel; 16-bit K1/K2 on the Hopper kernel, K3 on mma.sync.
 template <int D, int kMode>
 int launch(int dtype, const Args& a) {
-  switch (dtype) {
-    case 0:
-      return launch_f32<D, kMode>(a);
-    case 1:
-      return launch_mma<__half, D, kMode>(a);
-    case 2:
-      return launch_mma<__nv_bfloat16, D, kMode>(a);
+  if (dtype == 0) return launch_f32<D, kMode>(a);
+  if (dtype != 1 && dtype != 2) return -1;
+  if constexpr (kMode == kPartial) {
+    return dtype == 1 ? launch_partial<__half, D>(a) : launch_partial<__nv_bfloat16, D>(a);
+  } else {
+    return dtype == 1 ? launch_hopper<__half, D, kMode == kLse>(a)
+                      : launch_hopper<__nv_bfloat16, D, kMode == kLse>(a);
   }
-  return -1;
 }
 
 template <int kMode>
@@ -451,4 +761,27 @@ extern "C" int dl4j_flash_fwd_partial(int dtype, int head_dim, const void* q, co
                                       int q_off, int k_off, void* stream) {
   return dispatch<kPartial>(dtype, head_dim, q, k, v, acc, m, l, batch, heads, seq_len, strides,
                             scale, causal, q_off, k_off, stream);
+}
+
+// The Hopper kernel of K1 (with_lse = 0) or K2 (1) for a 16-bit dtype (1 =
+// float16, 2 = bfloat16): its resident blocks per SM and, through the
+// pointers, its threads and dynamic shared memory per block. -1 for a dtype
+// or head dim it does not take.
+extern "C" int dl4j_flash_fwd_occupancy(int dtype, int head_dim, int with_lse, int* threads,
+                                        int* smem_bytes) {
+  switch (head_dim) {
+    case 16:
+      *threads = HopperTiles<16>::kThreads, *smem_bytes = HopperTiles<16>::kSmemBytes;
+      return hopper_occupancy<16>(dtype, with_lse);
+    case 32:
+      *threads = HopperTiles<32>::kThreads, *smem_bytes = HopperTiles<32>::kSmemBytes;
+      return hopper_occupancy<32>(dtype, with_lse);
+    case 64:
+      *threads = HopperTiles<64>::kThreads, *smem_bytes = HopperTiles<64>::kSmemBytes;
+      return hopper_occupancy<64>(dtype, with_lse);
+    case 128:
+      *threads = HopperTiles<128>::kThreads, *smem_bytes = HopperTiles<128>::kSmemBytes;
+      return hopper_occupancy<128>(dtype, with_lse);
+  }
+  return -1;
 }

@@ -419,14 +419,36 @@ def _strided_qkv(t, d, dtype, device, seed=0, b=2, h=3):
     return [a.reshape(b, t, h, d) for a in qkv.split(h * d, -1)]
 
 
+# (b, h, t) of the forward sweeps on the card: B=2, H=3 at ragged and exact
+# 64-row tiles; B=1, H=1 around the tiles of the Hopper kernel, 128 keys
+# and 192 query rows at D <= 64 (128 at D = 128): one row, half a tile, a
+# key tile and one row either side of it, a query tile and one, two key
+# tiles and one
+_FWD_SHAPES = [(2, 3, t) for t in (1, 63, 64, 200, 257)] + [
+    (1, 1, t) for t in (1, 64, 127, 128, 129, 192, 193, 257)]
+# every shape as the model's strided views; the tile edges also contiguous
+_FWD_CASES = [("qkv", shape) for shape in _FWD_SHAPES] + [
+    ("contiguous", shape) for shape in _FWD_SHAPES if shape[0] == 1]
+
+
+def _card_inputs(layout, b, h, t, d, dtype, device):
+    """q, k, v as `flash_causal_attention` passes them ("qkv": [B, T, H, d]
+    views split out of one [B, T, 3*H*d] projection, row stride 3*H*d), or
+    as contiguous copies."""
+    q, k, v = _strided_qkv(t, d, dtype, device, seed=t, b=b, h=h)
+    if layout == "contiguous":
+        q, k, v = (a.contiguous() for a in (q, k, v))
+    return q, k, v
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_kernel_matches_plain_on_card(cuda, dtype, d):
-    for t in (1, 63, 64, 200, 257):
+    for layout, (b, h, t) in _FWD_CASES:
         for causal in (True, False):
-            q, k, v = _strided_qkv(t, d, dtype, cuda, seed=t)
+            q, k, v = _card_inputs(layout, b, h, t, d, dtype, cuda)
             before = fa.launches["fwd"]
             out = fa.flash_attention(q, k, v, causal)
             assert fa.launches["fwd"] == before + 1
@@ -456,6 +478,17 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="unit stride"):
         fa.flash_attention(q.transpose(1, 3), k.transpose(1, 3),
                            v.transpose(1, 3))
+    # the tensor maps take rows that start 16 bytes apart and a 16-byte
+    # aligned base: a head stride of 68 elements (136 bytes) and a
+    # contiguous view starting 4 elements (8 bytes) in break that, in K1
+    # and in K2
+    wide = torch.randn(1, 16, 2, 68, device=cuda).to(torch.bfloat16)
+    flat = torch.randn(16 * 2 * 64 + 4, device=cuda).to(torch.bfloat16)
+    for bad in (wide[..., :64], flat[4:].view(1, 16, 2, 64)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention(bad, bad, bad)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_fwd_lse(bad, bad, bad)
 
 
 @pytest.mark.gpu
@@ -465,9 +498,9 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 def test_fwd_lse_kernel_matches_plain_on_card(cuda, dtype, d):
     """K2 against its plain version: o as K1 is held, lse (f32) to 1e-5
     (the kernel's running max and sum against the row's, both in f32)."""
-    for t in (1, 63, 64, 200, 257):
+    for layout, (b, h, t) in _FWD_CASES:
         for causal in (True, False):
-            q, k, v = _strided_qkv(t, d, dtype, cuda, seed=t)
+            q, k, v = _card_inputs(layout, b, h, t, d, dtype, cuda)
             before = fa.launches["fwd_lse"]
             out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
             assert fa.launches["fwd_lse"] == before + 1
