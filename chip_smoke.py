@@ -11,9 +11,10 @@ Phases, in order; any failure raises and exits non-zero:
      bf16, non-causal), then its tile edges (T=1, 127, 129, 193, 257), then
      the main path's shape and edge shapes, with stated tolerances;
   4. the Hopper forward kernel's registers, spills and shared memory (from
-     ptxas' log beside the library), its blocks per SM (the occupancy API)
-     and its HGMMA / UTMALDG instruction counts (cuobjdump, where the
-     toolkit has it); each kernel timed with CUDA events beside its plain
+     ptxas' log beside the library), its blocks per SM (the occupancy API),
+     its HGMMA / UTMALDG / HMMA / WARPGROUP.DEPBAR instruction counts
+     (cuobjdump, where the toolkit has it) and ptxas' note if it serialised
+     the kernel's wgmma; each kernel timed with CUDA events beside its plain
      version, one PyTorch library call computing the same function (a
      yardstick only: the port never calls it) and its bound on an H100 SXM;
   5. the main path at full width: the flash-attention TransformerLM
@@ -28,15 +29,18 @@ Phases, in order; any failure raises and exits non-zero:
      versions; its greedy flash re-encode tokens equal its dense KV-cache
      tokens;
   7. the training kernels (K2 forward with logsumexp, K4 backward dQ, K5
-     backward dK/dV) against their plain versions on the card: first one
-     128-key tile of K2's Hopper kernel, then the training shape (B=4,
-     T=8192, H=8, D=64, bf16, causal) and edge shapes, with stated
-     tolerances;
-  8. K2's kernel report as in phase 4; each training kernel timed with
-     CUDA events beside its plain version,
-     its bound and one PyTorch call (a yardstick only): the flash SDPA
-     forward, which also returns the logsumexp, for K2; SDPA's backward
-     (forward+backward minus forward; dq, dk, dv together) for K4 and K5;
+     backward dK/dV) against their plain versions on the card: first single
+     tiles of the Hopper kernels (B=1, H=1, T=64 and 128, D=64, bf16, both
+     masks), then the tile edges (T=1, 63, 64, 65, 127, 128, 129, 191, 192,
+     193, 257; both masks), then the training shape (B=4, T=8192, H=8, D=64,
+     bf16, causal) and edge shapes, with stated tolerances;
+  8. the kernel reports of K2, K4 and K5 as in phase 4 (the smoke fails
+     unless each SASS has wgmma and TMA loads and no mma.sync); each
+     training kernel timed with CUDA events beside its plain version, its
+     bound and one PyTorch call (a yardstick only): the flash SDPA forward,
+     which also returns the logsumexp, for K2; SDPA's backward alone (dq,
+     dk, dv together; device time from a torch.profiler trace) for K4 and
+     K5;
   9. the training main path at full width: the same TransformerLM
      (learning rate 0.1, momentum 0.9) takes 8 `fit_batch` steps at B=4,
      T=8192 on the shift task y = (x + 1) % 512, with every launch counter
@@ -51,7 +55,8 @@ Phases, in order; any failure raises and exits non-zero:
  12. K4 and K5 with a hop's global offsets and f32 outputs against their
      plain versions on the same hops and edge shapes;
  13. K3, K4 and K5 (f32 outputs) timed on the visible hop beside their
-     plain versions, their bounds and, for K4+K5, SDPA's backward;
+     plain versions, their bounds and, for K4+K5, SDPA's backward alone
+     (device time, as in phase 8);
  14. the ring main path at full width: four rank processes on one card
      (cuda:0), rotating K/V through the host over gloo, run
      `ring_self_attention(causal=True, use_flash=True)` on the global B=4,
@@ -206,6 +211,10 @@ def per_row(fn, *args):
     return torch.cat(outs)
 
 
+def shown_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
 def bound(flops, nbytes):
     """(ms, "operations" or "bytes"): the least time an H100 SXM takes."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -213,27 +222,30 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
-def hopper_report(fa, _build, dtype, with_lse, d=64):
-    """What ptxas, the occupancy API and the SASS say of the Hopper forward
-    kernel (K1 with_lse=False, K2 True) at head dim d: registers, spills and
-    static shared memory from the build log, resident blocks per SM, threads
-    and dynamic shared memory per block, and the count of wgmma (HGMMA) and
-    TMA load (UTMALDG) instructions in its SASS where the toolkit has
-    cuobjdump. Returns the report as a dict and prints it."""
+def hopper_report(_build, label, library, kernel, occupancy):
+    """What ptxas, the occupancy API and the SASS say of one Hopper kernel:
+    registers, spills and static shared memory from the build log of
+    `library`, resident blocks per SM, threads and dynamic shared memory per
+    block (`occupancy`, a C entry's arguments before its two out-pointers),
+    the count of wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and
+    wgmma wait (WARPGROUP.DEPBAR) instructions in its SASS where the toolkit
+    has cuobjdump, and ptxas' note when it serialised the kernel's wgmma
+    (as many waits as wgmma). `kernel` is a
+    regex that picks the instantiation's mangled name. Fails unless the SASS
+    has wgmma and TMA loads and no mma.sync. Returns the report as a dict and
+    prints it."""
     import ctypes
-    elem = {torch.bfloat16: "nv_bfloat16", torch.float16: "__half"}[dtype]
-    tag = f"Li{d}ELb{int(with_lse)}E"
 
     def ours(name):
-        return ("flash_fwd_hopper_kernel" in name and elem in name
-                and tag in name)
+        return re.search(kernel, name) is not None
 
     fields = {"registers": r"Used (\d+) registers",
               "spill_store_bytes": r"(\d+) bytes spill stores",
               "spill_load_bytes": r"(\d+) bytes spill loads",
               "static_smem_bytes": r"(\d+) bytes smem"}
     report, current = {}, None
-    for line in _build.log_path("flash_attention_fwd").read_text().splitlines():
+    log = _build.log_path(library).read_text()
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             current = line.split("'")[1]
         elif current and ours(current):
@@ -241,31 +253,101 @@ def hopper_report(fa, _build, dtype, with_lse, d=64):
                 found = re.search(pattern, line)
                 if found:
                     report[key] = int(found.group(1))
-    fn = _build.load("flash_attention_fwd").dl4j_flash_fwd_occupancy
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    # ptxas' note where it had to wait after every wgmma of the kernel
+    for found in re.finditer(r"wgmma\.mma_async instructions are serialized "
+                             r"due to (.*?) in the function '(\S+)'", log):
+        if ours(found.group(2)):
+            report["wgmma_serialized"] = found.group(1)
+    symbol, *args = occupancy
+    fn = getattr(_build.load(library), symbol)
+    fn.argtypes = ([ctypes.c_int] * len(args)
+                   + [ctypes.POINTER(ctypes.c_int)] * 2)
     threads, smem = ctypes.c_int(), ctypes.c_int()
-    report["blocks_per_sm"] = fn(fa._DTYPE_CODE[dtype], d, int(with_lse),
-                                 ctypes.byref(threads), ctypes.byref(smem))
+    report["blocks_per_sm"] = fn(*args, ctypes.byref(threads),
+                                 ctypes.byref(smem))
     report["threads"], report["dynamic_smem_bytes"] = threads.value, smem.value
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if os.path.exists(cuobjdump):
         sass = subprocess.run(
-            [cuobjdump, "-sass", str(_build.library_path(
-                "flash_attention_fwd"))],
+            [cuobjdump, "-sass", str(_build.library_path(library))],
             capture_output=True, text=True, timeout=300).stdout
         for part in sass.split("Function : ")[1:]:
             if ours(part.split("\n", 1)[0]):
                 report["sass_HGMMA"] = part.count("HGMMA")
                 report["sass_UTMALDG"] = part.count("UTMALDG")
                 report["sass_HMMA"] = part.count("HMMA.")
+                report["sass_WARPGROUP_DEPBAR"] = part.count(
+                    "WARPGROUP.DEPBAR")
     else:
         report["sass"] = "cuobjdump not found"
-    print(f"  Hopper kernel {'K2' if with_lse else 'K1'} {dtype} D={d}: "
-          f"{json.dumps(report)}")
-    if report.get("sass_HGMMA") == 0 or report.get("sass_UTMALDG") == 0:
-        raise SystemExit("the Hopper kernel's SASS has no wgmma or no TMA "
-                         "load")
+    print(f"  Hopper kernel {label}: {json.dumps(report)}")
+    if "registers" not in report or (
+            "sass" not in report and "sass_HGMMA" not in report):
+        raise SystemExit(f"no kernel matching {kernel} in the build log or "
+                         f"the SASS of {library}")
+    if (report.get("sass_HGMMA") == 0 or report.get("sass_UTMALDG") == 0
+            or report.get("sass_HMMA", 0) > 0):
+        raise SystemExit(f"the Hopper kernel {label}'s SASS lacks wgmma or "
+                         f"TMA loads, or has mma.sync")
     return report
+
+
+def fwd_report(fa, _build, with_lse):
+    """`hopper_report` of K1's (with_lse False) or K2's Hopper kernel, bf16,
+    D=64."""
+    return hopper_report(
+        _build, f"{'K2' if with_lse else 'K1'} bf16 D=64",
+        "flash_attention_fwd",
+        rf"flash_fwd_hopper_kernelI13__nv_bfloat16Li64ELb{int(with_lse)}E",
+        ("dl4j_flash_fwd_occupancy", fa._DTYPE_CODE[torch.bfloat16], 64,
+         int(with_lse)))
+
+
+def bwd_report(fa, _build, dq):
+    """`hopper_report` of K4's (dq True) or K5's Hopper kernel, bf16, D=64,
+    outputs in bf16 (the mangled name repeats the type as a substitution)."""
+    return hopper_report(
+        _build, f"{'K4' if dq else 'K5'} bf16 D=64", "flash_attention_bwd",
+        rf"flash_bwd_{'dq' if dq else 'dkv'}_hopper_kernel"
+        r"I13__nv_bfloat16S\d*_Li64E",
+        ("dl4j_flash_bwd_occupancy", fa._DTYPE_CODE[torch.bfloat16], 64,
+         int(dq)))
+
+
+def sdpa_backward_ms(q, k, v, do, causal, iters=20):
+    """Device time in ms of SDPA's flash backward alone (dq, dk, dv together)
+    on [B, T, H, D] inputs, from a torch.profiler trace of `iters` forwards
+    and backwards: every kernel in the trace but the forward's (flash_fwd).
+    Returns (ms or None where the trace shows no device time, {kernel: ms per
+    call}). A yardstick only: the port never calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
+                  for a in (q, k, v))
+    gt = do.transpose(1, 2).contiguous()
+
+    def step():
+        torch.autograd.grad(sdpa(qt, kt, vt, is_causal=causal), (qt, kt, vt),
+                            gt)
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                step()
+            torch.cuda.synchronize()
+    per_call = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:   # by kernel name, template arguments cut
+            name = re.sub(r"<.*", "", e.key)
+            per_call[name] = (per_call.get(name, 0.0)
+                              + e.device_time_total / 1e3 / iters)
+    bwd = {name: t for name, t in per_call.items() if "flash_fwd" not in name}
+    if not bwd or len(bwd) == len(per_call):   # no trace, or no forward seen
+        return None, per_call
+    return sum(bwd.values()), bwd
 
 
 def check_training_kernels(fa, label, b, t, h, d, dtype, causal, tol, seed):
@@ -367,7 +449,7 @@ def main():
                 True, None, atol=1e-5, rtol=1e-5, row_rtol=1e-5)
 
     print("phase 4: timing at the main path's shape")
-    k1_report = hopper_report(fa, _build, torch.bfloat16, False)
+    k1_report = fwd_report(fa, _build, False)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True), iters=20)
     plain_ms = cuda_ms(lambda: flash_plain(fa, q, k, v, True), iters=2,
                        warmup=1)
@@ -453,8 +535,7 @@ def main():
         lambda: (fa.flash_attention(rq, rk, rv, True),
                  fa.flash_attention_partial(rq, rk, rv, 0, 0, True)),
         ("flash_fwd_hopper_kernel", "flash_fwd_partial_mma_kernel"))))
-    shown = {key: "not measured" if t is None else f"{t:.4f} ms"
-             for key, t in reencode.items()}
+    shown = {key: shown_ms(t) for key, t in reencode.items()}
     print(f"  K1 at the re-encode shape B=1 T=1024 H={H} D={D}: "
           f"{shown['ms']} by CUDA events, {shown['device_ms']} on the card "
           f"(trace); PR 3's mma.sync loop (K3 diagonal) "
@@ -527,10 +608,23 @@ def training_phases(fa, _build, TransformerLM, H, D):
     # type may flip; p and ds are rounded from f32 values that the kernel
     # and cuBLAS sum in another order)
     bf16_tol, fp16_tol = (1e-2, 1e-2, 1e-2), (2e-3, 2e-3, 2e-3)
-    # one 128-key tile of K2's Hopper kernel first
-    check_training_kernels(fa, "single tile B=1 T=128 H=1 D=64 bf16 full", 1,
-                           128, 1, 64, torch.bfloat16, False, bf16_tol,
-                           seed=21)
+    # single tiles first: one 128-key tile of K2's Hopper kernel; K4's own
+    # 128-query tile against one or two 64-key halves of its first kv tile,
+    # K5's 128-key tile against one or two 64-query tiles, both masks. Then
+    # the tile edges: one row, a tile of 64 and of 128 rows less or more one,
+    # three tiles of 64 and one more, four and one more.
+    for t in (64, 128):
+        for causal in (False, True):
+            check_training_kernels(
+                fa, f"single tile B=1 T={t} H=1 D=64 bf16 "
+                f"{'causal' if causal else 'full'}", 1, t, 1, 64,
+                torch.bfloat16, causal, bf16_tol, seed=20 + t + causal)
+    for t in (1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 257):
+        for causal in (True, False):
+            check_training_kernels(
+                fa, f"tile edge B=1 T={t} H=8 D=64 bf16 "
+                f"{'causal' if causal else 'full'}", 1, t, 8, 64,
+                torch.bfloat16, causal, bf16_tol, seed=300 + t + causal)
     args, errs = check_training_kernels(
         fa, f"B={B} T={T} H={H} D={D} bf16 causal", B, T, H, D,
         torch.bfloat16, True, bf16_tol, seed=11)
@@ -544,7 +638,9 @@ def training_phases(fa, _build, TransformerLM, H, D):
                            seed=14)
 
     print("phase 8: training kernels timed at the training shape")
-    k2_report = hopper_report(fa, _build, torch.bfloat16, True)
+    reports = {"fwd_lse": fwd_report(fa, _build, True),
+               "bwd_dq": bwd_report(fa, _build, True),
+               "bwd_dkv": bwd_report(fa, _build, False)}
     q, k, v, do, lse, delta = args
     calls = {  # kernel wrapper, plain version, inputs
         "fwd_lse": (fa.flash_attention_fwd_lse,
@@ -558,13 +654,10 @@ def training_phases(fa, _build, TransformerLM, H, D):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
                   for a in (q, k, v))
-    gt = do.transpose(1, 2).contiguous()
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         # with inputs that need grad, flash SDPA also returns the logsumexp
         lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=20)
-        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-            sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), gt), iters=10)
-    lib_bwd = lib_fwd_bwd - lib_fwd
+    lib_bwd, lib_bwd_kernels = sdpa_backward_ms(q, k, v, do, True)
     pairs = B * H * T * (T + 1) / 2            # causal (query, key) pairs
     panel = B * T * H * D * q.element_size()   # one [B, T, H, D] tensor
     row_stats = B * H * T * 4                  # one f32 [B, H, T] tensor
@@ -582,19 +675,20 @@ def training_phases(fa, _build, TransformerLM, H, D):
         b_ms, b_by = bound(*work[name])
         kernels[name] = {"max_abs_err": errs[name], "ms": k_ms,
                          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": library[name]}
+                         "library_ms": library[name], "kernel": reports[name]}
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-              f"library {library[name]:.4f} ms, bound {b_ms:.4f} ms "
+              f"library {shown_ms(library[name])}, bound {b_ms:.4f} ms "
               f"({b_by}), roofline share {b_ms / k_ms:.3f}, "
               f"{work[name][0] / k_ms / 1e9:.1f} TFLOP/s")
     kernels["fwd_lse"]["lse_max_abs_err"] = errs["lse"]
-    kernels["fwd_lse"]["kernel"] = k2_report
     for name in ("bwd_dq", "bwd_dkv"):
         kernels[name]["library_call"] = (
-            "SDPA flash backward, dq/dk/dv together (fwd+bwd minus fwd)")
-    print(f"  SDPA flash: forward {lib_fwd:.4f} ms, forward+backward "
-          f"{lib_fwd_bwd:.4f} ms, backward {lib_bwd:.4f} ms")
-    del args, q, k, v, do, lse, delta, qt, kt, vt, gt
+            "SDPA flash backward alone, dq/dk/dv together (device time, "
+            "torch.profiler)")
+    print(f"  SDPA flash: forward {lib_fwd:.4f} ms (CUDA events); backward "
+          f"{shown_ms(lib_bwd)} on the card (trace: "
+          f"{json.dumps(lib_bwd_kernels)})")
+    del args, q, k, v, do, lse, delta, qt, kt, vt
 
     print(f"phase 9: training main path at full width (bf16, "
           f"{TRAIN_STEPS} fit_batch steps)")
@@ -1048,16 +1142,7 @@ def ring_phases(fa, H, D):
         "bwd_dq": (6 * D * pairs, 4 * panel + 2 * row_stats + panel32),
         "bwd_dkv": (8 * D * pairs, 4 * panel + 2 * row_stats + 2 * panel32),
     }
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
-                  for a in (q, k, v))
-    gt = do.transpose(1, 2).contiguous()
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt), iters=20)
-        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-            sdpa(qt, kt, vt), (qt, kt, vt), gt), iters=10)
-    lib_bwd = lib_fwd_bwd - lib_fwd
+    lib_bwd, lib_bwd_kernels = sdpa_backward_ms(q, k, v, do, False)
     library = {"partial": None, "bwd_dq": lib_bwd, "bwd_dkv": lib_bwd}
     timed = {}
     for name, (kernel_fn, plain_fn, inputs) in calls.items():
@@ -1067,14 +1152,14 @@ def ring_phases(fa, H, D):
         b_ms, b_by = bound(*work[name])
         timed[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": library[name]}
-        lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
+        lib = "none" if name == "partial" else shown_ms(library[name])
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
               f"library {lib}, bound {b_ms:.4f} ms ({b_by}), roofline share "
               f"{b_ms / k_ms:.3f}, {work[name][0] / k_ms / 1e9:.1f} TFLOP/s")
-    print(f"  SDPA flash, non-causal, [{B}, {H}, {HOP_T}, {D}] bf16: forward "
-          f"{lib_fwd:.4f} ms, forward+backward {lib_fwd_bwd:.4f} ms, "
-          f"backward {lib_bwd:.4f} ms (the same dq, dk, dv rounded to bf16)")
-    del visible, q, k, v, delta, do, lse, bwd_args, calls, qt, kt, vt, gt
+    print(f"  SDPA flash backward alone, non-causal, [{B}, {H}, {HOP_T}, {D}] "
+          f"bf16 (the same dq, dk, dv rounded to bf16): {shown_ms(lib_bwd)} "
+          f"on the card (trace: {json.dumps(lib_bwd_kernels)})")
+    del visible, q, k, v, delta, do, lse, bwd_args, calls
 
     print(f"phase 14: ring main path at full width: {RING} ranks on cuda:0 "
           f"over gloo, global B={B} T={T} H={H} D={D} bf16 causal")
@@ -1097,8 +1182,9 @@ def ring_phases(fa, H, D):
         "extra": {name: {"ring_launches": ring_launches[name], "hop": dict(
             timed[name], max_abs_err=hop_errs[name], shape=hop_shape,
             out_dtype="float32",
-            library_call="SDPA flash backward, non-causal, dq/dk/dv "
-                         "together, rounded to bf16 (fwd+bwd minus fwd)")}
+            library_call="SDPA flash backward alone, non-causal, dq/dk/dv "
+                         "together, rounded to bf16 (device time, "
+                         "torch.profiler)")}
             for name in ("bwd_dq", "bwd_dkv")},
     }
 

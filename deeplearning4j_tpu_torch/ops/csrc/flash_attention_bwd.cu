@@ -19,16 +19,18 @@
 // Given the forward's residuals (q, k, v, the per-row logsumexp lse from K2)
 // and delta = rowsum(dO * O) (computed once, outside), each (query i, key j)
 // pair is rebuilt without a second softmax:
-//   s = (q_i . k_j) * scale             f32 product of the input type, scaled after
-//                                       (__fmul_rn: rounded before the subtraction)
-//   p = exp(s - lse_i)                  f32; 0 where masked (causal: k_off + j > q_off + i;
+//   s = q_i . k_j                       f32 product of the input type
+//   p = exp(s * scale - lse_i)          f32; 0 where masked (causal: k_off + j > q_off + i;
 //                                       or out of bounds)
 //   dp = dO_i . v_j                     f32 accumulation
 //   ds = p * (dp - delta_i)             f32
 // The dQ and dK products take ds rounded to the input type and the dV product
 // takes p rounded to the input type, each accumulated in f32; dQ and dK are
 // multiplied by scale after the product. Outputs are rounded once to the output
-// type. That is where the TPU kernels round.
+// type. That is where the TPU kernels round. The 16-bit kernels take the
+// exponential as one ex2 of s * (scale * log2 e) - lse * log2 e, with lse
+// converted to log2 units once per row; the f32 kernels as expf of the
+// rounded s * scale - lse.
 //
 // Bound on an H100 SXM at the training shape (B=4, T=8192, H=8, D=64, bf16,
 // causal), with 1.074e9 (query, key) pairs: K4 does 6*D FLOP per pair (s, dp,
@@ -36,43 +38,65 @@
 // 0.556 ms; each moves ~0.2 GB (~0.06 ms at 3.35 TB/s). Compute-bound: the
 // products go through the tensor cores. At one visible ring hop of T=8192 over
 // a ring of 4 (Tq=Tk=2048, f32 outputs): K4 5.15e10 FLOP, 0.052 ms; K5
-// 6.87e10, 0.069 ms; both still compute-bound.
+// 6.87e10, 0.069 ms; both still compute-bound. The split recomputes s and dp
+// in both kernels (14*D FLOP per pair where one fused pass needs 10*D): that
+// is the TPU kernels' design, kept here.
 //
-// Design (a first, simple version; wgmma, TMA and ldmatrix.trans come later):
-//  * bf16/fp16: one block of 4 warps, each warp owning 16 rows of the block's
-//    64-row tile: queries in K4, keys in K5. The tile's own operands (Q and dO
-//    in K4; K and V in K5) stay in registers as mma A fragments; the other side
-//    streams through shared memory in row-major tiles (K and V in K4; Q, dO,
-//    lse and delta in K5). The S and dP products run on mma.sync.m16n8k16;
-//    their f32 results become, rounded, the A operand of the dQ / dV / dK
-//    products without leaving registers. That product's B operand runs along
-//    the rows of the shared tile, and is read as column pairs (ld32_col).
+// Design:
+//  * bf16/fp16 (D in {16, 32, 64, 128}): one Hopper kernel each, in the shape
+//    of the forward's `flash_fwd_hopper_kernel` and built from the same pieces
+//    (hopper.cuh):
+//    - warp roles: warpgroup 0 is the producer: it drops to 24 registers
+//      (setmaxnreg) and one of its threads issues every TMA load; two
+//      consumer warpgroups rise to 240 registers and own 64 rows of the
+//      block's own tile each: queries in K4, keys in K5;
+//    - loads: TMA over 4-D tensor maps of the strided [B, T, H, D] inputs.
+//      The block's own tiles (Q and dO in K4; K and V in K5) arrive once; the
+//      other side (K and V in K4; Q and dO in K5) streams through a ring of
+//      full/empty mbarriers, as in the forward. Rows past T arrive as zeros;
+//    - K4, per kv tile of 128 keys (64 at D = 128): S = Q K^T and dP = dO V^T
+//      on shared-memory wgmma (both operands K-major); dS on the accumulator
+//      fragments, rounded and packed as register-A fragments; dQ += dS K on
+//      register-A wgmma with K read MN-major (the transpose bit) from the tile
+//      that S read K-major. lse and delta of the warp's rows are read once;
+//    - K5, per q tile of 64 queries (32 at D = 128): S^T = K Q^T and
+//      dP^T = V dO^T on shared-memory wgmma; P^T and dS^T on the fragments;
+//      dV += P^T dO and dK += dS^T Q on register-A wgmma, dO and Q read
+//      MN-major from the tiles the score products read K-major. The
+//      producer's second warp stages each q tile's lse (in log2 units) and
+//      delta into the ring's stage with plain loads (a TMA map over the f32
+//      [B*H, T] rows needs T * 4 to be a multiple of 16) and arrives on the
+//      stage's full barrier beside the TMA;
+//    - a consumer waits for each tile's last products and then releases the
+//      stage; every consumer runs every tile of the block's loop (a tile it
+//      cannot see is masked whole). Leaving the last products in flight
+//      across the next tile's score products, as the forward does, or
+//      skipping a consumer's hidden tiles made ptxas serialise every wgmma
+//      (C7515: a wait after each) and cost 1.4x (PERF.md, PR 5).
 //  * f32: the same arithmetic in plain f32 FMA (no TF32), with small tiles in
 //    shared memory and one thread per (query, key) pair for s and dp.
 //  * Causal: K4's kv loop stops at the last tile holding a key its queries may
 //    see; K5's q loop starts at the first tile holding a query that may see
-//    its keys (the diagonal tiles at equal offsets). A hop that is wholly
-//    masked runs no inner tile and writes zeros. The heaviest tiles are
-//    scheduled first.
-//  * Any T: both axes are masked by bounds. A padded key gets p = 0 (as a -inf
-//    score would); a padded query gets p = 0 by its bound, never through its
-//    lse or delta, which read as 0 and are not used.
+//    its keys (the diagonal tiles at equal offsets). A block whose loop is
+//    empty (a causal K4 tile before k_off, a K5 tile past the last query, the
+//    ring's wholly masked hop) issues no load, waits on nothing and writes
+//    zeros. The heaviest tiles are scheduled first.
+//  * Any T: a padded key or query row never reaches another row's output. In
+//    K4 the tiles that reach past T, or cross the causal diagonal, mask by
+//    position (p = 0); in K5 a padded query's lse is staged as +inf, so its
+//    p is exactly 0, and the causal diagonal tiles mask by position. The f32
+//    kernels mask both axes by bounds.
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTile = kWarps * 16;  // tensor-core path: rows of a block's own tile
-constexpr int kF32Rows = 16;        // f32 path: rows of a block's own tile
-
-// Keys per streamed tile in K4 and queries per streamed tile in K5. K5 holds
-// two D-wide f32 accumulators besides its K and V fragments, so at D = 128 it
-// streams half tiles to stay within 255 registers.
-template <int D>
-constexpr int kMmaStreamRows = D <= 64 ? 64 : 32;
+constexpr int kF32Rows = 16;  // f32 path: rows of a block's own tile
 template <int D>
 constexpr int kF32StreamRows = D <= 64 ? 32 : 16;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Which (query, key) pairs take part: both in bounds, and, when causal, the
 // key's global position k_off + key at most the query's q_off + query
@@ -97,212 +121,398 @@ __device__ __forceinline__ int first_q_tile(const PairMask& m, int first_key, in
   return m.causal ? max(0, first_key - m.dlt) / tile : 0;
 }
 
-// K4. grid (batch*heads, query tiles); lse and delta are f32 [batch*heads, T].
+// ------------------------------------------------ K4, K5: the Hopper kernels
+
+// Tiles of the Hopper backward kernels for head dim D, K4 (kDq) or K5. A
+// block: a producer warpgroup and two consumer warpgroups of 64 own rows.
+template <int D, bool kDq>
+struct BwdTiles {
+  static constexpr int kConsumers = 2;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  // after setmaxnreg: 128 * 24 + 256 * 240 = 64,512 of the SM's 65,536
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kOwnRows = 64 * kConsumers;  // queries (K4) or keys (K5)
+  // rows of a streamed tile: keys (K4) or queries (K5); halved at D = 128,
+  // where dQ (K4) or dK and dV (K5) take twice the accumulators
+  static constexpr int kStreamRows = (kDq ? 128 : 64) / (D == 128 ? 2 : 1);
+  static constexpr int kStages = kDq && D == 128 ? 2 : 4;
+  static constexpr int kBoxCols = D < 64 ? D : 64;  // columns of one TMA box
+  static constexpr int kRowBytes = kBoxCols * 2;    // 32, 64 or 128: the swizzle
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kOwnBytes = kOwnRows * D * 2;        // one own tile
+  static constexpr int kStreamBytes = kStreamRows * D * 2;  // one streamed tile
+  // K5's stages also hold their q tile's lse (log2 units) and delta, f32
+  static constexpr int kStatBytes = kDq ? 0 : 2 * kStreamRows * 4;
+  static constexpr int kStatOffset = 2 * kOwnBytes + 2 * kStages * kStreamBytes;
+  static constexpr int kBarOffset = kStatOffset + kStages * kStatBytes;
+  // + 1024 to align the tiles to a 1024-byte swizzle atom; barriers after:
+  // own tiles' "full", then full[kStages], empty[kStages]
+  static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
+
+// K4 for one (batch*head, 128-query tile). q, k, v, dout are read through 4-D
+// tensor maps over [B, T, H, D]; lse and delta are f32 [batch*heads, T].
 template <typename Elem, typename Out, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                            const Elem* __restrict__ v, const Elem* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            Out* __restrict__ dq, int heads, int seq_len, Strides sq,
-                            Strides sk, Strides sv, Strides sdo, Strides sdq, float scale,
-                            int causal, int q_off, int k_off) {
-  constexpr int BK = kMmaStreamRows<D>;
-  constexpr int kPitch = D + 8;
-  __shared__ __align__(16) Elem Ks[BK][kPitch];
-  __shared__ __align__(16) Elem Vs[BK][kPitch];
+__global__ void __launch_bounds__(BwdTiles<D, true>::kThreads, 1)
+    flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               Out* __restrict__ dq, int heads, int seq_len, Strides sdq,
+                               float scale, int causal, int q_off, int k_off) {
+  using L = BwdTiles<D, true>;
+  constexpr int BQ = L::kOwnRows, BK = L::kStreamRows, S = L::kStages, CB = L::kBoxCols;
+  constexpr int kLayout = swizzle_layout(L::kRowBytes);
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;  // 8-row group stride
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                        // Q: kBoxes boxes of [BQ][CB]
+  const uint32_t do_s = q_s + L::kOwnBytes;         // dO, the same
+  const uint32_t k_s = do_s + L::kOwnBytes;         // K stage s: + s * kStreamBytes
+  const uint32_t v_s = k_s + S * L::kStreamBytes;   // V stage s: + s * kStreamBytes
+  const uint32_t own_full = base + L::kBarOffset;   // barriers, 8 bytes each
+  const uint32_t full = own_full + 8;               // full[s]: + 8 s
+  const uint32_t empty = full + 8 * S;              // empty[s]: + 8 s
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
-  const int qtile = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const Elem* kb = k + b * sk.b + h * sk.h;
-  const Elem* vb = v + b * sv.b + h * sv.h;
-  const int row0 = qtile * kTile + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const PairMask mask{seq_len, causal, q_off - k_off};
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int dlt = q_off - k_off;  // causal: key j is masked for query i when j > i + dlt
+  const PairMask mask{seq_len, causal, dlt};
+  const int n_kv = n_kv_tiles(mask, min(seq_len, q_start + BQ) - 1, BK);
 
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<Elem, D>(qa, q + b * sq.b + h * sq.h, sq.t, row0, seq_len, t);
-  load_a<Elem, D>(da, dout + b * sdo.b + h * sdo.h, sdo.t, row0, seq_len, t);
-  const float* lb = lse + static_cast<long long>(bh) * seq_len;
-  const float* db = delta + static_cast<long long>(bh) * seq_len;
-  const float lse0 = row0 < seq_len ? lb[row0] : 0.f, lse1 = row1 < seq_len ? lb[row1] : 0.f;
-  const float dl0 = row0 < seq_len ? db[row0] : 0.f, dl1 = row1 < seq_len ? db[row1] : 0.f;
-
-  float acc[D / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
-  const int n_kv = n_kv_tiles(mask, min(seq_len, (qtile + 1) * kTile) - 1, BK);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<Elem, D, BK, kPitch>(Ks, kb, sk.t, k_start, seq_len);
-    stage_rows<Elem, D, BK, kPitch>(Vs, vb, sv.t, k_start, seq_len);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows and the tile's keys.
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const Elem* kr = &Ks[nt * 8 + g][kc * 16 + 2 * t];
-        Mma<Elem>::run(s[nt], qa[kc], ld32(kr), ld32(kr + 8));
-        const Elem* vr = &Vs[nt * 8 + g][kc * 16 + 2 * t];
-        Mma<Elem>::run(dp[nt], da[kc], ld32(vr), ld32(vr + 8));
-      }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * L::kConsumers);  // lane 0 of each consumer warp
     }
-    // ds = p * (dp - delta), p = exp(s * scale - lse); kept in s.
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k_start + nt * 8 + 2 * t + j;
-        const float p0 = mask.keep(row0, key) ? expf(__fmul_rn(s[nt][j], scale) - lse0) : 0.f;
-        const float p1 = mask.keep(row1, key) ? expf(__fmul_rn(s[nt][2 + j], scale) - lse1) : 0.f;
-        s[nt][j] = p0 * (dp[nt][j] - dl0);
-        s[nt][2 + j] = p1 * (dp[nt][2 + j] - dl1);
-      }
-    }
-    // dQ += dS K: K's rows are this product's k dimension.
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t dsa[4];
-      c_to_a<Elem>(dsa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const Elem* kr = &Ks[kc * 16 + 2 * t][nd * 8 + g];
-        Mma<Elem>::run(acc[nd], dsa, ld32_col(kr, kPitch), ld32_col(kr + 8 * kPitch, kPitch));
-      }
-    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  Out* out = dq + b * sdq.b + h * sdq.h;
+  if (threadIdx.x < 128) {
+    // Producer: one thread loads Q and dO once, then keeps the K/V ring full.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_kv > 0) {
+      mbar_expect_tx(own_full, 2 * L::kOwnBytes);
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (row0 < seq_len) store2(out + row0 * sdq.t + c, acc[nd][0] * scale, acc[nd][1] * scale);
-    if (row1 < seq_len) store2(out + row1 * sdq.t + c, acc[nd][2] * scale, acc[nd][3] * scale);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load_4d(q_s + c * BQ * L::kRowBytes, &tq, own_full, c * CB, h, q_start, b);
+        tma_load_4d(do_s + c * BQ * L::kRowBytes, &tdo, own_full, c * CB, h, q_start, b);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % S;
+        if (j >= S) mbar_wait(empty + 8 * s, ((j / S) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::kStreamBytes);
+#pragma unroll
+        for (int c = 0; c < L::kBoxes; ++c) {
+          const uint32_t box = s * L::kStreamBytes + c * BK * L::kRowBytes;
+          tma_load_4d(k_s + box, &tk, full + 8 * s, c * CB, h, j * BK, b);
+          tma_load_4d(v_s + box, &tv, full + 8 * s, c * CB, h, j * BK, b);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<L::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wg_row0 = q_start + 64 * cw;
+    const int row0 = wg_row0 + 16 * warp + g, row1 = row0 + 8;
+    // a kv tile needs no mask when every key in it is < seq_len and, causal,
+    // visible to this warpgroup's first row
+    const int clear_to = causal ? min(seq_len, wg_row0 + dlt + 1) : seq_len;
+    // a padded row's dQ is never stored: its statistics may read as 0
+    const float* lb = lse + static_cast<long long>(bh) * seq_len;
+    const float* db = delta + static_cast<long long>(bh) * seq_len;
+    const float lse0 = row0 < seq_len ? lb[row0] * kLog2e : 0.f;
+    const float lse1 = row1 < seq_len ? lb[row1] * kLog2e : 0.f;
+    const float dl0 = row0 < seq_len ? db[row0] : 0.f, dl1 = row1 < seq_len ? db[row1] : 0.f;
+    const float sl = scale * kLog2e;  // scores into log2 units: each p is one ex2
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint32_t q_wg = q_s + 64 * cw * L::kRowBytes;  // this warpgroup's rows
+    const uint32_t do_wg = do_s + 64 * cw * L::kRowBytes;
+    if (n_kv > 0) mbar_wait(own_full, 0);
+
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % S;
+      const int k_start = j * BK;
+      mbar_wait(full + 8 * s, (j / S) & 1);
+
+      // S = Q K^T and dP = dO V^T: D/16 slices of 16 columns, all K-major.
+      float sc[BK / 2], dp[BK / 2];
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk * 16 % CB) * 2;  // bytes into a row
+        const uint32_t own = (kk * 16 / CB) * BQ * L::kRowBytes + col;
+        const uint32_t stream = s * L::kStreamBytes + (kk * 16 / CB) * BK * L::kRowBytes + col;
+        wgmma_ss<Elem, BK>(sc, wgmma_desc(q_wg + own, 16, kSbo, kLayout),
+                           wgmma_desc(k_s + stream, 16, kSbo, kLayout), kk);
+        wgmma_ss<Elem, BK>(dp, wgmma_desc(do_wg + own, 16, kSbo, kLayout),
+                           wgmma_desc(v_s + stream, 16, kSbo, kLayout), kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // ds = p * (dp - delta), p = exp2(s * scale * log2 e - lse * log2 e); kept in sc
+      const bool masked = k_start + BK > clear_to;
+#pragma unroll
+      for (int n8 = 0; n8 < BK / 8; ++n8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = ex2_approx(sc[4 * n8 + e] * sl - lse0);
+          float p1 = ex2_approx(sc[4 * n8 + 2 + e] * sl - lse1);
+          if (masked) {
+            const int key = k_start + n8 * 8 + 2 * t + e;
+            if (!mask.keep(row0, key)) p0 = 0.f;
+            if (!mask.keep(row1, key)) p1 = 0.f;
+          }
+          sc[4 * n8 + e] = p0 * (dp[4 * n8 + e] - dl0);
+          sc[4 * n8 + 2 + e] = p1 * (dp[4 * n8 + 2 + e] - dl1);
+        }
+      }
+
+      // dQ += dS K: dS rounded to Elem straight from the fragments (register
+      // A), K MN-major from the stage as TMA wrote it.
+      uint32_t dsa[BK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) c_to_a<Elem>(dsa[kc], &sc[8 * kc], &sc[8 * kc + 4]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        const uint32_t kb = k_s + s * L::kStreamBytes + kc * 16 * L::kRowBytes;
+        wgmma_rs_t<Elem, D>(acc, dsa[kc], wgmma_desc(kb, BK * L::kRowBytes, kSbo, kLayout));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * s);  // the stage's K and V have been read
+    }
+
+    Out* out = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      const int c = n8 * 8 + 2 * t;
+      if (row0 < seq_len)
+        store2(out + row0 * sdq.t + c, acc[4 * n8] * scale, acc[4 * n8 + 1] * scale);
+      if (row1 < seq_len)
+        store2(out + row1 * sdq.t + c, acc[4 * n8 + 2] * scale, acc[4 * n8 + 3] * scale);
+    }
   }
 }
 
-// K5. grid (batch*heads, key tiles). Works on transposed panels: S^T = K Q^T
-// and dP^T = V dO^T, rows = this warp's 16 keys, columns = the tile's queries.
+// K5 for one (batch*head, 128-key tile), on transposed panels: S^T = K Q^T and
+// dP^T = V dO^T, rows = a consumer's 64 keys, columns = the q tile's queries.
 template <typename Elem, typename Out, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_mma_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                             const Elem* __restrict__ v, const Elem* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             Out* __restrict__ dk, Out* __restrict__ dv, int heads,
-                             int seq_len, Strides sq, Strides sk, Strides sv, Strides sdo,
-                             Strides sdk, Strides sdv, float scale, int causal, int q_off,
-                             int k_off) {
-  constexpr int BQ = kMmaStreamRows<D>;
-  constexpr int kPitch = D + 8;
-  __shared__ __align__(16) Elem Qs[BQ][kPitch];
-  __shared__ __align__(16) Elem dOs[BQ][kPitch];
-  __shared__ float lse_s[BQ], delta_s[BQ];
+__global__ void __launch_bounds__(BwdTiles<D, false>::kThreads, 1)
+    flash_bwd_dkv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                Out* __restrict__ dk, Out* __restrict__ dv, int heads,
+                                int seq_len, Strides sdk, Strides sdv, float scale, int causal,
+                                int q_off, int k_off) {
+  using L = BwdTiles<D, false>;
+  constexpr int BK = L::kOwnRows, BQ = L::kStreamRows, S = L::kStages, CB = L::kBoxCols;
+  constexpr int kLayout = swizzle_layout(L::kRowBytes);
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;  // 8-row group stride
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;                        // K: kBoxes boxes of [BK][CB]
+  const uint32_t v_s = k_s + L::kOwnBytes;          // V, the same
+  const uint32_t q_s = v_s + L::kOwnBytes;          // Q stage s: + s * kStreamBytes
+  const uint32_t do_s = q_s + S * L::kStreamBytes;  // dO stage s: + s * kStreamBytes
+  // stage s's lse (log2 units) at [2 s BQ, (2 s + 1) BQ), its delta after
+  float* const stats = reinterpret_cast<float*>(smem_raw + (base + L::kStatOffset - raw));
+  const uint32_t own_full = base + L::kBarOffset;   // barriers, 8 bytes each
+  const uint32_t full = own_full + 8;               // full[s]: + 8 s
+  const uint32_t empty = full + 8 * S;              // empty[s]: + 8 s
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
-  const int ktile = blockIdx.y;  // causal: the first key tiles see the most queries
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const Elem* qb = q + b * sq.b + h * sq.h;
-  const Elem* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lb = lse + static_cast<long long>(bh) * seq_len;
-  const float* db = delta + static_cast<long long>(bh) * seq_len;
-  const int key0 = ktile * kTile + warp * 16 + g;
-  const int key1 = key0 + 8;
-  const PairMask mask{seq_len, causal, q_off - k_off};
+  const int k_start = blockIdx.y * BK;  // causal: the first key tiles see the most queries
+  const int dlt = q_off - k_off;  // causal: key j is masked for query i when j > i + dlt
+  const PairMask mask{seq_len, causal, dlt};
+  // the q tiles from the first holding a query that sees a key of this block;
+  // none when no query does (the ring's wholly masked hop)
+  const int first_tile = first_q_tile(mask, k_start, BQ);
+  const int n_q = causal && k_start - dlt >= seq_len ? 0 : (seq_len + BQ - 1) / BQ - first_tile;
 
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<Elem, D>(ka, k + b * sk.b + h * sk.h, sk.t, key0, seq_len, t);
-  load_a<Elem, D>(va, v + b * sv.b + h * sv.h, sv.t, key0, seq_len, t);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[nd][j] = dv_acc[nd][j] = 0.f;
-
-  // Queries before the tile's first key see none of its keys.
-  const int first_q = first_q_tile(mask, ktile * kTile, BQ);
-  const int n_q = (seq_len + BQ - 1) / BQ;
-  for (int qt = first_q; qt < n_q; ++qt) {
-    const int q_start = qt * BQ;
-    __syncthreads();
-    stage_rows<Elem, D, BQ, kPitch>(Qs, qb, sq.t, q_start, seq_len);
-    stage_rows<Elem, D, BQ, kPitch>(dOs, dob, sdo.t, q_start, seq_len);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const int query = q_start + i;
-      lse_s[i] = query < seq_len ? lb[query] : 0.f;
-      delta_s[i] = query < seq_len ? db[query] : 0.f;
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);              // the TMA thread and the stats warp
+      mbar_init(empty + 8 * s, 4 * L::kConsumers);  // lane 0 of each consumer warp
     }
-    __syncthreads();
-
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const Elem* qr = &Qs[nt * 8 + g][kc * 16 + 2 * t];
-        Mma<Elem>::run(s[nt], ka[kc], ld32(qr), ld32(qr + 8));
-        const Elem* dr = &dOs[nt * 8 + g][kc * 16 + 2 * t];
-        Mma<Elem>::run(dp[nt], va[kc], ld32(dr), ld32(dr + 8));
-      }
-    }
-    // p^T in s, ds^T in dp.
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = nt * 8 + 2 * t + j, query = q_start + c;
-        const float p0 = mask.keep(query, key0) ? expf(__fmul_rn(s[nt][j], scale) - lse_s[c]) : 0.f;
-        const float p1 = mask.keep(query, key1) ? expf(__fmul_rn(s[nt][2 + j], scale) - lse_s[c]) : 0.f;
-        s[nt][j] = p0;
-        s[nt][2 + j] = p1;
-        dp[nt][j] = p0 * (dp[nt][j] - delta_s[c]);
-        dp[nt][2 + j] = p1 * (dp[nt][2 + j] - delta_s[c]);
-      }
-    }
-    // dV += P^T dO and dK += dS^T Q: the queries are these products' k dimension.
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      uint32_t pa[4], dsa[4];
-      c_to_a<Elem>(pa, s[2 * kc], s[2 * kc + 1]);
-      c_to_a<Elem>(dsa, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const Elem* dr = &dOs[kc * 16 + 2 * t][nd * 8 + g];
-        Mma<Elem>::run(dv_acc[nd], pa, ld32_col(dr, kPitch), ld32_col(dr + 8 * kPitch, kPitch));
-        const Elem* qr = &Qs[kc * 16 + 2 * t][nd * 8 + g];
-        Mma<Elem>::run(dk_acc[nd], dsa, ld32_col(qr, kPitch), ld32_col(qr + 8 * kPitch, kPitch));
-      }
-    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  Out* dkb = dk + b * sdk.b + h * sdk.h;
-  Out* dvb = dv + b * sdv.b + h * sdv.h;
+  if (threadIdx.x < 128) {
+    // Producer: thread 0 loads K and V once, then keeps the Q/dO ring full;
+    // warp 1 stages each q tile's lse and delta into the same stage.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_q > 0) {
+      mbar_expect_tx(own_full, 2 * L::kOwnBytes);
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (key0 < seq_len) {
-      store2(dkb + key0 * sdk.t + c, dk_acc[nd][0] * scale, dk_acc[nd][1] * scale);
-      store2(dvb + key0 * sdv.t + c, dv_acc[nd][0], dv_acc[nd][1]);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load_4d(k_s + c * BK * L::kRowBytes, &tk, own_full, c * CB, h, k_start, b);
+        tma_load_4d(v_s + c * BK * L::kRowBytes, &tv, own_full, c * CB, h, k_start, b);
+      }
+      for (int j = 0; j < n_q; ++j) {
+        const int s = j % S;
+        if (j >= S) mbar_wait(empty + 8 * s, ((j / S) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::kStreamBytes);
+#pragma unroll
+        for (int c = 0; c < L::kBoxes; ++c) {
+          const uint32_t box = s * L::kStreamBytes + c * BQ * L::kRowBytes;
+          const int q_start = (first_tile + j) * BQ;
+          tma_load_4d(q_s + box, &tq, full + 8 * s, c * CB, h, q_start, b);
+          tma_load_4d(do_s + box, &tdo, full + 8 * s, c * CB, h, q_start, b);
+        }
+      }
+    } else if (threadIdx.x / 32 == 1 && n_q > 0) {
+      // A padded query gets lse = +inf, so its p = exp2(s - inf) is exactly
+      // 0; rows at or past seq_len (the next head's) are never read.
+      const int lane = threadIdx.x % 32;
+      const float* lb = lse + static_cast<long long>(bh) * seq_len;
+      const float* db = delta + static_cast<long long>(bh) * seq_len;
+      for (int j = 0; j < n_q; ++j) {
+        const int s = j % S;
+        if (j >= S) mbar_wait(empty + 8 * s, ((j / S) & 1) ^ 1);
+        float* st = stats + 2 * BQ * s;
+        for (int i = lane; i < BQ; i += 32) {
+          const int query = (first_tile + j) * BQ + i;
+          st[i] = query < seq_len ? lb[query] * kLog2e : INFINITY;
+          st[BQ + i] = query < seq_len ? db[query] : 0.f;
+        }
+        mbar_arrive(full + 8 * s);  // release: the stores above are seen after the wait
+      }
     }
-    if (key1 < seq_len) {
-      store2(dkb + key1 * sdk.t + c, dk_acc[nd][2] * scale, dk_acc[nd][3] * scale);
-      store2(dvb + key1 * sdv.t + c, dv_acc[nd][2], dv_acc[nd][3]);
+  } else {
+    setmaxnreg_inc<L::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kw0 = k_start + 64 * cw;  // this warpgroup's first key
+    const int key0 = kw0 + 16 * warp + g, key1 = key0 + 8;
+    const float sl = scale * kLog2e;  // scores into log2 units: each p is one ex2
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const uint32_t k_wg = k_s + 64 * cw * L::kRowBytes;  // this warpgroup's rows
+    const uint32_t v_wg = v_s + 64 * cw * L::kRowBytes;
+    if (n_q > 0) mbar_wait(own_full, 0);
+
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % S;
+      const int q_start = (first_tile + j) * BQ;
+      mbar_wait(full + 8 * s, (j / S) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: D/16 slices of 16 columns, all K-major.
+      float st[BQ / 2], dpt[BQ / 2];
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk * 16 % CB) * 2;  // bytes into a row
+        const uint32_t own = (kk * 16 / CB) * BK * L::kRowBytes + col;
+        const uint32_t stream = s * L::kStreamBytes + (kk * 16 / CB) * BQ * L::kRowBytes + col;
+        wgmma_ss<Elem, BQ>(st, wgmma_desc(k_wg + own, 16, kSbo, kLayout),
+                           wgmma_desc(q_s + stream, 16, kSbo, kLayout), kk);
+        wgmma_ss<Elem, BQ>(dpt, wgmma_desc(v_wg + own, 16, kSbo, kLayout),
+                           wgmma_desc(do_s + stream, 16, kSbo, kLayout), kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // p^T in st, ds^T in dpt. Columns are queries: their lse and delta come
+      // from the stage.
+      const float* lse2 = stats + 2 * BQ * s;
+      const float* dl = lse2 + BQ;
+      const bool masked = causal && kw0 + 63 > q_start + dlt;
+#pragma unroll
+      for (int n8 = 0; n8 < BQ / 8; ++n8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n8 * 8 + 2 * t + e;
+          const float l2 = lse2[c], dd = dl[c];
+          float p0 = ex2_approx(st[4 * n8 + e] * sl - l2);
+          float p1 = ex2_approx(st[4 * n8 + 2 + e] * sl - l2);
+          if (masked) {
+            if (key0 > q_start + c + dlt) p0 = 0.f;
+            if (key1 > q_start + c + dlt) p1 = 0.f;
+          }
+          st[4 * n8 + e] = p0;
+          st[4 * n8 + 2 + e] = p1;
+          dpt[4 * n8 + e] = p0 * (dpt[4 * n8 + e] - dd);
+          dpt[4 * n8 + 2 + e] = p1 * (dpt[4 * n8 + 2 + e] - dd);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to Elem straight
+      // from the fragments (register A); dO and Q MN-major from the stage.
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        c_to_a<Elem>(pa[kc], &st[8 * kc], &st[8 * kc + 4]);
+        c_to_a<Elem>(dsa[kc], &dpt[8 * kc], &dpt[8 * kc + 4]);
+      }
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        const uint32_t slice = s * L::kStreamBytes + kc * 16 * L::kRowBytes;
+        wgmma_rs_t<Elem, D>(dv_acc, pa[kc],
+                            wgmma_desc(do_s + slice, BQ * L::kRowBytes, kSbo, kLayout));
+        wgmma_rs_t<Elem, D>(dk_acc, dsa[kc],
+                            wgmma_desc(q_s + slice, BQ * L::kRowBytes, kSbo, kLayout));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      if (lane == 0) mbar_arrive(empty + 8 * s);  // the stage's Q and dO have been read
+    }
+
+    Out* dkb = dk + b * sdk.b + h * sdk.h;
+    Out* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      const int c = n8 * 8 + 2 * t;
+      if (key0 < seq_len) {
+        store2(dkb + key0 * sdk.t + c, dk_acc[4 * n8] * scale, dk_acc[4 * n8 + 1] * scale);
+        store2(dvb + key0 * sdv.t + c, dv_acc[4 * n8], dv_acc[4 * n8 + 1]);
+      }
+      if (key1 < seq_len) {
+        store2(dkb + key1 * sdk.t + c, dk_acc[4 * n8 + 2] * scale, dk_acc[4 * n8 + 3] * scale);
+        store2(dvb + key1 * sdv.t + c, dv_acc[4 * n8 + 2], dv_acc[4 * n8 + 3]);
+      }
     }
   }
 }
+
+// ------------------------------------------------ f32: plain FMA
 
 // Rows [row0, row0 + kRows) of an f32 [T, D] tensor into a padded shared
 // tile; rows at or past seq_len are zero.
@@ -488,64 +698,88 @@ const Elem* in(const void* p) { return static_cast<const Elem*>(p); }
 template <typename Out>
 Out* out_ptr(void* p) { return static_cast<Out*>(p); }
 
-template <typename Elem, typename Out, int D>
-int launch_dq_mma(const Args& a) {
-  const dim3 grid(a.batch * a.heads, (a.seq_len + kTile - 1) / kTile);
-  flash_bwd_dq_mma_kernel<Elem, Out, D><<<grid, kThreads, 0, a.stream>>>(
-      in<Elem>(a.q), in<Elem>(a.k), in<Elem>(a.v), in<Elem>(a.dout), a.lse, a.delta,
-      out_ptr<Out>(a.out0), a.heads, a.seq_len, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.scale,
-      a.causal, a.q_off, a.k_off);
+// The tensor maps of q, k, v and dout for K4 (kDq) or K5: boxes of the own
+// tile's rows for the block's own side, of a streamed tile's for the other.
+template <typename Elem, int D, bool kDq>
+int make_maps(CUtensorMap (&maps)[4], const Args& a) {
+  using L = BwdTiles<D, kDq>;
+  const int q_rows = kDq ? L::kOwnRows : L::kStreamRows;
+  const int kv_rows = kDq ? L::kStreamRows : L::kOwnRows;
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const int rows[4] = {q_rows, kv_rows, kv_rows, q_rows};
+  for (int i = 0; i < 4; ++i) {
+    const int rc = make_bthd_map<Elem>(&maps[i], ptrs[i], a.batch, a.seq_len, a.heads, D,
+                                       a.s[i].b, a.s[i].t, a.s[i].h, L::kBoxCols, rows[i]);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+template <typename Elem, typename Out, int D, bool kDq>
+auto hopper_kernel() {
+  if constexpr (kDq) {
+    return flash_bwd_dq_hopper_kernel<Elem, Out, D>;
+  } else {
+    return flash_bwd_dkv_hopper_kernel<Elem, Out, D>;
+  }
+}
+
+// K4 (kDq) or K5 on the Hopper kernel: grid (batch*heads, own tiles).
+template <typename Elem, typename Out, int D, bool kDq>
+int launch_hopper(const Args& a) {
+  using L = BwdTiles<D, kDq>;
+  CUtensorMap m[4];
+  int rc = make_maps<Elem, D, kDq>(m, a);
+  if (rc) return rc;
+  const auto kernel = hopper_kernel<Elem, Out, D, kDq>();
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes));
+  if (rc) return rc;
+  const dim3 grid(a.batch * a.heads, (a.seq_len + L::kOwnRows - 1) / L::kOwnRows);
+  if constexpr (kDq) {
+    kernel<<<grid, L::kThreads, L::kSmemBytes, a.stream>>>(
+        m[0], m[1], m[2], m[3], a.lse, a.delta, out_ptr<Out>(a.out0), a.heads, a.seq_len,
+        a.s[4], a.scale, a.causal, a.q_off, a.k_off);
+  } else {
+    kernel<<<grid, L::kThreads, L::kSmemBytes, a.stream>>>(
+        m[0], m[1], m[2], m[3], a.lse, a.delta, out_ptr<Out>(a.out0), out_ptr<Out>(a.out1),
+        a.heads, a.seq_len, a.s[4], a.s[5], a.scale, a.causal, a.q_off, a.k_off);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Elem, typename Out, int D>
-int launch_dkv_mma(const Args& a) {
-  const dim3 grid(a.batch * a.heads, (a.seq_len + kTile - 1) / kTile);
-  flash_bwd_dkv_mma_kernel<Elem, Out, D><<<grid, kThreads, 0, a.stream>>>(
-      in<Elem>(a.q), in<Elem>(a.k), in<Elem>(a.v), in<Elem>(a.dout), a.lse, a.delta,
-      out_ptr<Out>(a.out0), out_ptr<Out>(a.out1), a.heads, a.seq_len, a.s[0], a.s[1], a.s[2],
+template <int D>
+int launch_dq_f32(const Args& a) {
+  const dim3 grid(a.batch * a.heads, (a.seq_len + kF32Rows - 1) / kF32Rows);
+  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+      in<float>(a.q), in<float>(a.k), in<float>(a.v), in<float>(a.dout), a.lse, a.delta,
+      out_ptr<float>(a.out0), a.heads, a.seq_len, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4],
+      a.scale, a.causal, a.q_off, a.k_off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_f32(const Args& a) {
+  const dim3 grid(a.batch * a.heads, (a.seq_len + kF32Rows - 1) / kF32Rows);
+  flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+      in<float>(a.q), in<float>(a.k), in<float>(a.v), in<float>(a.dout), a.lse, a.delta,
+      out_ptr<float>(a.out0), out_ptr<float>(a.out1), a.heads, a.seq_len, a.s[0], a.s[1], a.s[2],
       a.s[3], a.s[4], a.s[5], a.scale, a.causal, a.q_off, a.k_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dq(int dtype, int out_dtype, const Args& a) {
-  if (dtype == 0 && out_dtype == 0) {
-    const dim3 grid(a.batch * a.heads, (a.seq_len + kF32Rows - 1) / kF32Rows);
-    flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
-        in<float>(a.q), in<float>(a.k), in<float>(a.v), in<float>(a.dout), a.lse, a.delta,
-        out_ptr<float>(a.out0), a.heads, a.seq_len, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4],
-        a.scale, a.causal, a.q_off, a.k_off);
-    return static_cast<int>(cudaGetLastError());
-  }
+// f32 on the FMA kernels; bf16/fp16, with outputs in the input type or f32,
+// on the Hopper kernels.
+template <int D, bool kDq>
+int launch(int dtype, int out_dtype, const Args& a) {
+  if (dtype == 0 && out_dtype == 0) return kDq ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
   using BF = __nv_bfloat16;
   if (dtype == 1) {
-    if (out_dtype == 1) return launch_dq_mma<__half, __half, D>(a);
-    if (out_dtype == 0) return launch_dq_mma<__half, float, D>(a);
+    if (out_dtype == 1) return launch_hopper<__half, __half, D, kDq>(a);
+    if (out_dtype == 0) return launch_hopper<__half, float, D, kDq>(a);
   } else if (dtype == 2) {
-    if (out_dtype == 2) return launch_dq_mma<BF, BF, D>(a);
-    if (out_dtype == 0) return launch_dq_mma<BF, float, D>(a);
-  }
-  return -1;
-}
-
-template <int D>
-int launch_dkv(int dtype, int out_dtype, const Args& a) {
-  if (dtype == 0 && out_dtype == 0) {
-    const dim3 grid(a.batch * a.heads, (a.seq_len + kF32Rows - 1) / kF32Rows);
-    flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
-        in<float>(a.q), in<float>(a.k), in<float>(a.v), in<float>(a.dout), a.lse, a.delta,
-        out_ptr<float>(a.out0), out_ptr<float>(a.out1), a.heads, a.seq_len, a.s[0], a.s[1], a.s[2],
-        a.s[3], a.s[4], a.s[5], a.scale, a.causal, a.q_off, a.k_off);
-    return static_cast<int>(cudaGetLastError());
-  }
-  using BF = __nv_bfloat16;
-  if (dtype == 1) {
-    if (out_dtype == 1) return launch_dkv_mma<__half, __half, D>(a);
-    if (out_dtype == 0) return launch_dkv_mma<__half, float, D>(a);
-  } else if (dtype == 2) {
-    if (out_dtype == 2) return launch_dkv_mma<BF, BF, D>(a);
-    if (out_dtype == 0) return launch_dkv_mma<BF, float, D>(a);
+    if (out_dtype == 2) return launch_hopper<BF, BF, D, kDq>(a);
+    if (out_dtype == 0) return launch_hopper<BF, float, D, kDq>(a);
   }
   return -1;
 }
@@ -554,13 +788,13 @@ template <bool kDq>
 int dispatch(int dtype, int out_dtype, int head_dim, const Args& a) {
   switch (head_dim) {
     case 16:
-      return kDq ? launch_dq<16>(dtype, out_dtype, a) : launch_dkv<16>(dtype, out_dtype, a);
+      return launch<16, kDq>(dtype, out_dtype, a);
     case 32:
-      return kDq ? launch_dq<32>(dtype, out_dtype, a) : launch_dkv<32>(dtype, out_dtype, a);
+      return launch<32, kDq>(dtype, out_dtype, a);
     case 64:
-      return kDq ? launch_dq<64>(dtype, out_dtype, a) : launch_dkv<64>(dtype, out_dtype, a);
+      return launch<64, kDq>(dtype, out_dtype, a);
     case 128:
-      return kDq ? launch_dq<128>(dtype, out_dtype, a) : launch_dkv<128>(dtype, out_dtype, a);
+      return launch<128, kDq>(dtype, out_dtype, a);
   }
   return -1;
 }
@@ -575,6 +809,46 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
   return a;
 }
 
+// Resident blocks per SM of a Hopper kernel (outputs in the input type),
+// after the shared-memory opt-in; its threads and dynamic shared memory per
+// block through the pointers.
+template <typename Elem, int D, bool kDq>
+int hopper_blocks_per_sm(int* threads, int* smem_bytes) {
+  using L = BwdTiles<D, kDq>;
+  *threads = L::kThreads;
+  *smem_bytes = L::kSmemBytes;
+  const auto kernel = hopper_kernel<Elem, Elem, D, kDq>();
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::kSmemBytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, L::kThreads,
+                                                    L::kSmemBytes) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+template <int D, bool kDq>
+int hopper_occupancy(int dtype, int* threads, int* smem_bytes) {
+  if (dtype == 1) return hopper_blocks_per_sm<__half, D, kDq>(threads, smem_bytes);
+  if (dtype == 2) return hopper_blocks_per_sm<__nv_bfloat16, D, kDq>(threads, smem_bytes);
+  return -1;
+}
+
+template <bool kDq>
+int occupancy(int dtype, int head_dim, int* threads, int* smem_bytes) {
+  switch (head_dim) {
+    case 16:
+      return hopper_occupancy<16, kDq>(dtype, threads, smem_bytes);
+    case 32:
+      return hopper_occupancy<32, kDq>(dtype, threads, smem_bytes);
+    case 64:
+      return hopper_occupancy<64, kDq>(dtype, threads, smem_bytes);
+    case 128:
+      return hopper_occupancy<128, kDq>(dtype, threads, smem_bytes);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. q, k, v, dout and the
@@ -583,8 +857,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 // and delta are f32 [batch, heads, seq_len] contiguous. q_off and k_off are
 // the global positions of the q chunk's and the kv chunk's first rows (0, 0
 // outside a ring); out_dtype is the outputs' type, dtype itself or 0 (f32).
-// Each returns cudaGetLastError() after the launch, or -1 for a dtype, output
-// type or head dim these kernels do not take.
+// Each returns cudaGetLastError() after the launch, a tensor-map error
+// (hopper.cuh: kNoEncoder, kEncodeFailed + CUresult), or -1 for a dtype,
+// output type or head dim these kernels do not take.
 extern "C" int dl4j_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                                  const void* v, const void* dout, const float* lse,
                                  const float* delta, void* dq, int batch, int heads,
@@ -603,4 +878,14 @@ extern "C" int dl4j_flash_bwd_dkv(int dtype, int head_dim, const void* q, const 
   return dispatch<false>(dtype, out_dtype, head_dim,
                          make_args(q, k, v, dout, lse, delta, dk, dv, batch, heads, seq_len,
                                    strides, 6, scale, causal, q_off, k_off, stream));
+}
+
+// The Hopper kernel of K4 (dq = 1) or K5 (0) for a 16-bit dtype (1 = float16,
+// 2 = bfloat16): its resident blocks per SM and, through the pointers, its
+// threads and dynamic shared memory per block. -1 for a dtype or head dim it
+// does not take.
+extern "C" int dl4j_flash_bwd_occupancy(int dtype, int head_dim, int dq, int* threads,
+                                        int* smem_bytes) {
+  return dq ? occupancy<true>(dtype, head_dim, threads, smem_bytes)
+            : occupancy<false>(dtype, head_dim, threads, smem_bytes);
 }

@@ -242,8 +242,8 @@ __global__ void __launch_bounds__(HopperTiles<D>::kThreads, 1)
         const uint32_t col = (kk * 16 % CB) * 2;  // bytes into a row
         const uint32_t qa = q_wg + (kk * 16 / CB) * BQ * L::kRowBytes + col;
         const uint32_t kb = k_s + s * L::kKVBytes + (kk * 16 / CB) * BK * L::kRowBytes + col;
-        wgmma_ss_n128<Elem>(sc, wgmma_desc(qa, 16, kSbo, kLayout),
-                            wgmma_desc(kb, 16, kSbo, kLayout), kk);
+        wgmma_ss<Elem, BK>(sc, wgmma_desc(qa, 16, kSbo, kLayout),
+                           wgmma_desc(kb, 16, kSbo, kLayout), kk);
       }
       wgmma_commit();
       wgmma_wait_all();  // this S, and the previous tile's P V
@@ -595,40 +595,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Elem>
-struct TmaType;
-template <>
-struct TmaType<__nv_bfloat16> {
-  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-};
-template <>
-struct TmaType<__half> {
-  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-};
-
-constexpr int kNoEncoder = 900;       // the CUDA driver has no cuTensorMapEncodeTiled
-constexpr int kEncodeFailed = 1000;   // + the CUDA driver's CUresult
-
-// The tensor map of a strided [B, T, H, D] input, dims (D, H, T, B) innermost
-// first, boxes of (kBoxCols, 1, rows, 1), swizzled to the box's row width.
+// The tensor map of a strided [B, T, H, D] input, boxes of kBoxCols columns
+// by `rows` rows.
 template <typename Elem, int D>
 int make_map(CUtensorMap* map, const void* ptr, const Args& a, const Strides& st, int rows) {
-  using L = HopperTiles<D>;
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(a.heads),
-                              static_cast<cuuint64_t>(a.seq_len),
-                              static_cast<cuuint64_t>(a.batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * sizeof(Elem),
-                                 static_cast<cuuint64_t>(st.t) * sizeof(Elem),
-                                 static_cast<cuuint64_t>(st.b) * sizeof(Elem)};
-  const cuuint32_t box[4] = {L::kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult rc = encode(map, TmaType<Elem>::value, 4, const_cast<void*>(ptr), dims, strides,
-                             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             tma_swizzle(L::kRowBytes), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(rc);
+  return make_bthd_map<Elem>(map, ptr, a.batch, a.seq_len, a.heads, D, st.b, st.t, st.h,
+                             HopperTiles<D>::kBoxCols, rows);
 }
 
 template <typename Elem, int D, bool kWithLse>

@@ -1,6 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): strides, the mma.sync m16n8k16 wrapper and its
-// fragment helpers, paired stores, quad reductions.
+// fragment helpers (the ring partial's loop; the Hopper kernels' register-A
+// wgmma takes the same A fragment), paired stores, quad reductions.
 //
 // mma.m16n8k16 fragments, with g = lane / 4, t = lane % 4:
 //   A (16x16, row-major): a0 = (row g, k 2t..2t+1), a1 = (row g+8, same k),
@@ -78,16 +79,6 @@ __device__ __forceinline__ void store2(Out* p, float lo, float hi) {
 template <typename Elem>
 __device__ __forceinline__ uint32_t ld32(const Elem* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// p[0] and p[pitch] (the same column of two neighbouring rows) as one 32-bit
-// register: the B fragment of a product whose k dimension runs along the rows
-// of a row-major tile in shared memory.
-template <typename Elem>
-__device__ __forceinline__ uint32_t ld32_col(const Elem* p, int pitch) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + pitch);
-  return lo | (hi << 16);
 }
 
 // The A fragment of k chunk kc (16 columns) from the f32 C fragments of the

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels, as plain PTX:
 // TMA tensor maps and 4-D tile loads, mbarrier rings with bounded waits,
-// wgmma shared-memory descriptors and the wgmma forms the flash forward uses,
-// and setmaxnreg for warp specialisation.
+// wgmma shared-memory descriptors and the two wgmma forms the flash kernels
+// use (both operands in shared memory; A in registers, B MN-major), and
+// setmaxnreg for warp specialisation.
 //
 // Swizzle. A TMA box whose rows are 32, 64 or 128 bytes wide is written with
 // the swizzle of that width, and wgmma reads it through a descriptor of the
@@ -12,14 +13,18 @@
 //
 // Descriptors (bits: start address >> 4 at 0, LBO >> 4 at 16, SBO >> 4 at
 // 32, layout at 62). For a tile of `rows` rows of `cb` 16-bit columns per box:
-//   K-major operand (Q or K, the reduction dim runs along a row): SBO =
-//     8 rows * row bytes, the step between 8-row groups; LBO is unused; the
-//     k-th 16-column slice starts (16k / cb) boxes and (16k % cb) * 2 bytes in.
-//   MN-major operand (V, the reduction dim runs down the rows; the transpose
+//   K-major operand (the reduction dim runs along a row: Q, K in S = Q K^T;
+//     dO, V in dP = dO V^T; and their transposes): SBO = 8 rows * row bytes,
+//     the step between 8-row groups; LBO is unused; the k-th 16-column slice
+//     starts (16k / cb) boxes and (16k % cb) * 2 bytes in.
+//   MN-major operand (the reduction dim runs down the rows: V in O += P V, K
+//     in dQ += dS K, dO and Q in dV += P^T dO and dK += dS^T Q; the transpose
 //     bit of wgmma is set): SBO = 8 rows * row bytes, the step between the two
 //     8-row groups of one k16 slice; LBO = one box (rows * row bytes), the step
 //     between 64-column groups of N; the k-th slice of 16 rows starts
 //     16k * row bytes in.
+// One shared tile serves both ways: the backward reads Q, dO and K K-major
+// in one product and MN-major in the next, with the same swizzle.
 //
 // A wait that never ends would hang the card, so each mbarrier wait gives up
 // after kWaitNs and traps: the launch then fails with an error that the
@@ -136,6 +141,44 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+template <typename Elem>
+struct TmaType;
+template <>
+struct TmaType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct TmaType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+constexpr int kNoEncoder = 900;      // the CUDA driver has no cuTensorMapEncodeTiled
+constexpr int kEncodeFailed = 1000;  // + the CUDA driver's CUresult
+
+// The tensor map of a strided [B, T, H, D] input (element strides sb, st, sh;
+// the head dim's is 1), dims (D, H, T, B) innermost first, boxes of
+// (box_cols, 1, rows, 1) swizzled to the box's row width; rows past T load as
+// zeros. Returns 0, kNoEncoder or kEncodeFailed + the CUresult.
+template <typename Elem>
+int make_bthd_map(CUtensorMap* map, const void* ptr, int batch, int seq_len, int heads, int d,
+                  long long sb, long long st, long long sh, int box_cols, int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq_len), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * sizeof(Elem),
+                                 static_cast<cuuint64_t>(st) * sizeof(Elem),
+                                 static_cast<cuuint64_t>(sb) * sizeof(Elem)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, TmaType<Elem>::value, 4, const_cast<void*>(ptr), dims, strides,
+                             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             tma_swizzle(box_cols * static_cast<int>(sizeof(Elem))),
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(rc);
+}
+
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -182,13 +225,13 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both K-major in shared memory;
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both K-major in shared memory;
 // scale_d = 0 overwrites D. Accumulator fragment of thread (warp w, lane
 // 4g + t): d[4j + 0, 1] = row 16w + g, cols 8j + 2t, +1; d[4j + 2, 3] = row
 // 16w + g + 8, the same cols.
-template <typename Elem>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d);
+template <typename Elem, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d);
 
 // D[64 x N] += A[64 x 16] B[16 x N], A from registers (the mma.sync m16n8k16
 // A fragment of each warp's 16 rows), B MN-major in shared memory.
@@ -199,7 +242,8 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a
 // The specialisations differ only in the PTX type and N. An accumulator of n
 // floats is PTX operands %0..%n-1 (DL4J_D<n>, bound by DL4J_ACC<n>); the
 // operands after it are numbered from n: register-A form {A0..A3}, B, then
-// scale_d (DL4J_RS_AB<n>, DL4J_RS_P<n>); shared-A form A, B, scale_d.
+// scale_d (DL4J_RS_AB<n>, DL4J_RS_P<n>); shared-A form A, B, then scale_d
+// (DL4J_SS_AB<n>, DL4J_SS_P<n>).
 #define DL4J_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define DL4J_ACC8 DL4J_F8(0)
 #define DL4J_ACC16 DL4J_ACC8, DL4J_F8(8)
@@ -218,15 +262,21 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a
 #define DL4J_RS_P16 "%21"
 #define DL4J_RS_P32 "%37"
 #define DL4J_RS_P64 "%69"
+#define DL4J_SS_AB16 "%16, %17"
+#define DL4J_SS_AB32 "%32, %33"
+#define DL4J_SS_AB64 "%64, %65"
+#define DL4J_SS_P16 "%18"
+#define DL4J_SS_P32 "%34"
+#define DL4J_SS_P64 "%66"
 
-#define DL4J_WGMMA_SS_N128(Elem, ty)                                                    \
+#define DL4J_WGMMA_SS(Elem, ty, N, n)                                                   \
   template <>                                                                           \
-  __device__ __forceinline__ void wgmma_ss_n128<Elem>(float (&d)[64], uint64_t a,       \
-                                                      uint64_t b, int scale_d) {        \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                           \
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " "            \
-                 "{" DL4J_D64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                          \
-                 : DL4J_ACC64                                                           \
+  __device__ __forceinline__ void wgmma_ss<Elem, N>(float (&d)[n], uint64_t a,          \
+                                                    uint64_t b, int scale_d) {          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " DL4J_SS_P##n ", 0;\n"               \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." ty "." ty " "         \
+                 "{" DL4J_D##n "}, " DL4J_SS_AB##n ", p, 1, 1, 0, 0;\n}\n"               \
+                 : DL4J_ACC##n                                                          \
                  : "l"(a), "l"(b), "r"(scale_d));                                       \
   }
 
@@ -241,8 +291,12 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));         \
   }
 
-DL4J_WGMMA_SS_N128(__nv_bfloat16, "bf16")
-DL4J_WGMMA_SS_N128(__half, "f16")
+DL4J_WGMMA_SS(__nv_bfloat16, "bf16", 32, 16)
+DL4J_WGMMA_SS(__nv_bfloat16, "bf16", 64, 32)
+DL4J_WGMMA_SS(__nv_bfloat16, "bf16", 128, 64)
+DL4J_WGMMA_SS(__half, "f16", 32, 16)
+DL4J_WGMMA_SS(__half, "f16", 64, 32)
+DL4J_WGMMA_SS(__half, "f16", 128, 64)
 DL4J_WGMMA_RS_T(__nv_bfloat16, "bf16", 16, 8)
 DL4J_WGMMA_RS_T(__nv_bfloat16, "bf16", 32, 16)
 DL4J_WGMMA_RS_T(__nv_bfloat16, "bf16", 64, 32)

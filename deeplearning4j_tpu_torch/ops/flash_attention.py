@@ -234,7 +234,7 @@ def _check_kernel_input(q, named):
             raise ValueError(f"{name} must have unit stride in its last dim; "
                              f"got strides {t.stride()}")
         # the 16-bit kernels move rows as 16-byte vectors, and the TMA
-        # tensor maps of the Hopper forward take 16-byte strides and base
+        # tensor maps of the Hopper kernels take 16-byte strides and base
         if q.dtype != torch.float32 and (
                 any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16):
             raise ValueError(f"{name}'s rows must start 16-byte aligned for "

@@ -23,6 +23,8 @@ the card and skip without one. JAX is imported inside fixtures, so the card-only
 tests also run where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_flash_attention.py -m gpu
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -431,11 +433,12 @@ _FWD_CASES = [("qkv", shape) for shape in _FWD_SHAPES] + [
     ("contiguous", shape) for shape in _FWD_SHAPES if shape[0] == 1]
 
 
-def _card_inputs(layout, b, h, t, d, dtype, device):
+def _card_inputs(layout, b, h, t, d, dtype, device, seed=None):
     """q, k, v as `flash_causal_attention` passes them ("qkv": [B, T, H, d]
     views split out of one [B, T, 3*H*d] projection, row stride 3*H*d), or
-    as contiguous copies."""
-    q, k, v = _strided_qkv(t, d, dtype, device, seed=t, b=b, h=h)
+    as contiguous copies; the seed defaults to t."""
+    q, k, v = _strided_qkv(t, d, dtype, device, seed=t if seed is None
+                           else seed, b=b, h=h)
     if layout == "contiguous":
         q, k, v = (a.contiguous() for a in (q, k, v))
     return q, k, v
@@ -489,6 +492,29 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
             fa.flash_attention(bad, bad, bad)
         with pytest.raises(ValueError, match="16-byte aligned"):
             fa.flash_attention_fwd_lse(bad, bad, bad)
+    # and in K4 and K5, whose tensor maps take q, k, v as they are: a q that
+    # breaks the rule raises; a do that breaks it (autograd hands dO over as
+    # it comes) is copied to a fresh contiguous tensor and the kernels run
+    good = _strided_qkv(16, 64, torch.bfloat16, cuda, b=1, h=2)
+    do = torch.randn(1, 16, 2, 64, device=cuda).to(torch.bfloat16)
+    o, lse = fa.flash_attention_lse_reference(*good, True)
+    delta = fa.attention_delta(o, do)
+    for bad in (wide[..., :64], flat[4:].view(1, 16, 2, 64)):
+        for kernel in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                kernel(bad, *good[1:], do, lse, delta, True)
+        bad.copy_(do)
+        args = (*good, bad, lse, delta)
+        before = dict(fa.launches)
+        got = (fa.flash_attention_bwd_dq(*args, True),
+               *fa.flash_attention_bwd_dkv(*args, True))
+        assert fa.launches["bwd_dq"] == before["bwd_dq"] + 1
+        assert fa.launches["bwd_dkv"] == before["bwd_dkv"] + 1
+        want = (fa.flash_attention_bwd_dq_reference(*args, True),
+                *fa.flash_attention_bwd_dkv_reference(*args, True))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _assert_grad_close_on_card(g, w)
 
 
 @pytest.mark.gpu
@@ -523,8 +549,16 @@ def _assert_grad_close_on_card(got, want):
     assert (diff <= bound).all(), (diff - bound).max().item()
 
 
-def _bwd_inputs(t, d, dtype, device, causal, seed):
-    q, k, v = _strided_qkv(t, d, dtype, device, seed=seed)
+# T of the backward sweeps on the card (B=2, H=3): one row, ragged and exact
+# 64-row tiles, and the edges of the Hopper kernels' tiles: 64-query (K5)
+# and 128-row (K4's queries and keys, K5's keys) tiles, one row either side
+# of one and of two 128-row tiles and of three 64-query tiles
+_BWD_T = (1, 63, 64, 127, 128, 129, 191, 192, 193, 200, 257)
+_LAYOUTS = ("qkv", "contiguous")
+
+
+def _bwd_inputs(t, d, dtype, device, causal, seed, layout="qkv"):
+    q, k, v = _card_inputs(layout, 2, 3, t, d, dtype, device, seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
     o, lse = fa.flash_attention_lse_reference(q, k, v, causal)
@@ -537,23 +571,22 @@ def _bwd_inputs(t, d, dtype, device, causal, seed):
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_bwd_kernels_match_plain_on_card(cuda, dtype, d):
     """K4 (dq) and K5 (dk, dv) against their plain versions on the same
-    (q, k, v, dO, lse, delta); T=63, 200 and 257 leave padded keys and
-    padded queries in the last tiles."""
-    for t in (1, 63, 64, 200, 257):
-        for causal in (True, False):
-            args = _bwd_inputs(t, d, dtype, cuda, causal, seed=t)
-            before = dict(fa.launches)
-            dq = fa.flash_attention_bwd_dq(*args, causal)
-            dk, dv = fa.flash_attention_bwd_dkv(*args, causal)
-            assert fa.launches["bwd_dq"] == before["bwd_dq"] + 1
-            assert fa.launches["bwd_dkv"] == before["bwd_dkv"] + 1
-            want_dq = fa.flash_attention_bwd_dq_reference(*args, causal)
-            want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(*args,
-                                                                    causal)
-            torch.cuda.synchronize()
-            for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
-                assert got.dtype == dtype and got.shape == args[0].shape
-                _assert_grad_close_on_card(got, want)
+    (q, k, v, dO, lse, delta), as the model's qkv views and contiguous;
+    ragged T leaves padded keys and padded queries in the last tiles."""
+    for layout, t, causal in itertools.product(_LAYOUTS, _BWD_T,
+                                               (True, False)):
+        args = _bwd_inputs(t, d, dtype, cuda, causal, seed=t, layout=layout)
+        before = dict(fa.launches)
+        dq = fa.flash_attention_bwd_dq(*args, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(*args, causal)
+        assert fa.launches["bwd_dq"] == before["bwd_dq"] + 1
+        assert fa.launches["bwd_dkv"] == before["bwd_dkv"] + 1
+        want_dq = fa.flash_attention_bwd_dq_reference(*args, causal)
+        want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(*args, causal)
+        torch.cuda.synchronize()
+        for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+            assert got.dtype == dtype and got.shape == args[0].shape
+            _assert_grad_close_on_card(got, want)
 
 
 @pytest.mark.gpu
@@ -624,10 +657,11 @@ def test_partial_kernel_matches_plain_on_card(cuda, dtype, d):
             _assert_partial_close_on_card(got, want, dtype)
 
 
-def _hop_bwd_inputs(t, d, dtype, device, q_off, k_off, causal, seed):
+def _hop_bwd_inputs(t, d, dtype, device, q_off, k_off, causal, seed,
+                    layout="qkv"):
     """As `_bwd_inputs`, with lse and delta from the plain partial of the
     same hop, so every row with a visible key has its exact softmax."""
-    q, k, v = _strided_qkv(t, d, dtype, device, seed=seed)
+    q, k, v = _card_inputs(layout, 2, 3, t, d, dtype, device, seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
     acc, m, l = fa.flash_attention_partial_reference(q, k, v, q_off, k_off,
@@ -643,11 +677,12 @@ def _hop_bwd_inputs(t, d, dtype, device, q_off, k_off, causal, seed):
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_bwd_kernels_with_offsets_on_card(cuda, dtype, d):
     """K4 and K5 with a hop's offsets, f32 outputs and the input type,
-    against their plain versions; a wholly masked hop gives exact zeros."""
-    for t in (1, 63, 200, 257):
+    against their plain versions, as the model's qkv views and contiguous;
+    a wholly masked hop gives exact zeros."""
+    for layout, t in itertools.product(_LAYOUTS, _BWD_T):
         for q_off, k_off, causal in _hops_for(t):
             args = _hop_bwd_inputs(t, d, dtype, cuda, q_off, k_off, causal,
-                                   seed=t)
+                                   seed=t, layout=layout)
             for out_dtype in (torch.float32, dtype):
                 kw = dict(q_off=q_off, k_off=k_off, out_dtype=out_dtype)
                 dq = fa.flash_attention_bwd_dq(*args, causal, **kw)
