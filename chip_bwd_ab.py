@@ -17,6 +17,7 @@ in turns (current, variants, variants, current). The variants:
          see (causal), releasing the stage at once.
 Every variant's gradients must equal the current kernels' bit for bit.
 Prints the card's name and power limit first, and a JSON line last.
+`build`, `ptxas_report` and `in_turns` also serve chip_fwd_ab.py.
 """
 import ctypes
 import json
@@ -91,28 +92,30 @@ SKIP = [
 VARIANTS = {"current": [], "defer": DEFER, "skip": SKIP}
 
 
-def build(_build):
-    """Compile every variant in parallel; returns {name: (library, log)}."""
-    out = ROOT / "build" / "bwd_ab"
+def build(_build, source, variants, out_name):
+    """Compile `source` (a file of csrc/) with each variant's (old, new)
+    patches, all in parallel, under build/<out_name>/; returns {name:
+    (library, log)}."""
+    out = ROOT / "build" / out_name
     shutil.rmtree(out, ignore_errors=True)
     csrc = ROOT / "deeplearning4j_tpu_torch" / "ops" / "csrc"
     running = {}
-    for name, patches in VARIANTS.items():
+    for name, patches in variants.items():
         d = out / name
         d.mkdir(parents=True)
         for header in csrc.glob("*.cuh"):
             shutil.copy(header, d)
-        src = (csrc / SOURCE).read_text()
+        src = (csrc / source).read_text()
         for old, new in patches:
             if old not in src:
                 raise SystemExit(f"variant {name}: the source no longer has "
                                  f"{old!r}")
             src = src.replace(old, new, 1)
-        (d / SOURCE).write_text(src)
+        (d / source).write_text(src)
         log = open(d / "log.txt", "w")
         running[name] = (d, log, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / SOURCE)], stdout=log, stderr=subprocess.STDOUT))
+             str(d / source)], stdout=log, stderr=subprocess.STDOUT))
     built = {}
     for name, (d, log, proc) in running.items():
         proc.wait()
@@ -124,15 +127,19 @@ def build(_build):
     return built
 
 
-def ptxas_report(log):
-    """{K4, K5: {registers, spill_store_bytes, wgmma_serialized}} for the
-    bf16 D=64 instantiations with outputs in the input type."""
+# the bf16 D=64 instantiations of K4 and K5 with outputs in the input type
+BWD_KERNELS = {label: rf"flash_bwd_{kernel}_hopper_kernel"
+                      r"I13__nv_bfloat16S\d*_Li64E"
+               for label, kernel in (("K4", "dq"), ("K5", "dkv"))}
+
+
+def ptxas_report(log, kernels):
+    """{label: {registers, spill_store_bytes, wgmma_serialized}} for each
+    kernel of `kernels` ({label: regex of its mangled name})."""
     fields = (("registers", r"Used (\d+) registers"),
               ("spill_store_bytes", r"(\d+) bytes spill stores"))
     report = {}
-    for label, kernel in (("K4", "dq"), ("K5", "dkv")):
-        pattern = (rf"flash_bwd_{kernel}_hopper_kernel"
-                   r"I13__nv_bfloat16S\d*_Li64E")
+    for label, pattern in kernels.items():
         entry = report[label] = {"wgmma_serialized": False}
         current = None
         for line in log.splitlines():
@@ -143,28 +150,56 @@ def ptxas_report(log):
                     found = re.search(field, line)
                     if found:
                         entry[key] = int(found.group(1))
-        for found in re.finditer(r"wgmma\.mma_async instructions are "
-                                 r"serialized due to (.*?) in the function "
-                                 r"'(\S+)'", log):
-            if re.search(pattern, found.group(2)):
-                entry["wgmma_serialized"] = found.group(1)
+        notes = [f"{code}: {why}" for code, why, name in re.findall(
+            r"\((C75\d\d)\)[^\n]*?wgmma\.mma_async instructions are "
+            r"serialized due to (.*?) (?:in|for) the function '(\S+)'", log)
+            if re.search(pattern, name)]
+        if notes:
+            entry["wgmma_serialized"] = "; ".join(notes)
     return report
+
+
+def in_turns(_build, fa, source, built, calls, iters=20, same=None):
+    """Bind the wrappers to each variant's library of `source` in turns (the
+    variants, then again in reverse), check that every call of `calls`
+    ({label: fn returning tensors}) gives the first variant's tensors (bit
+    for bit, or as `same(variant, got, first)` says), and time each call
+    with CUDA events. Returns {variant: [turn: {label: ms}]}."""
+    from chip_smoke import cuda_ms
+    same = same or (lambda name, a, b: torch.equal(a, b))
+    times, reference = {name: [] for name in built}, None
+    for name in list(built) + list(built)[::-1]:
+        fa._fns.clear()   # bind the wrappers to this variant's library
+        _build._libs[source[:-3]] = ctypes.CDLL(str(built[name][0]))
+        outs = [t for fn in calls.values() for t in fn()]
+        torch.cuda.synchronize()
+        reference = reference or outs
+        if not all(same(name, a, b) for a, b in zip(outs, reference)):
+            raise SystemExit(f"variant {name}'s outputs differ from "
+                             f"variant {list(built)[0]}'s")
+        times[name].append({label: cuda_ms(fn, iters=iters)
+                            for label, fn in calls.items()})
+    return times
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_bwd_ab.py needs one card", file=sys.stderr)
         return 1
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    print(card_line())
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import cuda_ms, strided_qkv
+    from chip_smoke import strided_qkv
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
-    built = build(_build)
+    built = build(_build, SOURCE, VARIANTS, "bwd_ab")
     B, T, H, D = 4, 8192, 8, 64
     q, k, v = strided_qkv(B, T, H, D, torch.bfloat16, seed=11)
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -172,29 +207,17 @@ def main():
     o, lse = fa.flash_attention_fwd_lse(q, k, v, True)
     args = (q, k, v, do, lse, fa.attention_delta(o, do))
 
-    def dq():
-        return fa.flash_attention_bwd_dq(*args, True)
-
-    def dkv():
-        return fa.flash_attention_bwd_dkv(*args, True)
-
-    times, reference = {name: [] for name in VARIANTS}, None
-    for name in list(VARIANTS) + list(VARIANTS)[::-1]:
-        fa._fns.clear()   # bind the wrappers to this variant's library
-        _build._libs[SOURCE[:-3]] = ctypes.CDLL(str(built[name][0]))
-        grads = (dq(), *dkv())
-        torch.cuda.synchronize()
-        reference = reference or grads
-        if not all(torch.equal(a, b) for a, b in zip(grads, reference)):
-            raise SystemExit(f"variant {name}'s gradients differ from the "
-                             f"current kernels'")
-        times[name].append((cuda_ms(dq, iters=20), cuda_ms(dkv, iters=20)))
+    times = in_turns(_build, fa, SOURCE, built, {
+        "K4": lambda: (fa.flash_attention_bwd_dq(*args, True),),
+        "K5": lambda: fa.flash_attention_bwd_dkv(*args, True)})
     result = {}
-    for name, runs in times.items():
+    for name, turns in times.items():
+        runs = [(t["K4"], t["K5"]) for t in turns]
         k4 = sum(t[0] for t in runs) / len(runs)
         k5 = sum(t[1] for t in runs) / len(runs)
         result[name] = {"K4_ms": k4, "K5_ms": k5, "K4_plus_K5_ms": k4 + k5,
-                        "runs": runs, "ptxas": ptxas_report(built[name][1])}
+                        "runs": runs,
+                        "ptxas": ptxas_report(built[name][1], BWD_KERNELS)}
         print(f"  {name}: K4 {k4:.4f} ms, K5 {k5:.4f} ms, K4+K5 "
               f"{k4 + k5:.4f} ms (runs {runs}); ptxas "
               f"{json.dumps(result[name]['ptxas'])}")

@@ -14,7 +14,7 @@ Phases, in order; any failure raises and exits non-zero:
      ptxas' log beside the library), its blocks per SM (the occupancy API),
      its HGMMA / UTMALDG / HMMA / WARPGROUP.DEPBAR instruction counts
      (cuobjdump, where the toolkit has it) and ptxas' note if it serialised
-     the kernel's wgmma; each kernel timed with CUDA events beside its plain
+     the kernel's wgmma; K1 timed with CUDA events beside its plain
      version, one PyTorch library call computing the same function (a
      yardstick only: the port never calls it) and its bound on an H100 SXM;
   5. the main path at full width: the flash-attention TransformerLM
@@ -23,7 +23,7 @@ Phases, in order; any failure raises and exits non-zero:
      answers a few generate / generate_batch requests, with every kernel
      launch counter set to 0 just before and read just after; then K1 is
      timed at the re-encode shape of generate(use_cache=False) (B=1,
-     T=1024) beside PR 3's mma.sync loop, which K3 keeps;
+     T=1024), on the card from a torch.profiler trace;
   6. a small-depth f32 copy of the model (same seed) on the card, through
      the kernel, agrees with the same model on the CPU through the plain
      versions; its greedy flash re-encode tokens equal its dense KV-cache
@@ -48,15 +48,24 @@ Phases, in order; any failure raises and exits non-zero:
      and K5 per step and none of K1; the losses are finite and fall;
  10. a small-depth f32 copy (same seed) trains three steps on the card
      (kernels) and on the CPU (plain versions); losses and parameters agree;
- 11. the ring-attention partial (K3) against its plain version on the card
-     at the hop shape of T=8192 over a ring of 4 (B=4, Tq=Tk=2048, H=8, D=64,
-     bf16): the diagonal, a visible, a wholly masked and a non-causal hop,
-     and at edge shapes (ragged T=1025, fp16 D=128, f32);
+ 11. the kernel reports of K3 (the Hopper forward kernel's third mode;
+     bf16, D=64 and D=128) as in phase 4 (the smoke fails unless each SASS
+     has wgmma and TMA loads and no mma.sync); the ring-attention partial
+     (K3) against its plain version on the card: first single heads of 64
+     and 128 rows (B=1, H=1, D=64, bf16, both masks), then the tile edges
+     (T=1, 63, 64, 127, 128, 129, 191, 192, 193, 257, 385) on hops whose
+     causal edge falls on and inside a tile, then the hop shape of T=8192
+     over a ring of 4 (B=4, Tq=Tk=2048, H=8, D=64, bf16): the diagonal, a
+     visible, a wholly masked and a non-causal hop, and edge shapes (ragged
+     T=1025, fp16 D=128, f32);
  12. K4 and K5 with a hop's global offsets and f32 outputs against their
      plain versions on the same hops and edge shapes;
  13. K3, K4 and K5 (f32 outputs) timed on the visible hop beside their
-     plain versions, their bounds and, for K4+K5, SDPA's backward alone
-     (device time, as in phase 8);
+     plain versions, their bounds and one PyTorch call: for K3 flash SDPA's
+     forward (aten._scaled_dot_product_flash_attention, which returns o and
+     the logsumexp), for K4+K5 SDPA's backward alone (device time, as in
+     phase 8); K3 and its yardstick (causal) also on the diagonal hop, and
+     K3 on both hops on the card from a torch.profiler trace;
  14. the ring main path at full width: four rank processes on one card
      (cuda:0), rotating K/V through the host over gloo, run
      `ring_self_attention(causal=True, use_flash=True)` on the global B=4,
@@ -229,7 +238,7 @@ def hopper_report(_build, label, library, kernel, occupancy):
     block (`occupancy`, a C entry's arguments before its two out-pointers),
     the count of wgmma (HGMMA), TMA load (UTMALDG), mma.sync (HMMA) and
     wgmma wait (WARPGROUP.DEPBAR) instructions in its SASS where the toolkit
-    has cuobjdump, and ptxas' note when it serialised the kernel's wgmma
+    has cuobjdump, and ptxas' notes when it serialised the kernel's wgmma
     (as many waits as wgmma). `kernel` is a
     regex that picks the instantiation's mangled name. Fails unless the SASS
     has wgmma and TMA loads and no mma.sync. Returns the report as a dict and
@@ -253,11 +262,13 @@ def hopper_report(_build, label, library, kernel, occupancy):
                 found = re.search(pattern, line)
                 if found:
                     report[key] = int(found.group(1))
-    # ptxas' note where it had to wait after every wgmma of the kernel
-    for found in re.finditer(r"wgmma\.mma_async instructions are serialized "
-                             r"due to (.*?) in the function '(\S+)'", log):
-        if ours(found.group(2)):
-            report["wgmma_serialized"] = found.group(1)
+    # ptxas' notes where it had to wait after every wgmma of the kernel
+    # (C7515: accumulators written in flight; C7512: too few registers)
+    notes = [f"{code}: {why}" for code, why, name in re.findall(
+        r"\((C75\d\d)\)[^\n]*?wgmma\.mma_async instructions are serialized "
+        r"due to (.*?) (?:in|for) the function '(\S+)'", log) if ours(name)]
+    if notes:
+        report["wgmma_serialized"] = "; ".join(notes)
     symbol, *args = occupancy
     fn = getattr(_build.load(library), symbol)
     fn.argtypes = ([ctypes.c_int] * len(args)
@@ -292,15 +303,14 @@ def hopper_report(_build, label, library, kernel, occupancy):
     return report
 
 
-def fwd_report(fa, _build, with_lse):
-    """`hopper_report` of K1's (with_lse False) or K2's Hopper kernel, bf16,
-    D=64."""
+def fwd_report(fa, _build, mode, d=64):
+    """`hopper_report` of the Hopper forward kernel in `mode` (0: K1, 1: K2,
+    2: K3, the source's `Mode`), bf16, head dim d."""
     return hopper_report(
-        _build, f"{'K2' if with_lse else 'K1'} bf16 D=64",
-        "flash_attention_fwd",
-        rf"flash_fwd_hopper_kernelI13__nv_bfloat16Li64ELb{int(with_lse)}E",
-        ("dl4j_flash_fwd_occupancy", fa._DTYPE_CODE[torch.bfloat16], 64,
-         int(with_lse)))
+        _build, f"K{mode + 1} bf16 D={d}", "flash_attention_fwd",
+        rf"flash_fwd_hopper_kernelI13__nv_bfloat16Li{d}ELi{mode}E",
+        ("dl4j_flash_fwd_occupancy", fa._DTYPE_CODE[torch.bfloat16], d,
+         mode))
 
 
 def bwd_report(fa, _build, dq):
@@ -449,7 +459,7 @@ def main():
                 True, None, atol=1e-5, rtol=1e-5, row_rtol=1e-5)
 
     print("phase 4: timing at the main path's shape")
-    k1_report = fwd_report(fa, _build, False)
+    k1_report = fwd_report(fa, _build, 0)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True), iters=20)
     plain_ms = cuda_ms(lambda: flash_plain(fa, q, k, v, True), iters=2,
                        warmup=1)
@@ -524,22 +534,16 @@ def main():
     # the re-encode of generate(use_cache=False): one K1 call at B=1 over
     # the prompt and its new tokens (8 heads x 6 query tiles at T=1024). At
     # this size CUDA events time the host's launches as much as the card,
-    # so the device time comes from a trace, beside PR 3's mma.sync loop,
-    # which K3 keeps: K3 on the diagonal (q_off = k_off = 0) runs its
-    # arithmetic over the same tiles and writes f32 acc, m and l where K1
-    # writes o in bf16.
+    # so the device time comes from a trace.
     rq, rk, rv = strided_qkv(1, 1024, H, D, torch.bfloat16, seed=9)
     reencode = {"ms": cuda_ms(lambda: fa.flash_attention(rq, rk, rv, True),
                               iters=50)}
-    reencode.update(zip(("device_ms", "mma_sync_loop_device_ms"), device_ms(
-        lambda: (fa.flash_attention(rq, rk, rv, True),
-                 fa.flash_attention_partial(rq, rk, rv, 0, 0, True)),
-        ("flash_fwd_hopper_kernel", "flash_fwd_partial_mma_kernel"))))
-    shown = {key: shown_ms(t) for key, t in reencode.items()}
+    reencode["device_ms"], = device_ms(
+        lambda: fa.flash_attention(rq, rk, rv, True),
+        ("flash_fwd_hopper_kernel",))
     print(f"  K1 at the re-encode shape B=1 T=1024 H={H} D={D}: "
-          f"{shown['ms']} by CUDA events, {shown['device_ms']} on the card "
-          f"(trace); PR 3's mma.sync loop (K3 diagonal) "
-          f"{shown['mma_sync_loop_device_ms']} on the card")
+          f"{shown_ms(reencode['ms'])} by CUDA events, "
+          f"{shown_ms(reencode['device_ms'])} on the card (trace)")
     del lm, rq, rk, rv
 
     print("phase 6: same weights, f32, card (kernel) vs CPU (plain)")
@@ -566,7 +570,7 @@ def main():
 
     del gpu, cpu
     train = training_phases(fa, _build, TransformerLM, H, D)
-    ring = ring_phases(fa, H, D)
+    ring = ring_phases(fa, _build, H, D)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -638,7 +642,7 @@ def training_phases(fa, _build, TransformerLM, H, D):
                            seed=14)
 
     print("phase 8: training kernels timed at the training shape")
-    reports = {"fwd_lse": fwd_report(fa, _build, True),
+    reports = {"fwd_lse": fwd_report(fa, _build, 1),
                "bwd_dq": bwd_report(fa, _build, True),
                "bwd_dkv": bwd_report(fa, _build, False)}
     q, k, v, do, lse, delta = args
@@ -1059,13 +1063,34 @@ def ring_main_path(fa, H, D, backend):
     return result
 
 
-def ring_phases(fa, H, D):
+def ring_phases(fa, _build, H, D):
     """Phases 11-14. Returns {"partial": K3's kernels-line fields, "extra":
     {kernel: K4/K5 hop fields}}."""
     print(f"phase 11: ring partial (K3) against its plain version, hop of "
           f"T={T} over a ring of {RING}")
+    k3_reports = {f"D={d}": fwd_report(fa, _build, 2, d) for d in (64, 128)}
     bf16_tol, fp16_tol, f32_tol = (1e-2, 1e-2, 1e-2), (2e-3, 2e-3, 2e-3), (
         1e-5, 1e-5, 1e-5)
+    # one head of 64 rows (one consumer warpgroup's rows against half a
+    # 128-key tile) and of 128 rows (one whole kv tile) first; then the
+    # Hopper kernel's tile edges (one row; 64, 128, 192 rows less, at and
+    # past; two and three kv tiles and one), with the causal edge on a tile
+    # edge and inside a tile (keys 37 rows later or earlier; a kv chunk whose
+    # first key only the last row sees) and a non-causal hop at (100, 0)
+    for t in (64, 128):
+        for causal in (False, True):
+            check_partial(fa, f"single tile B=1 T={t} H=1 D=64 bf16 (0, 0) "
+                          f"{'causal' if causal else 'full'}",
+                          *strided_qkv(1, t, 1, 64, torch.bfloat16,
+                                       seed=60 + t), 0, 0, causal, bf16_tol)
+    for t in (1, 63, 64, 127, 128, 129, 191, 192, 193, 257, 385):
+        eq, ek, ev = strided_qkv(1, t, 8, 64, torch.bfloat16, seed=400 + t)
+        for q_off, k_off, causal in ((0, 0, True), (t, 0, True), (0, t, True),
+                                     (0, 37, True), (37, 0, True),
+                                     (0, t - 1, True), (100, 0, False)):
+            check_partial(fa, f"tile edge B=1 T={t} H=8 D=64 bf16 ({q_off}, "
+                          f"{k_off}) {'causal' if causal else 'full'}", eq,
+                          ek, ev, q_off, k_off, causal, bf16_tol)
     q, k, v = ring_qkv(B, HOP_T, H, D, torch.bfloat16, seed=21)
     hops = [("diagonal", HOP_T, HOP_T, True), ("visible", 2 * HOP_T, 0, True),
             ("wholly masked", 0, HOP_T, True),
@@ -1143,7 +1168,21 @@ def ring_phases(fa, H, D):
         "bwd_dkv": (8 * D * pairs, 4 * panel + 2 * row_stats + 2 * panel32),
     }
     lib_bwd, lib_bwd_kernels = sdpa_backward_ms(q, k, v, do, False)
-    library = {"partial": None, "bwd_dq": lib_bwd, "bwd_dkv": lib_bwd}
+    # K3's yardstick: flash SDPA's forward returns (o, logsumexp, ...), the
+    # same information as K3's (acc, m, l) in normalised form; non-causal on
+    # the visible hop, causal on the diagonal one
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    flash_sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+    lib_partial = {causal: cuda_ms(lambda: flash_sdpa(qt, kt, vt, 0.0, causal),
+                                   iters=20) for causal in (False, True)}
+    _, m, l = fa.flash_attention_partial(q, k, v, causal=True, **off)
+    lse_diff = (flash_sdpa(qt, kt, vt, 0.0, False)[1] - (m + torch.log(l))
+                ).abs().max().item()
+    print(f"  the yardstick computes K3's function: SDPA's logsumexp vs K3's "
+          f"m + log l on the visible hop, max abs diff {lse_diff:.3e}")
+    del qt, kt, vt, m, l
+    library = {"partial": lib_partial[False], "bwd_dq": lib_bwd,
+               "bwd_dkv": lib_bwd}
     timed = {}
     for name, (kernel_fn, plain_fn, inputs) in calls.items():
         k_ms = cuda_ms(lambda: kernel_fn(*inputs), iters=20)
@@ -1152,10 +1191,38 @@ def ring_phases(fa, H, D):
         b_ms, b_by = bound(*work[name])
         timed[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": library[name]}
-        lib = "none" if name == "partial" else shown_ms(library[name])
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-              f"library {lib}, bound {b_ms:.4f} ms ({b_by}), roofline share "
-              f"{b_ms / k_ms:.3f}, {work[name][0] / k_ms / 1e9:.1f} TFLOP/s")
+              f"library {shown_ms(library[name])}, bound {b_ms:.4f} ms "
+              f"({b_by}), roofline share {b_ms / k_ms:.3f}, "
+              f"{work[name][0] / k_ms / 1e9:.1f} TFLOP/s")
+    # K3 on the diagonal hop (q_off = k_off): half the pairs, the same bytes.
+    # Near 0.08 ms a K3 call is about as long as its wrapper takes on the
+    # host, so CUDA events may time the host: the trace gives the card's
+    # time, on both hops.
+    diagonal = partial(fa.flash_attention_partial, q, k, v, HOP_T, HOP_T,
+                       True)
+    diag_ms = cuda_ms(diagonal, iters=20)
+    diag_flops = 4 * D * B * H * HOP_T * (HOP_T + 1) / 2
+    diag_bound, diag_by = bound(diag_flops, work["partial"][1])
+    trace = {hop: device_ms(fn, ("flash_fwd_hopper_kernel",))[0] for hop, fn in
+             (("visible", partial(calls["partial"][0], q, k, v)),
+              ("diagonal", diagonal))}
+    timed["partial"]["device_ms"] = trace["visible"]
+    timed["partial"]["diagonal"] = {
+        "ms": diag_ms, "device_ms": trace["diagonal"],
+        "library_ms": lib_partial[True], "bound_ms": diag_bound,
+        "bound_by": diag_by,
+        "shape": f"{shape}, diagonal hop (q_off = k_off = {HOP_T})"}
+    timed["partial"]["library_call"] = (
+        "aten._scaled_dot_product_flash_attention on [B, H, T, D] (o and "
+        "logsumexp), non-causal; causal on the diagonal hop")
+    print(f"  partial, diagonal hop: kernel {diag_ms:.4f} ms, library "
+          f"{lib_partial[True]:.4f} ms, bound {diag_bound:.4f} ms "
+          f"({diag_by}), roofline share {diag_bound / diag_ms:.3f}, "
+          f"{diag_flops / diag_ms / 1e9:.1f} TFLOP/s")
+    print(f"  partial on the card (trace): visible hop "
+          f"{shown_ms(trace['visible'])}, diagonal hop "
+          f"{shown_ms(trace['diagonal'])}")
     print(f"  SDPA flash backward alone, non-causal, [{B}, {H}, {HOP_T}, {D}] "
           f"bf16 (the same dq, dk, dv rounded to bf16): {shown_ms(lib_bwd)} "
           f"on the card (trace: {json.dumps(lib_bwd_kernels)})")
@@ -1176,7 +1243,7 @@ def ring_phases(fa, H, D):
     return {
         "partial": dict(timed["partial"], launches=ring_launches["partial"],
                         max_abs_err=k3_err, shape=hop_shape,
-                        err_on="acc / plain l",
+                        err_on="acc / plain l", kernel=k3_reports,
                         launches_per_rank={"inference": RING,
                                            "training": RING}),
         "extra": {name: {"ring_launches": ring_launches[name], "hop": dict(

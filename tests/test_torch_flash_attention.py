@@ -639,15 +639,36 @@ def _assert_partial_close_on_card(got, want, dtype):
     assert not acc.transpose(1, 2)[unseen].any()
 
 
+# K3's shapes on the card: one head of 64 rows (one consumer warpgroup's
+# rows and one 64-key tile) and of 128 rows first, then the Hopper kernel's
+# tile edges (its kv tiles are 64 keys, its query tiles 192 rows at D <= 64
+# and 128 at D = 128): one row, 64 and 128 rows less and at, 128 and 192
+# rows less, at and past, a ragged 200, and 4 and 6 kv tiles and one.
+_PARTIAL_SINGLE_T = (64, 128)
+_PARTIAL_T = (1, 63, 64, 127, 128, 129, 191, 192, 193, 200, 257, 385)
+
+
+def _partial_hops_for(t):
+    """`_hops_for(t)` and offsets off the tile edges, so the causal mask
+    falls inside a tile: keys 37 rows later or earlier, a kv chunk whose
+    first key only the last row sees, and a non-causal hop at (100, 0)."""
+    return _hops_for(t) + [(0, 37, True), (37, 0, True), (0, t - 1, True),
+                           (100, 0, False)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_partial_kernel_matches_plain_on_card(cuda, dtype, d):
-    """K3 against its plain version on every kind of hop, with ragged T."""
-    for t in (1, 63, 64, 200, 257):
-        q, k, v = _strided_qkv(t, d, dtype, cuda, seed=t)
-        for q_off, k_off, causal in _hops_for(t):
+    """K3 against its plain version on every kind of hop and on offsets
+    that put the causal edge inside a tile: single tiles of one head
+    first, then the tile edges with ragged T."""
+    shapes = ([(t, 1, 1) for t in _PARTIAL_SINGLE_T]
+              + [(t, 2, 3) for t in _PARTIAL_T])
+    for t, b, h in shapes:
+        q, k, v = _strided_qkv(t, d, dtype, cuda, seed=t, b=b, h=h)
+        for q_off, k_off, causal in _partial_hops_for(t):
             before = fa.launches["partial"]
             got = fa.flash_attention_partial(q, k, v, q_off, k_off, causal)
             assert fa.launches["partial"] == before + 1

@@ -1,6 +1,7 @@
-"""The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py` and
-`chip_bwd_ab.py` import neither JAX nor anything of the JAX package `deeplearning4j_tpu`, and
-importing the port builds no kernel and needs no card."""
+"""The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
+`chip_bwd_ab.py` and `chip_fwd_ab.py` import neither JAX nor anything of
+the JAX package `deeplearning4j_tpu`, and importing the port builds no
+kernel and needs no card."""
 import os
 import re
 import subprocess
@@ -45,7 +46,7 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "chip_bwd_ab.py"]))
+    + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
