@@ -80,8 +80,37 @@ Phases, in order; any failure raises and exits non-zero:
      with the same ring on the CPU.
      With four cards it runs again over NCCL, one rank per card; with fewer
      it says that it skipped that step.
-Then it prints one {"kernels": [...]} JSON line and, as the last line,
-{"ok": true, "device": {...}}. It imports nothing of JAX.
+Phases 15-18 drive the DL4J training core (MultiLayerNetwork,
+ComputationGraph, the model zips), whose path reaches none of the port's
+kernels: cuDNN and cuBLAS run it, as XLA runs it for the JAX package. The
+launch counters are set to 0 before them and must read 0 after. They run
+with PyTorch's default `cudnn.allow_tf32 = True`: the port turns TF32 off
+for its float32 networks inside its own calls.
+ 15. LeNet (MultiLayerNetwork, f32, batch 64, seeded weights): `output` and
+     three Nesterov `fit` steps on the card and on the CPU; losses and
+     parameters agree;
+ 16. ResNet-50 (ComputationGraph) at full depth, 64x64x3, batch 2, 10
+     classes, f32: `output` and the first training loss, card against CPU
+     (and, as controls that must break the limits, both with TF32 on);
+     then two `fit` steps on the card, on the CPU and in float64 on
+     the CPU: the card's parameter change is no more than twice as far
+     (relative L2) from float64's as the CPU's f32 is (at batch 2 this
+     deep BatchNorm net is ill-conditioned in f32: ~5%);
+ 17. ResNet-50 at full width: `resnet50(data_type="bfloat16")`, batch 128,
+     224x224x3, 1000 classes, Nesterov lr 0.1, momentum 0.9, one repeated
+     random batch on the card (as the JAX package's bench.py): 24 warm-up
+     steps (cuDNN's algorithm search runs there, and the loss's early rise
+     and fall; the last one is audited: every op of the step on the card),
+     then 8 `fit` steps timed by CUDA events: finite losses, the last
+     below the first, step ms, images/s
+     and peak memory; f32 master parameters on the card; a timed `output`
+     at batch 128; the device time of one step by kernel, from a
+     torch.profiler trace;
+ 18. the golden model zips (tests/fixtures/golden/{mlp,lenet,cg}.zip)
+     restored on the card: parameters equal, outputs as the zips' io["y"].
+Then it prints a {"training_core": ...} JSON line, one {"kernels": [...]}
+JSON line and, as the last line, {"ok": true, "device": {...}}. It imports
+nothing of JAX.
 """
 import json
 import math
@@ -571,6 +600,7 @@ def main():
     del gpu, cpu
     train = training_phases(fa, _build, TransformerLM, H, D)
     ring = ring_phases(fa, _build, H, D)
+    core = training_core_phases(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -596,6 +626,7 @@ def main():
         "name": "flash_attention_partial", "route": "cuda",
         "source": src + "flash_attention_fwd.cu", "replaces": ref + "203"},
         **ring["partial"]))
+    print(json.dumps({"training_core": core}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1254,6 +1285,347 @@ def ring_phases(fa, _build, H, D):
                          "torch.profiler)")}
             for name in ("bwd_dq", "bwd_dkv")},
     }
+
+
+def _one_hot(rng, n, classes):
+    import numpy as np
+    return np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+
+
+def _max_err(a, b):
+    import numpy as np
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _check(label, err, limit):
+    print(f"  {label}: {err:.3e} (limit {limit:.3e})")
+    if not err <= limit:
+        raise SystemExit(f"{label}: {err} over {limit}")
+
+
+class _DeviceAudit:
+    """Every op dispatched while active, with any tensor argument or
+    result that is not on the card (a TorchDispatchMode)."""
+
+    def __new__(cls):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+
+        class Audit(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.ops, self.off_card = 0, set()
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                self.ops += 1
+                for t in tree_flatten((args, kwargs, out))[0]:
+                    if isinstance(t, torch.Tensor) and t.device.type != "cuda":
+                        self.off_card.add(f"{func} on {t.device}")
+                return out
+
+        return Audit()
+
+
+def lenet_card_vs_cpu():
+    """Phase 15. Returns its readings."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    print("phase 15: LeNet (MultiLayerNetwork) f32, batch 64: card vs CPU, "
+          "3 Nesterov steps")
+    rng = np.random.default_rng(15)
+    x = rng.random((64, 784), dtype=np.float32)
+    y = _one_hot(rng, 64, 10)
+    gpu, cpu = (lenet(device=d, data_type="float32") for d in ("cuda", "cpu"))
+    if not np.array_equal(gpu.params(), cpu.params()):
+        raise SystemExit("LeNet weights differ between devices")
+    # 1e-5: cuDNN and the CPU sum the 5x5 windows and the 800- and
+    # 500-wide products in other orders; outputs are probabilities
+    out = {"output": _max_err(gpu.output(x), cpu.output(x))}
+    _check("output [64, 10] max_abs_err", out["output"], 1e-5)
+    losses = [[], []]
+    for _ in range(3):
+        for net, seen in zip((gpu, cpu), losses):
+            net.fit(x, y)
+            seen.append(net.score())
+    out["losses"] = losses[0]
+    out["loss_err"] = _max_err(*losses)
+    out["param_err"] = _max_err(gpu.params(), cpu.params())
+    print(f"  card losses {losses[0]}")
+    _check("losses max_abs_err", out["loss_err"], 1e-5)
+    _check("parameters after 3 steps max_abs_err", out["param_err"], 1e-5)
+    if not losses[0][-1] < losses[0][0]:
+        raise SystemExit("LeNet losses do not fall")
+    return out
+
+
+def resnet_f32_card_vs_cpu():
+    """Phase 16. Returns its readings."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    print("phase 16: ResNet-50 (ComputationGraph) f32, full depth, 64x64x3, "
+          "batch 2, 10 classes: card vs CPU (and CPU float64)")
+    kw = dict(height=64, width=64, num_classes=10)
+    gpu = resnet50(device="cuda", data_type="float32", **kw)
+    cpu = resnet50(device="cpu", data_type="float32", **kw)
+    f64 = resnet50(device="cpu", data_type="float64", **kw)
+    f64.set_params(cpu.params())
+    if not np.array_equal(gpu.params(), cpu.params()):
+        raise SystemExit("ResNet-50 weights differ between devices")
+    rng = np.random.default_rng(16)
+    x = rng.random((2, 64, 64, 3), dtype=np.float32)
+    y = _one_hot(rng, 2, 10)
+    outs = [net.output(x)[0] for net in (gpu, cpu, f64)]
+    if outs[0].shape != (2, 10) or not np.isfinite(outs[0]).all():
+        raise SystemExit(f"bad ResNet-50 output {outs[0].shape}")
+    first = [net.score(DataSet(x, y), training=True) for net in (gpu, cpu,
+                                                                 f64)]
+    out = {"output": _max_err(*outs[:2]), "first_loss": abs(first[0] - first[1]),
+           "output_f32_vs_f64": _max_err(*outs[1:]),
+           "first_loss_f32_vs_f64": abs(first[1] - first[2])}
+    # controls: the same output and training loss through cuDNN with TF32
+    # on (the port's forward and loss called outside its own
+    # `card_numerics` scope)
+    with torch.no_grad():
+        acts, _, _ = gpu._apply_graph(gpu._cast_params(), gpu._states(),
+                                      gpu._inputs([x]), train=False, rng=None)
+        tf32_out = acts["fc"].cpu().numpy()
+        tf32 = float(gpu._loss(*gpu._batch(MultiDataSet([x], [y])), True,
+                               None)[0])
+    out["output_tf32"] = _max_err(tf32_out, outs[1])
+    out["first_loss_tf32"] = abs(tf32 - first[1])
+    print(f"  CPU f32 vs float64: output {out['output_f32_vs_f64']:.3e}, "
+          f"first training loss {out['first_loss_f32_vs_f64']:.3e}; the "
+          f"card with TF32 on, from the CPU: output "
+          f"{out['output_tf32']:.3e}, loss {out['first_loss_tf32']:.3e}")
+    # the same f32 function summed in other orders, through 53 layers and
+    # BatchNorms over 8-32 values a channel (train mode): on the CPU, f32
+    # reads 2.9e-6 (output) and 9.3e-5 (loss) from float64; cuDNN's f32
+    # algorithms (benchmark mode
+    # takes the fastest: Winograd, FFT) read up to 5.5e-5 (output) and
+    # 2.8e-4 (loss) from the CPU on an H100. TF32 moves the loss by ~2e-2:
+    # each control must break its limit.
+    limits = {"output": 5e-4, "first_loss": 1e-3}
+    _check("output [2, 10] max_abs_err", out["output"], limits["output"])
+    _check("first training loss abs_err", out["first_loss"],
+           limits["first_loss"])
+    for what, limit in limits.items():
+        if not out[f"{what}_tf32"] > limit:
+            raise SystemExit(f"the TF32 control of the {what} stays inside "
+                             f"the f32 limit {limit}")
+    start = cpu.params().astype(np.float64)
+    losses = {"card": [], "cpu": [], "f64": []}
+    for _ in range(2):
+        for name, net in (("card", gpu), ("cpu", cpu), ("f64", f64)):
+            net.fit(x, y)
+            losses[name].append(net.score())
+    print(f"  losses: {json.dumps(losses)}")
+    out["losses"] = losses["card"]
+    # the two steps' parameter change: the step's gradient passes 16
+    # BatchNorms over 8-32 values a channel, where f32 on the CPU is ~5%
+    # (relative L2) off float64; lr 0.1 then
+    # takes the loss from 3.3 to ~13 in one step, so two f32 runs part
+    # and a per-entry or loss comparison only measures that chaos. The
+    # card's change is held to float64's as the CPU's f32 is: its relative
+    # L2 error at most twice the CPU's.
+    want = f64.params() - start
+
+    def rel(net):
+        return float(np.linalg.norm(net.params() - start - want)
+                     / np.linalg.norm(want))
+
+    out["update_rel_err_card"], out["update_rel_err_cpu"] = rel(gpu), rel(cpu)
+    out["update_rel_card_vs_cpu"] = float(
+        np.linalg.norm(gpu.params() - cpu.params())
+        / np.linalg.norm(cpu.params() - start))
+    print(f"  2 steps: parameter change, relative L2 error against float64:"
+          f" CPU f32 {out['update_rel_err_cpu']:.3e}; card vs CPU "
+          f"{out['update_rel_card_vs_cpu']:.3e}")
+    _check("2 steps: the card's parameter change, relative L2 error "
+           "against float64", out["update_rel_err_card"],
+           max(2 * out["update_rel_err_cpu"], 1e-5))
+    if not all(np.isfinite(losses["card"])):
+        raise SystemExit("ResNet-50 f32 losses are not finite")
+    return out
+
+
+def resnet_full_width():
+    """Phase 17. Returns its readings."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    # 24 warm-up steps: cuDNN's algorithm search runs in the first; and
+    # lr 0.1 with momentum 0.9 from He-initialised weights makes the loss
+    # of the repeated batch rise and fall for up to 13 steps (the warm-up
+    # losses printed below show it) before it falls step after step
+    batch, warmup, steps = 128, 24, 8
+    print(f"phase 17: ResNet-50 full width, bf16, batch {batch}, 224x224x3, "
+          f"1000 classes, Nesterov lr 0.1 momentum 0.9")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    net = resnet50(data_type="bfloat16")
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    # one random batch, on the card, as bench.py feeds the JAX package
+    x = torch.rand((batch, 224, 224, 3), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 1000, (batch,), generator=gen, device="cuda"),
+        1000).float()
+    ds = DataSet(x, y)
+    t0 = time.perf_counter()
+    warm = []
+    for i in range(warmup):
+        if i == warmup - 1:
+            audit = _DeviceAudit()
+            with audit:
+                net.fit(ds)
+        else:
+            net.fit(ds)
+        warm.append(net._score)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = [float(s) for s in warm]
+    print(f"  warm-up losses {[round(l, 4) for l in warm]}")
+    print(f"  init {init_s:.1f} s; {warmup} warm-up steps (cuDNN search) "
+          f"{warm_s:.1f} s; audited step: {audit.ops} ops, off the card: "
+          f"{sorted(audit.off_card)}")
+    if audit.off_card or audit.ops == 0:
+        raise SystemExit(f"the step used tensors off the card: "
+                         f"{sorted(audit.off_card)}")
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    scores = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        net.fit(ds)
+        scores.append(net._score)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    losses = [float(s) for s in scores]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean_ms = sum(step_ms) / steps
+    out = {"step_ms": step_ms, "mean_step_ms": mean_ms,
+           "images_per_s": batch * 1e3 / mean_ms,
+           "images_per_s_wall": batch * steps / wall_s,
+           "peak_memory_gib": peak_gib, "losses": losses,
+           "warmup_s": warm_s, "warmup_losses": warm, "init_s": init_s}
+    print(f"  losses {[round(l, 5) for l in losses]}")
+    print(f"  step ms {[round(t, 2) for t in step_ms]}; mean {mean_ms:.2f} ms,"
+          f" {out['images_per_s']:.1f} images/s ({out['images_per_s_wall']:.1f}"
+          f" by the host clock over the {steps} steps); peak memory "
+          f"{peak_gib:.2f} GiB")
+    if not all(math.isfinite(l) for l in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"ResNet-50 losses not finite and falling: {losses}")
+    bad = [n for n, p in net.named_parameters()
+           if p.dtype != torch.float32 or not p.is_cuda]
+    if bad:
+        raise SystemExit(f"parameters not f32 on the card: {bad[:5]}")
+    # inference: the same batch, the running statistics
+    net.output(x)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    probs = net.output(x)[0]
+    end.record()
+    end.synchronize()
+    out["output_ms"] = start.elapsed_time(end)
+    out["output_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    if (probs.shape != (batch, 1000) or not np.isfinite(probs).all()
+            or _max_err(probs.sum(axis=1), np.ones(batch)) > 1e-2):
+        raise SystemExit(f"bad ResNet-50 output {probs.shape}")
+    print(f"  output [{batch}, 1000]: {out['output_ms']:.2f} ms "
+          f"({batch * 1e3 / out['output_ms']:.1f} images/s; "
+          f"{out['output_wall_ms']:.2f} ms wall with the copy to the host)")
+    # where one step's device time goes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net.fit(ds)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.device_time_total, e.count, e.key)
+                      for e in prof.key_averages() if e.device_time_total),
+                     reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    out["traced_device_ms"] = busy_ms
+    out["device_busy_share"] = busy_ms / mean_ms
+    out["by_kind_ms"] = {}
+    for us, _, name in kernels:
+        kind = _kernel_kind(name)
+        out["by_kind_ms"][kind] = out["by_kind_ms"].get(kind, 0.0) + us / 1e3
+    out["top_kernels"] = [{"name": k[2][:90], "ms": k[0] / 1e3, "count": k[1]}
+                          for k in kernels[:15]]
+    print(f"  one traced step: {busy_ms:.2f} ms of device time in "
+          f"{sum(k[1] for k in kernels)} kernels ({out['device_busy_share']:.1%}"
+          f" of the mean step); by kind: " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in sorted(
+                  out["by_kind_ms"].items(), key=lambda kv: -kv[1])))
+    print("  the largest:")
+    for k in out["top_kernels"]:
+        print(f"    {k['ms']:8.3f} ms  x{k['count']:<4d} {k['name']}")
+    del net, x, y, ds
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_kind(name):
+    """A device kernel's kind, from its name (cuDNN, cuBLAS and ATen's)."""
+    kinds = (("pooling", ("pool",)), ("reduction", ("reduce_kernel",)),
+             ("copy or cast", ("copy",)),
+             ("convolution", ("fprop", "dgrad", "wgrad", "implicit", "conv",
+                              "cudnn")),
+             ("matrix product", ("gemm", "gemv", "xmma", "cutlass")),
+             ("elementwise", ("elementwise",)))
+    for kind, keys in kinds:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def golden_zips_on_card():
+    """Phase 18. Returns each zip's output error."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.util import model_serializer as ms
+    print("phase 18: golden model zips restored on the card")
+    golden = Path(__file__).resolve().parent / "tests" / "fixtures" / "golden"
+    out = {}
+    for name, restore in (("mlp", ms.restore_multi_layer_network),
+                          ("lenet", ms.restore_multi_layer_network),
+                          ("cg", ms.restore_computation_graph)):
+        net = restore(str(golden / f"{name}.zip"))
+        io = np.load(golden / f"{name}_io.npz")
+        if net.device.type != "cuda" or not np.array_equal(net.params(),
+                                                           io["params"]):
+            raise SystemExit(f"{name}.zip: parameters not restored on the card")
+        y = net.output(io["x"])
+        y = y[0] if name == "cg" else y
+        # 1e-5: the zips' outputs were computed by the JAX package on the
+        # CPU in f32; cuDNN may pick Winograd or FFT algorithms
+        out[name] = _max_err(y, io["y"])
+        _check(f"{name}.zip output vs io['y']", out[name], 1e-5)
+    return out
+
+
+def training_core_phases(fa):
+    """Phases 15-18 (no kernel of the port on their path)."""
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launches()
+    core = {"lenet_f32": lenet_card_vs_cpu(),
+            "resnet50_f32_64px": resnet_f32_card_vs_cpu(),
+            "resnet50_bf16_full": resnet_full_width(),
+            "golden_zips_err": golden_zips_on_card()}
+    if any(fa.launches.values()):
+        raise SystemExit(f"the training core launched flash kernels: "
+                         f"{fa.launches}")
+    if not torch.backends.cudnn.allow_tf32:
+        raise SystemExit("the port left cudnn.allow_tf32 off")
+    print(f"  phases 15-18 launched no kernel of the port: {fa.launches}")
+    return core
 
 
 if __name__ == "__main__":

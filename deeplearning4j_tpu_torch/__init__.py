@@ -10,8 +10,12 @@ Kernels are compiled with `nvcc` on first use (`ops/_build.py`).
 
 Ported so far: the TransformerLM zoo model, training (`fit_batch`) and
 inference (`models.zoo.transformer`), the flash-attention kernels it runs,
-forward and backward (`ops.flash_attention`), and the SGD-with-momentum
-update (`parallel.pipeline`). ROADMAP.md queues the rest.
+forward and backward (`ops.flash_attention`), the SGD-with-momentum
+update (`parallel.pipeline`), ring attention (`parallel.ring_attention`),
+and the training core: the configuration DSL, the LeNet and ResNet-50
+layers, the updaters, `MultiLayerNetwork` and `ComputationGraph` (`nn`),
+`DataSet` (`datasets`), the model zips (`util.model_serializer`) and the
+LeNet and ResNet-50 zoo models. ROADMAP.md queues the rest.
 """
 from .common.device import resolve_device
 

@@ -1,3 +1,3 @@
-from .device import resolve_device
+from .device import card_numerics, resolve_device, to_port, to_public
 
-__all__ = ["resolve_device"]
+__all__ = ["card_numerics", "resolve_device", "to_port", "to_public"]

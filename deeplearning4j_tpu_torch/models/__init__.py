@@ -1,3 +1,3 @@
-from .zoo import TransformerLM
+from .zoo import TransformerLM, lenet, resnet50
 
-__all__ = ["TransformerLM"]
+__all__ = ["TransformerLM", "lenet", "resnet50"]

@@ -1,0 +1,327 @@
+"""ComputationGraphConfiguration + GraphBuilder: port of
+deeplearning4j_tpu/nn/conf/computation_graph_configuration.py (no JAX in
+it; the same DSL and JSON). Named inputs, layer vertices and structural
+vertices wired by name, named outputs, a topological sort with cycle
+detection, and input-type propagation with automatic preprocessors and
+nIn inference.
+"""
+from __future__ import annotations
+
+import json
+
+from .graph_vertices import GraphVertexConf, VERTEX_REGISTRY
+from .input_type import InputType
+from .layers.base import LayerConf
+from .preprocessors import InputPreProcessor
+
+
+class GraphVertexSpec:
+    """One node in the DAG: either a LayerConf or a GraphVertexConf, plus the
+    names of its input vertices and (for layers) an optional preprocessor."""
+
+    def __init__(self, name, conf, inputs, preprocessor=None):
+        self.name = name
+        self.conf = conf
+        self.inputs = list(inputs)
+        self.preprocessor = preprocessor
+
+    @property
+    def is_layer(self):
+        return isinstance(self.conf, LayerConf)
+
+
+class ComputationGraphConfiguration:
+    """reference: nn/conf/ComputationGraphConfiguration.java"""
+
+    def __init__(self, inputs, vertices, outputs, global_conf,
+                 input_types=None, backprop=True, pretrain=False,
+                 backprop_type="standard", tbptt_fwd_length=20,
+                 tbptt_back_length=20, iteration_count=0, epoch_count=0):
+        self.network_inputs = list(inputs)          # input names
+        self.vertices = vertices                    # dict name -> GraphVertexSpec
+        self.network_outputs = list(outputs)        # output vertex names
+        self.global_conf = global_conf
+        self.input_types = input_types
+        self.backprop = backprop
+        self.pretrain = pretrain
+        self.backprop_type = backprop_type
+        self.tbptt_fwd_length = tbptt_fwd_length
+        self.tbptt_back_length = tbptt_back_length
+        self.iteration_count = iteration_count
+        self.epoch_count = epoch_count
+        self.topological_order = self._topological_sort()
+
+    # ------------------------------------------------------------------
+    def _topological_sort(self):
+        """Kahn's algorithm over vertex names; raises on cycles/dangling refs.
+        reference: ComputationGraph.topologicalSortOrder:849-944."""
+        known = set(self.network_inputs) | set(self.vertices)
+        for name, spec in self.vertices.items():
+            for inp in spec.inputs:
+                if inp not in known:
+                    raise ValueError(
+                        f"Vertex '{name}' references unknown input '{inp}'")
+        indeg = {name: 0 for name in self.vertices}
+        dependents = {name: [] for name in known}
+        for name, spec in self.vertices.items():
+            for inp in spec.inputs:
+                dependents[inp].append(name)
+                if inp in self.vertices:
+                    indeg[name] += 1
+        order = []
+        ready = sorted(n for n, d in indeg.items() if d == 0)
+        while ready:
+            n = ready.pop(0)
+            order.append(n)
+            for dep in dependents[n]:
+                indeg[dep] -= 1
+                if indeg[dep] == 0:
+                    ready.append(dep)
+        if len(order) != len(self.vertices):
+            cyc = sorted(set(self.vertices) - set(order))
+            raise ValueError(f"Cycle detected in computation graph "
+                             f"involving vertices: {cyc}")
+        for out in self.network_outputs:
+            if out not in self.vertices:
+                raise ValueError(f"Network output '{out}' is not a vertex")
+        return order
+
+    # ------------------------------------------------------------------
+    # serde
+    # ------------------------------------------------------------------
+    def to_dict(self):
+        verts = {}
+        for name, spec in self.vertices.items():
+            verts[name] = {
+                "conf": spec.conf.to_dict(),
+                "kind": "layer" if spec.is_layer else "vertex",
+                "inputs": spec.inputs,
+                "preprocessor": (spec.preprocessor.to_dict()
+                                 if spec.preprocessor else None),
+            }
+        return {
+            "format": "deeplearning4j-tpu/ComputationGraphConfiguration",
+            "version": 1,
+            "globalConf": {k: v for k, v in self.global_conf.items()
+                           if v is not None},
+            "networkInputs": self.network_inputs,
+            "networkOutputs": self.network_outputs,
+            "vertices": verts,
+            "inputTypes": ([t.to_dict() for t in self.input_types]
+                           if self.input_types else None),
+            "backprop": self.backprop,
+            "pretrain": self.pretrain,
+            "backpropType": self.backprop_type,
+            "tbpttFwdLength": self.tbptt_fwd_length,
+            "tbpttBackLength": self.tbptt_back_length,
+            "iterationCount": self.iteration_count,
+            "epochCount": self.epoch_count,
+        }
+
+    def to_json(self, indent=2):
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @staticmethod
+    def from_dict(d):
+        from .neural_net_configuration import _GLOBAL_DEFAULTS
+        g = dict(_GLOBAL_DEFAULTS)
+        g.update(d.get("globalConf", {}))
+        vertices = {}
+        for name, vd in d["vertices"].items():
+            if vd["kind"] == "layer":
+                conf = LayerConf.from_dict(vd["conf"])
+            else:
+                typ = vd["conf"]["type"]
+                conf = VERTEX_REGISTRY[typ].from_dict(vd["conf"])
+            pp = (InputPreProcessor.from_dict(vd["preprocessor"])
+                  if vd.get("preprocessor") else None)
+            vertices[name] = GraphVertexSpec(name, conf, vd["inputs"], pp)
+        its = d.get("inputTypes")
+        return ComputationGraphConfiguration(
+            inputs=d["networkInputs"], vertices=vertices,
+            outputs=d["networkOutputs"], global_conf=g,
+            input_types=[InputType.from_dict(t) for t in its] if its else None,
+            backprop=d.get("backprop", True),
+            pretrain=d.get("pretrain", False),
+            backprop_type=d.get("backpropType", "standard"),
+            tbptt_fwd_length=d.get("tbpttFwdLength", 20),
+            tbptt_back_length=d.get("tbpttBackLength", 20),
+            iteration_count=d.get("iterationCount", 0),
+            epoch_count=d.get("epochCount", 0),
+        )
+
+    @staticmethod
+    def from_json(s):
+        return ComputationGraphConfiguration.from_dict(json.loads(s))
+
+    def to_yaml(self):
+        """YAML serde — reference ComputationGraphConfiguration toYaml/
+        fromYaml (Jackson YAML mapper on the same object model).
+        Normalized through JSON types so tuples serialize as lists."""
+        import yaml
+        return yaml.safe_dump(json.loads(self.to_json()), sort_keys=False)
+
+    toYaml = to_yaml
+
+    @staticmethod
+    def from_yaml(s):
+        import yaml
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))
+
+    fromYaml = from_yaml
+
+    def clone(self):
+        return ComputationGraphConfiguration.from_dict(self.to_dict())
+
+
+class GraphBuilder:
+    """reference: ComputationGraphConfiguration.GraphBuilder (fluent DSL).
+
+    Usage mirrors the reference:
+        conf = (NeuralNetConfiguration.Builder().seed(1).graph_builder()
+                .add_inputs("in")
+                .add_layer("dense1", DenseLayer(n_out=64), "in")
+                .add_vertex("merge", MergeVertex(), "dense1", "in")
+                .add_layer("out", OutputLayer(...), "merge")
+                .set_outputs("out")
+                .set_input_types(InputType.feed_forward(10))
+                .build())
+    """
+
+    def __init__(self, global_conf):
+        self.g = global_conf
+        self._inputs = []
+        self._vertices = {}      # name -> (conf, input names)
+        self._outputs = []
+        self._input_types = None
+        self._preprocessors = {}  # vertex name -> preproc (explicit)
+        self._backprop = True
+        self._pretrain = False
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
+
+    # ------------------------------------------------------------------
+    def add_inputs(self, *names):
+        self._inputs.extend(str(n) for n in names)
+        return self
+
+    addInputs = add_inputs
+
+    def add_layer(self, name, layer, *inputs, preprocessor=None):
+        if not isinstance(layer, LayerConf):
+            raise TypeError(f"add_layer expects a LayerConf, got {type(layer)}")
+        self._check_name(name)
+        if not inputs:
+            raise ValueError(f"Layer '{name}' needs at least one input")
+        self._vertices[str(name)] = (layer, [str(i) for i in inputs])
+        if preprocessor is not None:
+            self._preprocessors[str(name)] = preprocessor
+        return self
+
+    addLayer = add_layer
+
+    def add_vertex(self, name, vertex, *inputs):
+        if not isinstance(vertex, GraphVertexConf):
+            raise TypeError(
+                f"add_vertex expects a GraphVertexConf, got {type(vertex)}")
+        self._check_name(name)
+        self._vertices[str(name)] = (vertex, [str(i) for i in inputs])
+        return self
+
+    addVertex = add_vertex
+
+    def _check_name(self, name):
+        if str(name) in self._vertices or str(name) in self._inputs:
+            raise ValueError(f"Duplicate vertex name '{name}'")
+
+    def set_outputs(self, *names):
+        self._outputs = [str(n) for n in names]
+        return self
+
+    setOutputs = set_outputs
+
+    def set_input_types(self, *types):
+        self._input_types = list(types)
+        return self
+
+    setInputTypes = set_input_types
+
+    def input_pre_processor(self, vertex_name, preproc):
+        self._preprocessors[str(vertex_name)] = preproc
+        return self
+
+    inputPreProcessor = input_pre_processor
+
+    def backprop(self, v):
+        self._backprop = bool(v); return self
+
+    def pretrain(self, v):
+        self._pretrain = bool(v); return self
+
+    def backprop_type(self, v):
+        self._backprop_type = str(v).lower(); return self
+
+    backpropType = backprop_type
+
+    def t_bptt_forward_length(self, v):
+        self._tbptt_fwd = int(v); return self
+
+    def t_bptt_backward_length(self, v):
+        self._tbptt_back = int(v); return self
+
+    tBPTTForwardLength = t_bptt_forward_length
+    tBPTTBackwardLength = t_bptt_backward_length
+
+    # ------------------------------------------------------------------
+    def build(self):
+        if not self._inputs:
+            raise ValueError("Graph needs at least one input (add_inputs)")
+        if not self._outputs:
+            raise ValueError("Graph needs at least one output (set_outputs)")
+        vertices = {}
+        for name, (conf, inputs) in self._vertices.items():
+            c = (conf.apply_global_defaults(self.g)
+                 if isinstance(conf, LayerConf) else conf)
+            vertices[name] = GraphVertexSpec(
+                name, c, inputs, self._preprocessors.get(name))
+        cfg = ComputationGraphConfiguration(
+            inputs=self._inputs, vertices=vertices, outputs=self._outputs,
+            global_conf=dict(self.g), input_types=self._input_types,
+            backprop=self._backprop, pretrain=self._pretrain,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
+        )
+        if self._input_types is not None:
+            _propagate_types(cfg)
+        return cfg
+
+
+def _propagate_types(cfg):
+    """Walk the DAG in topological order: infer each layer's nIn, auto-insert
+    preprocessors where the incoming type family does not match the layer
+    (reference: ComputationGraphConfiguration.addPreProcessors)."""
+    from .neural_net_configuration import _infer_preprocessor
+
+    if len(cfg.input_types) != len(cfg.network_inputs):
+        raise ValueError(
+            f"set_input_types got {len(cfg.input_types)} types for "
+            f"{len(cfg.network_inputs)} inputs")
+    types = dict(zip(cfg.network_inputs, cfg.input_types))
+    for name in cfg.topological_order:
+        spec = cfg.vertices[name]
+        in_types = [types[i] for i in spec.inputs]
+        if spec.is_layer:
+            cur = in_types[0]
+            if spec.preprocessor is None:
+                pp = _infer_preprocessor(cur, spec.conf)
+                if pp is not None:
+                    spec.preprocessor = pp
+            if spec.preprocessor is not None:
+                cur = spec.preprocessor.get_output_type(cur)
+            spec.conf.set_n_in(cur, override=False)
+            types[name] = spec.conf.get_output_type(cur)
+        else:
+            types[name] = spec.conf.get_output_type(in_types)
+    cfg.vertex_output_types = types

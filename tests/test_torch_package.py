@@ -20,6 +20,11 @@ import deeplearning4j_tpu_torch.models.zoo.transformer
 import deeplearning4j_tpu_torch.ops.flash_attention as fa
 import deeplearning4j_tpu_torch.parallel.pipeline
 import deeplearning4j_tpu_torch.parallel.ring_attention
+import deeplearning4j_tpu_torch.nn.multilayer
+import deeplearning4j_tpu_torch.nn.graph.computation_graph
+import deeplearning4j_tpu_torch.util.model_serializer
+import deeplearning4j_tpu_torch.models.zoo.lenet
+import deeplearning4j_tpu_torch.models.zoo.resnet
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
