@@ -14,8 +14,12 @@ forward and backward (`ops.flash_attention`), the SGD-with-momentum
 update (`parallel.pipeline`), ring attention (`parallel.ring_attention`),
 and the training core: the configuration DSL, the LeNet and ResNet-50
 layers, the updaters, `MultiLayerNetwork` and `ComputationGraph` (`nn`),
-`DataSet` (`datasets`), the model zips (`util.model_serializer`) and the
-LeNet and ResNet-50 zoo models. ROADMAP.md queues the rest.
+the model zips (`util.model_serializer`) and the LeNet and ResNet-50 zoo
+models; the data and serving path: the datasets, iterators and
+normalizers, `AsyncDataSetIterator` staging on CUDA streams (`datasets`),
+`fit` over iterators, `evaluate` (`eval`), `InferenceServer` (`serving`),
+and the stdlib halves they use (`obs`, `common.resilience`). ROADMAP.md
+queues the rest.
 """
 from .common.device import resolve_device
 

@@ -6,6 +6,7 @@ card is an error, never a silent move to the CPU.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -25,27 +26,62 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+class _Numerics:
+    """The process-wide cuDNN/cuBLAS flags shared by every `card_numerics`
+    scope: the caller's values (saved by the first scope in, restored by the
+    last one out), how many scopes are open, and how many of them run
+    float32/float64 work. One lock orders every enter and exit."""
+    lock = threading.Lock()
+    depth = 0
+    strict = 0
+    saved = None
+
+
+def _flags():
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    return cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32
+
+
+def _set_flags(benchmark, cudnn_tf32, matmul_tf32):
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.benchmark = benchmark
+    cudnn.allow_tf32, matmul.allow_tf32 = cudnn_tf32, matmul_tf32
+
+
 @contextlib.contextmanager
 def card_numerics(device, dtype):
-    """cuDNN and cuBLAS settings for one of the port's calls on the card,
-    restored when it returns (a no-op off the card). cuDNN picks its
-    convolution algorithms by timing them (`benchmark`; the first call of a
-    shape pays the search). For float32 and float64 work TF32 is off:
-    PyTorch's default `cudnn.allow_tf32 = True` would run f32 convolutions
-    with 10-bit mantissas. The flags are process-wide while the call runs,
-    and the backward of a step runs inside the call."""
+    """cuDNN and cuBLAS settings for one of the port's calls on the card
+    (a no-op off the card). cuDNN picks its convolution algorithms by timing
+    them (`benchmark`; the first call of a shape pays the search). For
+    float32 and float64 work TF32 is off: PyTorch's default
+    `cudnn.allow_tf32 = True` would run f32 convolutions with 10-bit
+    mantissas. The flags are process-wide, and calls may overlap (a server's
+    batcher thread, a staging thread and the caller's `fit`), so the scopes
+    share one count: the first to enter saves the caller's flags, the last to
+    leave restores them, and TF32 stays off while any float32/float64 scope
+    is open. The backward of a step runs inside the call."""
     if device.type != "cuda":
         yield
         return
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.benchmark = True
-    if dtype in (torch.float32, torch.float64):
-        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    strict = dtype in (torch.float32, torch.float64)
+    with _Numerics.lock:
+        if _Numerics.depth == 0:
+            _Numerics.saved = _flags()
+        _Numerics.depth += 1
+        _Numerics.strict += strict
+        _set_flags(True, *((False, False) if _Numerics.strict
+                           else _Numerics.saved[1:]))
     try:
         yield
     finally:
-        cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = saved
+        with _Numerics.lock:
+            _Numerics.depth -= 1
+            _Numerics.strict -= strict
+            if _Numerics.depth == 0:
+                _set_flags(*_Numerics.saved)
+                _Numerics.saved = None
+            elif not _Numerics.strict:
+                _set_flags(True, *_Numerics.saved[1:])
 
 
 def to_port(a, device):

@@ -14,10 +14,14 @@ topological order; the per-layer trees of the reference (its
 `_params`, `_updater_state`, `_model_state`) are dicts keyed by vertex
 name.
 
+`fit` over an iterator of DataSets or MultiDataSets, `evaluate` and
+`make_inference_fn` are `MultiLayerNetwork`'s, over the graph's inputs and
+outputs.
+
 Not ported yet (NotImplementedError, naming the ROADMAP.md item):
-`remat_segments=True` (to come on `torch.utils.checkpoint`), iterators,
+`remat_segments=True` (to come on `torch.utils.checkpoint`),
 `fused_steps`, `training_health`, listeners, truncated BPTT,
-`rnn_time_step`, `evaluate`.
+`rnn_time_step`.
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ import torch
 
 from ...common.device import card_numerics, to_port, to_public
 from ...datasets.dataset import DataSet, MultiDataSet
+from ...datasets.iterators import DataSetIterator, next_processed
 from ..conf.computation_graph_configuration import ComputationGraphConfiguration
-from ..multilayer import Network, mean_score, not_ported
+from ..multilayer import Network, _host, mean_score, not_ported
 
 
 class ComputationGraph(Network):
@@ -151,20 +156,37 @@ class ComputationGraph(Network):
     # ------------------------------------------------------------------
     def fit(self, data, labels=None, num_epochs=1):
         """Train on one MultiDataSet or DataSet (or arrays `data`,
-        `labels`), num_epochs steps of it. The reference's
-        fit(MultiDataSet) takes one step whatever num_epochs says; the
-        port takes num_epochs."""
+        `labels`), num_epochs steps of it; or num_epochs passes over an
+        iterator of them. The reference's fit(MultiDataSet) takes one step
+        whatever num_epochs says; the port takes num_epochs.
+
+        A DataSetIterator (of DataSets or MultiDataSets) is staged through
+        AsyncDataSetIterator; any other object with has_next()/next() (a
+        RecordReaderMultiDataSetIterator) or a plain iterable is read on
+        this thread, as the reference does."""
         self._ensure_init()
         if labels is not None:
             data = MultiDataSet(data, labels)
-        data = self._dataset(data)
         if self.conf.backprop_type == "tbptt":
             raise not_ported("truncated BPTT", 18)
-        batch = self._batch(data)
+        if isinstance(data, (DataSet, MultiDataSet)):
+            batch = self._batch(self._dataset(data))
+            for _ in range(num_epochs):
+                self._step(batch)
+            return self
+        if isinstance(data, DataSetIterator):
+            return self._fit_iterator(data, num_epochs)
         for _ in range(num_epochs):
-            for _ in range(int(self.conf.global_conf.get("num_iterations",
-                                                         1))):
-                self._train_step(lambda rng: self._loss(*batch, True, rng))
+            if hasattr(data, "reset"):
+                data.reset()
+            if hasattr(data, "has_next"):
+                while data.has_next():
+                    self._step(self._batch(self._dataset(
+                        next_processed(data))))
+            else:
+                for ds in data:
+                    self._step(self._batch(self._dataset(ds)))
+            self.conf.epoch_count += 1
         return self
 
     @staticmethod
@@ -173,7 +195,7 @@ class ComputationGraph(Network):
         if isinstance(data, DataSet):
             data = _dataset_to_mds(data)
         if not isinstance(data, MultiDataSet):
-            raise not_ported("fit over a DataSetIterator", 14)
+            raise TypeError(f"Cannot fit on {type(data)}")
         return data
 
     # ------------------------------------------------------------------
@@ -202,6 +224,46 @@ class ComputationGraph(Network):
         """Every vertex's activation (inputs included), as numpy."""
         return {n: to_public(a)
                 for n, a in self._forward(features, train).items()}
+
+    def make_inference_fn(self):
+        """The pure inference step `(params, state, x) -> [outputs]`, the
+        graph's twin of MultiLayerNetwork.make_inference_fn: `x` is one
+        array (a single-input graph) or a dict input name -> array; the
+        outputs stay on the device."""
+        self._ensure_init()
+        in_names = list(self.conf.network_inputs)
+
+        def infer(params, state, x):
+            feats = x if isinstance(x, dict) else {in_names[0]: x}
+            with torch.no_grad(), card_numerics(self._device,
+                                                self.compute_dtype):
+                acts, _, _ = self._apply_graph(params, state,
+                                               self._inputs(feats),
+                                               train=False, rng=None)
+            return [acts[n] for n in self.conf.network_outputs]
+
+        return infer
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+    def evaluate(self, data, output_index=0):
+        """Classification statistics (`eval.Evaluation`) of output
+        `output_index` over a DataSet, a MultiDataSet, an iterator (reset
+        first, staged through AsyncDataSetIterator) or a list of batches."""
+        from ...eval.evaluation import Evaluation
+        ev = Evaluation()
+        if isinstance(data, MultiDataSet):
+            data = [data]
+        for ds in self._eval_batches(data):
+            mds = _dataset_to_mds(ds) if isinstance(ds, DataSet) else ds
+            outs = self.output(mds.features,
+                               features_masks=mds.features_masks)
+            lmask = (mds.labels_masks[output_index]
+                     if mds.labels_masks else None)
+            ev.eval(_host(mds.labels[output_index]), outs[output_index],
+                    mask=_host(lmask))
+        return ev
 
     # ------------------------------------------------------------------
     # Score / gradients

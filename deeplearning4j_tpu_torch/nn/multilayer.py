@@ -24,12 +24,19 @@ format, the same bytes), and `params()` / `set_params()` /
 `from_jax_params()` / the model zip in the reference's layout (HWIO
 kernels) and flat order (`_param_sort_key`).
 
+`fit` also takes a DataSetIterator: the batches are staged onto the
+network's device by `datasets.iterators.AsyncDataSetIterator` while the
+previous step runs (a bf16 feature wire for bf16 networks), with the
+reference's epoch semantics. `evaluate` / `evaluate_regression` score an
+iterator through the same staging; `make_inference_fn` is the pure
+inference step `serving.InferenceServer` runs.
+
 Entry points run on the CUDA card unless the caller passes device="cpu";
 on the card float32 networks run with TF32 off (`card_numerics`).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): iterators, `fused_steps`, `training_health`, listeners, truncated
-BPTT, `pretrain`, `rnn_time_step`, `evaluate`.
+item): `fused_steps`, `training_health`, listeners, truncated BPTT,
+`pretrain`, `rnn_time_step`.
 """
 from __future__ import annotations
 
@@ -37,8 +44,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import obs
 from ..common.device import card_numerics, resolve_device, to_port, to_public
 from ..datasets.dataset import DataSet
+from ..datasets.iterators import (AsyncDataSetIterator, DataSetIterator,
+                                  ListDataSetIterator, next_processed,
+                                  wrap_async_for_fit)
 from .conf.neural_net_configuration import MultiLayerConfiguration
 from .updater import updaters as U
 
@@ -159,6 +170,58 @@ class Network(nn.Module):
 
     def _states(self):
         return {key: self._slot(key).state() for key, _ in self._keyed_layers()}
+
+    @property
+    def _params(self):
+        """Every layer's parameters (the f32 masters, the port's layout),
+        keyed as the forward takes them; with `_model_state`, what
+        `serving.InferenceServer` reads at build and at each swap."""
+        self._ensure_init()
+        return {key: dict(self._slot(key).params)
+                for key, _ in self._keyed_layers()}
+
+    @property
+    def _model_state(self):
+        self._ensure_init()
+        return self._states()
+
+    def _step(self, batch):
+        """num_iterations optimizer steps on one device batch."""
+        for _ in range(int(self.conf.global_conf.get("num_iterations", 1))):
+            with obs.TRACER.span("train.dispatch", cat="train"):
+                self._train_step(lambda rng: self._loss(*batch, True, rng))
+
+    def _fit_iterator(self, it, num_epochs):
+        """fit over an iterator, with the reference's epoch semantics: a
+        plain iterator the caller hands in may be mid-stream, so it is reset
+        BEFORE wrapping (the fresh wrapper prefetches from position 0 and
+        needs no reset in epoch 0); an AsyncDataSetIterator the caller built
+        resets every epoch."""
+        wrapped_here = not isinstance(it, AsyncDataSetIterator)
+        if wrapped_here:
+            it.reset()
+        async_it = wrap_async_for_fit(it, self.compute_dtype,
+                                      device=self._device)
+        for epoch in range(num_epochs):
+            if epoch > 0 or not wrapped_here or not async_it.has_next():
+                async_it.reset()
+            while async_it.has_next():
+                self._step(self._batch(self._dataset(
+                    next_processed(async_it))))
+            self.conf.epoch_count += 1
+        return self
+
+    def _eval_batches(self, data):
+        """The batches of `data` (a DataSet, an iterator, or a list of
+        batches) for evaluation: an iterator is reset (the full pass) and
+        staged onto the device ahead of the forward."""
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator([data])
+        if isinstance(data, DataSetIterator):
+            data.reset()
+            data = wrap_async_for_fit(data, self.compute_dtype,
+                                      device=self._device)
+        return data
 
     def _reg_score(self):
         total = 0.0
@@ -365,9 +428,6 @@ class Network(nn.Module):
     def set_listeners(self, *listeners):
         raise not_ported("listeners", 16)
 
-    def evaluate(self, *args, **kwargs):
-        raise not_ported("evaluate", 16)
-
     def rnn_time_step(self, *args, **kwargs):
         raise not_ported("rnn_time_step", 18)
 
@@ -375,6 +435,11 @@ class Network(nn.Module):
 def _to_numpy(t):
     return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
         else t.detach().cpu().numpy()
+
+
+def _host(a):
+    """A label or mask array of a (possibly staged) batch as numpy."""
+    return _to_numpy(a) if isinstance(a, torch.Tensor) else a
 
 
 def _memory_format(t):
@@ -459,18 +524,18 @@ class MultiLayerNetwork(Network):
     def fit(self, data, labels=None, features_mask=None, labels_mask=None,
             num_epochs=1):
         """Train on one DataSet (or arrays `data`, `labels`, or a tuple of
-        them), num_epochs steps of it."""
+        them), num_epochs steps of it; or on a DataSetIterator, num_epochs
+        passes over it."""
         self._ensure_init()
         if labels is not None:
             data = DataSet(data, labels, features_mask, labels_mask)
-        data = self._dataset(data)
         if self.conf.backprop_type == "tbptt":
             raise not_ported("truncated BPTT", 18)
-        batch = self._batch(data)
+        if isinstance(data, DataSetIterator):
+            return self._fit_iterator(data, num_epochs)
+        batch = self._batch(self._dataset(data))
         for _ in range(num_epochs):
-            for _ in range(int(self.conf.global_conf.get("num_iterations",
-                                                         1))):
-                self._train_step(lambda rng: self._loss(*batch, True, rng))
+            self._step(batch)
         return self
 
     @staticmethod
@@ -479,7 +544,7 @@ class MultiLayerNetwork(Network):
         if isinstance(data, tuple):
             data = DataSet(*data)
         if not isinstance(data, DataSet):
-            raise not_ported("fit over a DataSetIterator", 14)
+            raise TypeError(f"Cannot fit on {type(data)}")
         return data
 
     def pretrain(self, *args, **kwargs):
@@ -489,9 +554,7 @@ class MultiLayerNetwork(Network):
     # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------
-    def _forward_out(self, x, *, train, rng, fmask=None):
-        params = self._cast_params()
-        state = self._states()
+    def _forward_out(self, params, state, x, *, train, rng, fmask=None):
         h, _, _ = self._output_layer_input(params, state, x, train=train,
                                            rng=rng, fmask=fmask)
         i = len(self.layers) - 1
@@ -509,9 +572,63 @@ class MultiLayerNetwork(Network):
                  else to_port(features_mask, self._device))
         with torch.no_grad(), card_numerics(self._device,
                                             self.compute_dtype):
-            out = self._forward_out(x, train=train, fmask=fmask,
+            out = self._forward_out(self._cast_params(), self._states(), x,
+                                    train=train, fmask=fmask,
                                     rng=self._dropout_gen if train else None)
         return to_public(out)
+
+    def make_inference_fn(self):
+        """The pure inference step `(params, state, x) -> out` that
+        `serving.InferenceServer` runs per padding bucket: `params` in the
+        compute type (the server casts the masters once, at build and at
+        each swap), `state` the layers' state, `x` a batch in the public
+        layout (numpy or a tensor); the output stays on the device.
+        train=False, so no randomness reaches the math: two calls with the
+        same arguments give the same bits on a deterministic backend.
+        Params are arguments, so a hot swap is a new argument."""
+        self._ensure_init()
+
+        def infer(params, state, x):
+            with torch.no_grad(), card_numerics(self._device,
+                                                self.compute_dtype):
+                return self._forward_out(params, state, self._input(x),
+                                         train=False, rng=None)
+
+        return infer
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+    def evaluate(self, data, meta=None):
+        """Classification statistics (`eval.Evaluation`) over a DataSet or
+        an iterator (reset first, staged through AsyncDataSetIterator).
+        `meta`: optional per-example metadata over all examples in
+        iteration order (or each batch's `example_metas`), for
+        Evaluation's error-analysis queries."""
+        from ..eval.evaluation import Evaluation
+        ev = Evaluation()
+        pos = 0
+        for ds in self._eval_batches(data):
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            batch_meta = getattr(ds, "example_metas", None)
+            if batch_meta is None and meta is not None:
+                batch_meta = meta[pos:pos + ds.num_examples()]
+            pos += ds.num_examples()
+            ev.eval(_host(ds.labels), out, mask=_host(ds.labels_mask),
+                    meta=batch_meta)
+        return ev
+
+    def evaluate_regression(self, data):
+        """Regression statistics (`eval.RegressionEvaluation`), as
+        `evaluate`."""
+        from ..eval.regression import RegressionEvaluation
+        ev = None
+        for ds in self._eval_batches(data):
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            if ev is None:
+                ev = RegressionEvaluation(int(ds.labels.shape[-1]))
+            ev.eval(_host(ds.labels), out)
+        return ev
 
     def feed_forward(self, x, train=False):
         """The input, then every layer's activations, as numpy."""

@@ -6,7 +6,8 @@ deeplearning4j_tpu/util/model_serializer.py, with the same entries:
                          (`params()`, the reference's layout and order);
   - updaterState.bin     `np.savez` of the updater state's arrays;
   - modelState.bin       `np.savez` of the layers' state (BatchNorm's
-                         running statistics).
+                         running statistics);
+  - normalizer.json      the data normalizer, when one is saved.
 A zip written by either package restores in the other.
 
 The two `.bin` trees are the reference's `jax.tree_util` leaves: lists in
@@ -18,6 +19,7 @@ order without JAX, on the containers' reference-layout trees
 from __future__ import annotations
 
 import io
+import json
 import zipfile
 
 import numpy as np
@@ -26,6 +28,7 @@ CONFIG_ENTRY = "configuration.json"
 COEFFICIENTS_ENTRY = "coefficients.bin"
 UPDATER_ENTRY = "updaterState.bin"
 MODEL_STATE_ENTRY = "modelState.bin"
+NORMALIZER_ENTRY = "normalizer.json"
 
 
 def tree_leaves(tree):
@@ -71,10 +74,8 @@ def _load_tree(data, like):
 
 
 def write_model(model, path, save_updater=True, normalizer=None):
-    """Write `model` (MultiLayerNetwork or ComputationGraph) to a zip."""
-    if normalizer is not None:
-        from ..nn.multilayer import not_ported
-        raise not_ported("saving a data normalizer", 14)
+    """Write `model` (MultiLayerNetwork or ComputationGraph) to a zip, with
+    the data `normalizer` when one is given."""
     model._ensure_init()
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(CONFIG_ENTRY, model.conf.to_json())
@@ -86,7 +87,8 @@ def write_model(model, path, save_updater=True, normalizer=None):
                         _save_tree(model.reference_updater_state()))
         zf.writestr(MODEL_STATE_ENTRY,
                     _save_tree(model.reference_model_state()))
-
+        if normalizer is not None:
+            zf.writestr(NORMALIZER_ENTRY, json.dumps(normalizer.to_dict()))
 
 
 def _restore(path, conf_cls, net_cls, load_updater, device):
@@ -113,7 +115,6 @@ def restore_multi_layer_network(path, load_updater=True, device=None):
                     load_updater, device)
 
 
-
 def restore_computation_graph(path, load_updater=True, device=None):
     """A ComputationGraph from a zip, on the card unless `device` says
     otherwise."""
@@ -122,3 +123,22 @@ def restore_computation_graph(path, load_updater=True, device=None):
     from ..nn.graph import ComputationGraph
     return _restore(path, ComputationGraphConfiguration, ComputationGraph,
                     load_updater, device)
+
+
+def restore_model(path, load_updater=True, device=None):
+    """Either network type, by the configuration's format tag."""
+    with zipfile.ZipFile(path, "r") as zf:
+        cfg = json.loads(zf.read(CONFIG_ENTRY).decode("utf-8"))
+    if "ComputationGraph" in cfg.get("format", ""):
+        return restore_computation_graph(path, load_updater, device)
+    return restore_multi_layer_network(path, load_updater, device)
+
+
+def restore_normalizer(path):
+    """The data normalizer saved in the zip, or None."""
+    from ..datasets.normalizers import Normalizer
+    with zipfile.ZipFile(path, "r") as zf:
+        if NORMALIZER_ENTRY not in zf.namelist():
+            return None
+        return Normalizer.from_dict(
+            json.loads(zf.read(NORMALIZER_ENTRY).decode("utf-8")))

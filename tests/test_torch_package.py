@@ -25,10 +25,27 @@ import deeplearning4j_tpu_torch.nn.graph.computation_graph
 import deeplearning4j_tpu_torch.util.model_serializer
 import deeplearning4j_tpu_torch.models.zoo.lenet
 import deeplearning4j_tpu_torch.models.zoo.resnet
+import deeplearning4j_tpu_torch.obs
+import deeplearning4j_tpu_torch.obs.decompose
+import deeplearning4j_tpu_torch.common.resilience
+import deeplearning4j_tpu_torch.common.health
+import deeplearning4j_tpu_torch.serving
+import deeplearning4j_tpu_torch.serving.server
+import deeplearning4j_tpu_torch.serving.metrics
+import deeplearning4j_tpu_torch.datasets
+import deeplearning4j_tpu_torch.datasets.iterators
+import deeplearning4j_tpu_torch.datasets.normalizers
+import deeplearning4j_tpu_torch.datasets.mnist
+import deeplearning4j_tpu_torch.datasets.fetchers
+import deeplearning4j_tpu_torch.datasets.records
+import deeplearning4j_tpu_torch.eval
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 assert not leaked, leaked
+# no prefetch thread, server thread or kernel starts at import
+import threading
+assert threading.active_count() == 1, threading.enumerate()
 assert not any(fa.launches.values()) and not fa._fns and not _build._libs
 print("ok")
 """
