@@ -135,9 +135,41 @@ counters must still read 0 after them):
      same padded batch on another thread (cuDNN searches its plans per
      thread), within bf16's rounding; request p50/p99 and images/s;
      `swap_from_path` of the golden LeNet zip on a LeNet server (1e-5).
+Phase 22 drives the TransformerLM's continuous-batching decode server
+(serving/decode.py). Its programs are torch indexing and cuBLAS, as XLA
+runs the JAX package's: no kernel of the port, and the counters must read
+0 after it. The model is phase 5's (vocab 512, d_model 512, 8 heads, 4
+layers, max_len 8192, bf16, seed 0), not cut; traffic from the ported
+loadgen, seeded; every server warmed by one bucket-long request per prompt
+bucket through its own thread before its traffic:
+ 22. (1) fixed slots (16 slots, prompt buckets 64/256/1024): the decode
+     iteration timed by CUDA events, then 128 requests (prompts 16-1024,
+     16-256 new tokens) on a Poisson process at 60% of what the step alone
+     could decode: tokens/s, TTFT and inter-token p50/p99, dispatches per
+     token; 8 co-batched streams served again alone are bit-equal; the
+     same traffic with static_batching=True (continuous over static);
+     (2) paged at the fixed arena's bytes (64 slots, 8192 blocks of 16,
+     80 blocks a slot), SharedPrefixMix (4 prefixes of 16-32 blocks): the
+     most live streams, prefix hits, tokens/s, and the pool checked clean
+     with no block in use after; (3) overload: an on/off burst at 3x item
+     1's rate of interactive and batch requests, with admission, a
+     brownout policy and a 5 s deadline, chunked_prefill=256 against
+     one-shot prefill: sheds, deferrals, TTFT p99 by class; (4)
+     fused_serve=8, fixed and paged: ceil(iterations/8) dispatches and one
+     CUDA graph for a solo request, its stream equal to the plain
+     server's; a captured window against 8 plain steps on the same random
+     cache, tokens and every cache byte bit-equal, each timed; (5) a hot
+     swap to other weights mid-stream: nothing fails, each stream equals
+     its version's solo stream in the same server; (6) across layouts and
+     shapes (paged vs fixed, chunked vs one-shot, the server vs
+     generate_batch; 8 prompts, 32 tokens): equal streams and first
+     divergences, and the relative error of the prefill logits (bucket vs
+     exact length) and of the first step's logits (paged vs fixed) -
+     measured, not pinned.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
-...} line, one {"kernels": [...]} JSON line and, as the last line, {"ok":
-true, "device": {...}}. It imports nothing of JAX.
+...} line, a {"decode_serving": ...} line, one {"kernels": [...]} JSON
+line and, as the last line, {"ok": true, "device": {...}}. It imports
+nothing of JAX.
 """
 import json
 import math
@@ -638,6 +670,7 @@ def main():
     train = training_phases(fa, _build, TransformerLM, H, D)
     ring = ring_phases(fa, _build, H, D)
     core, serving = training_core_phases(fa)
+    decode = decode_serving_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -665,6 +698,7 @@ def main():
         **ring["partial"]))
     print(json.dumps({"training_core": core}))
     print(json.dumps({"data_and_serving": serving}))
+    print(json.dumps({"decode_serving": decode}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2204,6 +2238,587 @@ def training_core_phases(fa):
     print(f"  phases 15-21 launched no kernel of the port: {fa.launches}")
     return core, serving
 
+
+# Phase 22: the TransformerLM's continuous-batching decode server at the
+# FULL width (bf16). Fixed slots: 16 x max_len 8192 rows; the paged arena
+# holds the same bytes (8192 blocks of 16 rows) for 64 slots of up to 80
+# blocks (1280 rows) each.
+DS_SLOTS, DS_BUCKETS, DS_REQUESTS, DS_K = 16, (64, 256, 1024), 128, 8
+DS_PAGED = dict(paged=True, block_size=16, slots=64,
+                n_blocks=DS_SLOTS * FULL["max_len"] // 16,
+                max_blocks_per_slot=80)
+DS_CHUNK = 256
+DS_SEED = 22
+
+
+def _warm(srv, k=1):
+    """A bucket-long prompt per prompt bucket through the server's own
+    thread (the first dispatch of each shape there: cuBLAS's handles and
+    workspaces are per thread), each decoding far enough to run the step
+    (and, with fused windows, to capture and replay the window)."""
+    vocab = FULL["vocab_size"]
+    for b in srv.prompt_buckets:
+        srv.generate([(7 * i + b) % vocab for i in range(b)], 2 * k + 2,
+                     timeout=600)
+
+
+def _recording_submit(futs):
+    """A run_load `submit` that keeps each (item, future)."""
+    def submit(server, item):
+        kw = {"klass": item["klass"]} if "klass" in item else {}
+        f = server.submit(list(item["prompt"]), item["max_new"], **kw)
+        futs.append((item, f))
+        return f, item["max_new"]
+    return submit
+
+
+def _first_divergence(a, b):
+    """(tokens equal, index of the first differing token or None)."""
+    n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if n is None and len(a) != len(b):
+        n = min(len(a), len(b))
+    return n is None, n
+
+
+def _delta(snap, base, key):
+    return snap.get(key, 0) - base.get(key, 0)
+
+
+def _load_summary(res, snap, base):
+    """The readings of one run_load pass."""
+    toks = _delta(snap, base, "tokens_out")
+    return {
+        "completed": res["completed"], "failed": res["failed"],
+        "shed_at_submit": res["shed_at_submit"],
+        "tokens_out": res["tokens_out"],
+        "tokens_per_s": res["tokens_per_sec"],
+        "duration_s": res["duration_s"],
+        "latency_ms_p50": res["latency_ms"]["p50"],
+        "latency_ms_p99": res["latency_ms"]["p99"],
+        "ttft_ms_p50": res.get("ttft_ms_p50"),
+        "ttft_ms_p99": res.get("ttft_ms_p99"),
+        "inter_token_ms_p50": res.get("inter_token_ms_p50"),
+        "inter_token_ms_p99": res.get("inter_token_ms_p99"),
+        "dispatches": _delta(snap, base, "dispatches"),
+        "decode_iterations": _delta(snap, base, "decode_iterations"),
+        "chunk_dispatches": _delta(snap, base, "chunk_dispatches"),
+        "dispatches_per_token": (_delta(snap, base, "dispatches") / toks
+                                 if toks else None),
+        "offered_rps": res["schedule"]["offered_rps"],
+        "schedule_digest": res["schedule"]["digest"]}
+
+
+def _serve_load(srv, sched, deadlines=False):
+    """run_load over `srv`, keeping every completed stream. Returns
+    (readings, [(item, tokens)]). Without deadlines no request may fail;
+    with them, a request may miss its deadline (counted, not raised)."""
+    from deeplearning4j_tpu_torch.serving import (DeadlineExceededError,
+                                                  run_load)
+    futs = []
+    base = srv.metrics.snapshot()
+    res = run_load(srv, sched, submit=_recording_submit(futs),
+                   result_timeout=600)
+    snap = srv.metrics.snapshot()
+    errors = [f.exception(0) for _, f in futs if f.exception(0)]
+    if errors and not (deadlines and all(
+            isinstance(e, DeadlineExceededError) for e in errors)):
+        raise SystemExit(f"{len(errors)} requests failed: {errors[0]!r}")
+    streams = [(item, f.result(0)) for item, f in futs
+               if not f.exception(0)]
+    return _load_summary(res, snap, base), streams
+
+
+def _class_ttft_server():
+    """A ContinuousDecodeServer that keeps each completed request's
+    time to first token by request class (phase 22's overload item)."""
+    from deeplearning4j_tpu_torch.serving import ContinuousDecodeServer
+
+    class ClassTTFT(ContinuousDecodeServer):
+        def _complete(self, req, t_now):
+            self.ttft_by_class.setdefault(req.klass, []).append(
+                (req.t_first_tok - req.t_submit) * 1e3)
+            super()._complete(req, t_now)
+
+    def make(*args, **kw):
+        srv = ClassTTFT(*args, **kw)
+        srv.ttft_by_class = {}
+        return srv
+    return make
+
+
+def _p(values, q):
+    from deeplearning4j_tpu_torch.obs.registry import percentile
+    return percentile(sorted(values), q) if values else None
+
+
+def _kernel_breakdown(fn, iters=5, top=6):
+    """Device time of fn() from a torch.profiler trace of `iters` calls
+    after one warm-up: ms per call in all, the busy share of the traced
+    window, and the `top` kernels by device time (ms per call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_time_total > 0
+            and not e.key.startswith(("cudaMemcpy", "Memcpy", "Memset"))]
+    total = sum(e.device_time_total for e in kern) / 1e3
+    kern.sort(key=lambda e: -e.device_time_total)
+    return {"device_ms": total / iters if total else None,
+            "busy_share": total / wall_ms if total else None,
+            "top_kernels_ms": [(e.key[:60], e.device_time_total / 1e3 / iters)
+                               for e in kern[:top]]}
+
+
+def _step_ms(srv):
+    """Device ms of one decode iteration of `srv` (all slots computed, no
+    slot active, so nothing is written) by CUDA events, and its kernels
+    from a trace."""
+    aux, blocks = srv.current_params()
+    idle = torch.zeros(srv.slots, dtype=torch.bool, device="cuda")
+    tok = torch.zeros(srv.slots, dtype=torch.int64, device="cuda")
+    args = ((srv._cache, torch.as_tensor(srv._btabs, device="cuda"))
+            if srv.paged else (srv._cache,))
+    step = lambda: srv._step(aux, blocks, *args, srv._pos, tok, idle)
+    return cuda_ms(step, iters=20, warmup=3), _kernel_breakdown(step)
+
+
+def _chunk_ms(srv):
+    """Device ms of one chunk dispatch of a fixed-slot chunked server (all
+    slots computed over the whole window, none active) by CUDA events."""
+    aux, blocks = srv.current_params()
+    S, C = srv.slots, srv._chunk
+    toks = torch.zeros(S, C, dtype=torch.int64, device="cuda")
+    nrows = torch.full((S,), C, dtype=torch.int64, device="cuda")
+    idle = torch.zeros(S, dtype=torch.bool, device="cuda")
+    return cuda_ms(lambda: srv._chunk_step(aux, blocks, srv._cache, srv._pos,
+                                           toks, nrows, idle),
+                   iters=5, warmup=2)
+
+
+def _prefill_ms(srv):
+    """Device ms of the one-shot prefill at each prompt bucket (a
+    bucket-long prompt) by CUDA events."""
+    aux, blocks = srv.current_params()
+    prog = srv._make_prefill()
+    out = {}
+    for b in srv.prompt_buckets:
+        x = torch.arange(b, device="cuda")[None] % FULL["vocab_size"]
+        out[b] = cuda_ms(lambda: prog(aux, blocks, x, b), iters=10)
+    return out
+
+
+def _window_vs_steps(srv, seed):
+    """A fused window captured as a CUDA graph against K plain steps of
+    the same server's programs, on two copies of its cache: tokens and
+    every cache byte bit-equal; each timed by CUDA events."""
+    from deeplearning4j_tpu_torch.serving.decode import _CapturedWindow
+    aux, blocks = srv.current_params()
+    S = srv.slots
+    gen = torch.Generator().manual_seed(seed)
+    if srv.paged:
+        nb = srv._nb_slot
+        btabs = (torch.arange(S * nb).reshape(S, nb) % srv._n_blocks).cuda()
+        pos = torch.randint(64, nb * 16 - DS_K, (S,), generator=gen).cuda()
+        extra = {"btabs": btabs}
+        wto = {"wto": pos + DS_K}
+    else:
+        pos = torch.randint(64, FULL["max_len"] - DS_K, (S,),
+                            generator=gen).cuda()
+        extra, wto = {}, {}
+    tok = torch.randint(0, FULL["vocab_size"], (S,), generator=gen).cuda()
+    active = torch.ones(S, dtype=torch.bool, device="cuda")
+    steps = torch.full((S,), DS_K, dtype=torch.int64, device="cuda")
+    # the cache rows the window reads: random, so every slot attends to
+    # values, not zeros
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache_g = [{n: torch.randn(c[n].shape, generator=cuda_gen,
+                               device="cuda", dtype=c[n].dtype)
+                for n in ("k", "v")} for c in srv._cache]
+    cache_e = [{n: c[n].clone() for n in ("k", "v")} for c in cache_g]
+    values = dict(extra, pos=pos, tok=tok, active=active, steps=steps, **wto)
+    names = list(values)
+
+    def run(st):
+        toks, _, p = srv._window_step(aux, blocks, cache_g,
+                                      *[st[n] for n in names])
+        return toks, p
+
+    g = _CapturedWindow(run, {n: t.clone() for n, t in values.items()})
+    toks_g, pos_g = g.replay(values)
+    torch.cuda.synchronize()
+
+    def eager():
+        p, t, out = pos, tok, []
+        for i in range(DS_K):
+            act = active & (steps > i)
+            if srv.paged:
+                act = act & (p < wto["wto"])
+                nxt, _, _, p2 = srv._step(aux, blocks, cache_e, btabs, p, t,
+                                          act)
+            else:
+                nxt, _, _, p2 = srv._step(aux, blocks, cache_e, p, t, act)
+            out.append(nxt)
+            t = torch.where(act, nxt, t)
+            p = p2
+        return torch.stack(out), p
+
+    toks_e, pos_e = eager()
+    torch.cuda.synchronize()
+    # every cache row but the spare one past the end, which the capture's
+    # warm-up (all slots inactive) wrote and no read covers
+    equal = (torch.equal(toks_g, toks_e) and torch.equal(pos_g, pos_e)
+             and all(torch.equal(a[n][:-1], b[n][:-1])
+                     for a, b in zip(cache_g, cache_e) for n in ("k", "v")))
+    window_ms = cuda_ms(lambda: g.replay(values), iters=20, warmup=2)
+    steps_ms = cuda_ms(eager, iters=20, warmup=2)
+    del cache_g, cache_e, g
+    torch.cuda.empty_cache()
+    return {"bit_equal": equal, "window_ms": window_ms,
+            "plain_steps_ms": steps_ms}
+
+
+def _step_logits_rel_err(lm, prompt):
+    """The first decode step's f32 logits for one prompt, from identical
+    prefill rows, through the fixed program (16 slots, 8192-row window)
+    and the paged one (64 slots, 1280-row window): relative L2 error."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer as T
+    H, L, D = FULL["n_heads"], FULL["n_layers"], FULL["d_model"]
+    aux, blocks = lm.aux, list(lm.blocks)
+    P = len(prompt)
+    padded = torch.zeros(1, DS_BUCKETS[-1], dtype=torch.int64, device="cuda")
+    padded[0, :P] = torch.tensor(prompt)
+    logits, rows = T.make_prefill_fn(H, FULL["max_len"])(aux, blocks, padded,
+                                                         P)
+    first = logits[0].argmax()
+    out = []
+    for paged in (False, True):
+        S = DS_PAGED["slots"] if paged else DS_SLOTS
+        pos = torch.zeros(S, dtype=torch.int64, device="cuda")
+        tok = torch.zeros(S, dtype=torch.int64, device="cuda")
+        act = torch.zeros(S, dtype=torch.bool, device="cuda")
+        pos[0], tok[0], act[0] = P, first, True
+        if paged:
+            nb = DS_PAGED["max_blocks_per_slot"]
+            cache = T.init_paged_kv_cache(L, S * nb, 16, D, H, torch.bfloat16,
+                                          "cuda")
+            btabs = torch.arange(S * nb, device="cuda").reshape(S, nb)
+            _, panels = T.make_paged_prefill_fn(H)(aux, blocks, padded, P)
+            T.make_paged_install_fn(16)(cache, panels, btabs[0], P, 0)
+            _, lg, _, _ = T.make_paged_decode_fn(H, 16)(
+                aux, blocks, cache, btabs, pos, tok, act)
+        else:
+            cache = T.init_slot_kv_cache(L, S, FULL["max_len"], D, H,
+                                         torch.bfloat16, "cuda")
+            for c, r in zip(cache, rows):
+                c["k"][0].copy_(r["k"][0])
+                c["v"][0].copy_(r["v"][0])
+            _, lg, _, _ = T.make_slot_decode_fn(H)(aux, blocks, cache, pos,
+                                                   tok, act)
+        out.append(lg[0])
+        del cache
+    torch.cuda.empty_cache()
+    return float((out[1] - out[0]).norm() / out[0].norm())
+
+
+@torch.no_grad()
+def decode_serving_phase(fa):
+    """Phase 22. Returns its readings."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer as T
+    from deeplearning4j_tpu_torch.models.zoo.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving import (BrownoutPolicy,
+                                                  ContinuousDecodeServer,
+                                                  DecodeSizeMix,
+                                                  OnOffProcess,
+                                                  PoissonProcess,
+                                                  SharedPrefixMix,
+                                                  build_schedule)
+    print(f"phase 22: ContinuousDecodeServer on the TransformerLM at full "
+          f"width (bf16, vocab {FULL['vocab_size']}, d_model "
+          f"{FULL['d_model']}, {FULL['n_heads']} heads, {FULL['n_layers']} "
+          f"layers, max_len {FULL['max_len']}), traffic from loadgen")
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    out = {}
+    lm = TransformerLM(**FULL, dtype=torch.bfloat16, device="cuda")
+    vocab = FULL["vocab_size"]
+    mix = DecodeSizeMix(((1.0, (16, 1024), (16, 256)),), vocab=vocab)
+    mean_new = (16 + 256) / 2
+
+    # 1. fixed slots, continuous against static
+    srv = ContinuousDecodeServer(lm, slots=DS_SLOTS,
+                                 prompt_buckets=DS_BUCKETS,
+                                 max_queue=DS_REQUESTS).start()
+    try:
+        t0 = time.perf_counter()
+        _warm(srv)
+        warm_s = time.perf_counter() - t0
+        step_ms, step_trace = _step_ms(srv)
+        prefill_ms = _prefill_ms(srv)
+        # offered: 60% of what the step alone could decode at full slots
+        rate = 0.6 * DS_SLOTS / (step_ms / 1e3) / mean_new
+        sched = build_schedule(PoissonProcess(rate), mix, DS_REQUESTS,
+                               seed=DS_SEED)
+        fixed, streams = _serve_load(srv, sched)
+        fixed.update(step_ms=step_ms, step_trace=step_trace,
+                     prefill_ms=prefill_ms, warm_s=warm_s, rate_rps=rate)
+        # join == solo on the card: 8 co-batched streams served again alone
+        solo = [srv.generate(list(item["prompt"]), item["max_new"],
+                             timeout=600) for item, _ in streams[:8]]
+        fixed["join_equals_solo"] = all(
+            s == t for s, (_, t) in zip(solo, streams[:8]))
+        probe = [list(item["prompt"]) for item, _ in streams[:8]]
+        probe_fixed = [srv.generate(p, 32, timeout=600) for p in probe]
+    finally:
+        srv.stop()
+    print(f"  fixed, {DS_SLOTS} slots, buckets {DS_BUCKETS}: decode "
+          f"iteration {step_ms:.3f} ms (CUDA events), offered "
+          f"{rate:.1f} requests/s: {fixed['tokens_per_s']} tokens/s, TTFT "
+          f"p50/p99 {fixed['ttft_ms_p50']}/{fixed['ttft_ms_p99']} ms, "
+          f"inter-token p50/p99 {fixed['inter_token_ms_p50']}/"
+          f"{fixed['inter_token_ms_p99']} ms, "
+          f"{fixed['dispatches_per_token']:.4f} dispatches/token; join == "
+          f"solo on 8 streams: {fixed['join_equals_solo']}")
+    print(f"  one decode iteration traced: {step_trace}; one-shot prefill "
+          f"by bucket (CUDA events): "
+          f"{ {b: round(t, 3) for b, t in prefill_ms.items()} } ms")
+    if not fixed["join_equals_solo"]:
+        raise SystemExit("a co-batched stream differs from its solo run")
+    srv = ContinuousDecodeServer(lm, slots=DS_SLOTS,
+                                 prompt_buckets=DS_BUCKETS,
+                                 max_queue=DS_REQUESTS,
+                                 static_batching=True).start()
+    try:
+        _warm(srv)
+        static, _ = _serve_load(srv, sched)
+    finally:
+        srv.stop()
+    ratio = fixed["tokens_per_s"] / static["tokens_per_s"]
+    print(f"  static batching, same traffic: {static['tokens_per_s']} "
+          f"tokens/s, TTFT p99 {static['ttft_ms_p99']} ms; continuous / "
+          f"static {ratio:.2f}x")
+    out["fixed"], out["static"] = fixed, static
+    out["continuous_over_static"] = ratio
+
+    # 2. paged, equal arena bytes, shared prefixes
+    srv = ContinuousDecodeServer(lm, prompt_buckets=DS_BUCKETS,
+                                 max_queue=DS_REQUESTS, **DS_PAGED).start()
+    try:
+        _warm(srv)
+        pmix = SharedPrefixMix(n_prefixes=4, prefix_blocks=(16, 32),
+                               block_size=16, suffix=(1, 64), new=(16, 256),
+                               vocab=vocab, seed=DS_SEED)
+        psched = build_schedule(PoissonProcess(2 * rate), pmix, DS_REQUESTS,
+                                seed=DS_SEED)
+        paged, _ = _serve_load(srv, psched)
+        snap = srv.metrics.snapshot()
+        paged_step_ms, paged_trace = _step_ms(srv)
+        paged.update(step_ms=paged_step_ms, step_trace=paged_trace,
+                     live_streams_max=snap.get("live_streams_max"),
+                     prefix_rows_hit=snap.get("prefix_rows_hit", 0),
+                     prefix_hit_rate=snap.get("prefix_hit_rate"),
+                     cow_copies=snap.get("cow_copies", 0),
+                     pool_check=bool(srv._pool.check()),
+                     blocks_in_use_after=srv._pool.blocks_in_use)
+        probe_paged = [srv.generate(p, 32, timeout=600) for p in probe]
+    finally:
+        srv.stop()
+    print(f"  paged, {DS_PAGED['slots']} slots, {DS_PAGED['n_blocks']} "
+          f"blocks of 16 (the fixed arena's bytes): most live streams "
+          f"{paged['live_streams_max']}, prefix rows hit "
+          f"{paged['prefix_rows_hit']} (rate {paged['prefix_hit_rate']}), "
+          f"{paged['tokens_per_s']} tokens/s, decode iteration "
+          f"{paged['step_ms']:.3f} ms; pool check "
+          f"{paged['pool_check']}, blocks in use after "
+          f"{paged['blocks_in_use_after']}; traced iteration "
+          f"{paged_trace}")
+    if not paged["pool_check"] or paged["blocks_in_use_after"]:
+        raise SystemExit("the block pool leaked")
+    out["paged"] = paged
+
+    # 3. overload: an on/off burst above item 1's rate, two classes
+    omix = DecodeSizeMix(((0.5, (16, 128), (16, 64), "interactive"),
+                          (0.5, (512, 1024), (64, 256), "batch")),
+                         vocab=vocab)
+    osched = build_schedule(OnOffProcess(3 * rate, 1.0, 1.0), omix,
+                            DS_REQUESTS, seed=DS_SEED)
+    make = _class_ttft_server()
+    out["overload"] = {}
+    for label, chunk in (("chunked", DS_CHUNK), ("one_shot", None)):
+        srv = make(lm, slots=DS_SLOTS, prompt_buckets=DS_BUCKETS,
+                   max_queue=64, chunked_prefill=chunk, admission=True,
+                   brownout=BrownoutPolicy(
+                       classes={"interactive": (1.01, 1.01),
+                                "batch": (0.25, 0.75)}),
+                   default_deadline_ms=5000.0).start()
+        try:
+            _warm(srv)
+            srv.ttft_by_class.clear()
+            res, _ = _serve_load(srv, osched, deadlines=True)
+            snap = srv.metrics.snapshot()
+            if chunk is not None:
+                probe_chunked = [srv.generate(p, 32, timeout=600)
+                                 for p in probe]
+                chunk_ms = _chunk_ms(srv)
+        finally:
+            srv.stop()
+        ttft = srv.ttft_by_class
+        res.update(
+            deferred=snap.get("deferred", 0),
+            shed_predicted=snap.get("shed_predicted", 0),
+            shed_brownout=snap.get("shed_brownout", 0),
+            shed_deadline=snap.get("shed_deadline", 0),
+            shed_queue_full=snap.get("shed_queue_full", 0),
+            evicted_mid_decode=snap.get("evicted_mid_decode", 0),
+            interactive_ttft_ms_p50=_p(ttft.get("interactive", []), 50),
+            interactive_ttft_ms_p99=_p(ttft.get("interactive", []), 99),
+            batch_ttft_ms_p99=_p(ttft.get("batch", []), 99),
+            completed_by_class={k: len(v) for k, v in ttft.items()},
+            chunk_ms=chunk_ms if chunk is not None else None)
+        out["overload"][label] = res
+        print(f"  overload ({label}, chunked_prefill={chunk}, admission, "
+              f"brownout interactive/batch; on/off burst at "
+              f"{3 * rate:.1f} requests/s): shed at submit "
+              f"{res['shed_at_submit']} (predicted {res['shed_predicted']}, "
+              f"brownout {res['shed_brownout']}, queue "
+              f"{res['shed_queue_full']}), deferred {res['deferred']}, "
+              f"deadline {res['shed_deadline']}; interactive TTFT p50/p99 "
+              f"{res['interactive_ttft_ms_p50']}/"
+              f"{res['interactive_ttft_ms_p99']} ms, batch p99 "
+              f"{res['batch_ttft_ms_p99']} ms; {res['tokens_per_s']} "
+              f"tokens/s; one chunk dispatch ({DS_SLOTS} x {DS_CHUNK} rows "
+              f"over the {FULL['max_len']}-row window) {res['chunk_ms']} "
+              f"ms")
+
+    # 4. fused windows, fixed and paged
+    out["fused"] = {}
+    for label, kw in (("fixed", dict(slots=DS_SLOTS)), ("paged", DS_PAGED)):
+        srv = ContinuousDecodeServer(lm, prompt_buckets=DS_BUCKETS,
+                                     fused_serve=DS_K, **kw).start()
+        try:
+            _warm(srv, DS_K)
+            base = srv.metrics.snapshot()
+            n_new = 41
+            got = srv.generate(probe[0], n_new, timeout=600)
+            snap = srv.metrics.snapshot()
+            iters = n_new - 1
+            fused = {
+                "dispatches": _delta(snap, base, "dispatches"),
+                "iterations": iters,
+                "want_dispatches": math.ceil(iters / DS_K),
+                "fused_windows": _delta(snap, base, "fused_windows"),
+                "graphs": snap.get("fused_graphs", 0),
+                "stream_equals_plain": got[:len(probe[0]) + 32]
+                == (probe_paged if kw.get("paged") else probe_fixed)[0]}
+            fused.update(_window_vs_steps(srv, DS_SEED))
+        finally:
+            srv.stop()
+        out["fused"][label] = fused
+        print(f"  fused_serve={DS_K} ({label}): {fused['dispatches']} "
+              f"dispatches for {iters} iterations (ceil: "
+              f"{fused['want_dispatches']}), {fused['graphs']} CUDA graph "
+              f"captured; window vs {DS_K} plain steps on the same inputs "
+              f"(tokens, every cache byte): bit-equal "
+              f"{fused['bit_equal']}; {fused['window_ms']:.3f} ms a window "
+              f"(graph replay) vs {fused['plain_steps_ms']:.3f} ms for "
+              f"{DS_K} plain steps; stream equals the plain server's: "
+              f"{fused['stream_equals_plain']}")
+        if (fused["dispatches"] != fused["want_dispatches"]
+                or fused["graphs"] != 1 or not fused["bit_equal"]):
+            raise SystemExit(f"fused windows ({label}) broke a pin")
+
+    # 5. hot swap mid-stream
+    lm2 = TransformerLM(**dict(FULL, seed=1), dtype=torch.bfloat16,
+                        device="cuda")
+    smix = DecodeSizeMix(((1.0, (16, 256), (16, 64)),), vocab=vocab)
+    items = build_schedule(PoissonProcess(rate), smix, 24,
+                           seed=DS_SEED).items
+    srv = ContinuousDecodeServer(lm, slots=DS_SLOTS,
+                                 prompt_buckets=DS_BUCKETS).start()
+    try:
+        _warm(srv)
+        before = [srv.submit(list(i["prompt"]), i["max_new"])
+                  for i in items[:12]]
+        time.sleep(0.05)
+        srv.swap(lm2)
+        after = [srv.submit(list(i["prompt"]), i["max_new"])
+                 for i in items[12:]]
+        got = [f.result(600) for f in before + after]
+        v1 = [srv.generate(list(i["prompt"]), i["max_new"], timeout=600)
+              for i in items]
+        srv.swap(lm)
+        v0 = [srv.generate(list(i["prompt"]), i["max_new"], timeout=600)
+              for i in items]
+        failed = srv.metrics.snapshot().get("failed", 0)
+    finally:
+        srv.stop()
+    by_version = [0 if g == a else 1 if g == b else None
+                  for g, a, b in zip(got, v0, v1)]
+    swap = {"requests": len(items), "failed": failed,
+            "served_by_version": {str(v): by_version.count(v)
+                                  for v in (0, 1)},
+            "unmatched": by_version.count(None),
+            "after_swap_on_new": all(v == 1 for v in by_version[12:])}
+    out["swap"] = swap
+    print(f"  hot swap mid-stream: {len(items)} requests, failed {failed}; "
+          f"each stream equals its version's solo stream: served by "
+          f"version {swap['served_by_version']}, unmatched "
+          f"{swap['unmatched']}")
+    if failed or swap["unmatched"] or not swap["after_swap_on_new"]:
+        raise SystemExit("the hot swap dropped or mixed a stream")
+
+    # 6. across layouts and shapes: measured, not pinned
+    gb = [list(map(int, lm.generate_batch(
+        torch.tensor([p], device="cuda"), 32)[0])) for p in probe]
+    cross = {}
+    for name, other in (("paged_vs_fixed", probe_paged),
+                        ("chunked_vs_one_shot", probe_chunked),
+                        ("generate_batch_vs_server", gb)):
+        pairs = [_first_divergence(a[len(p):], b[len(p):])
+                 for a, b, p in zip(other, probe_fixed, probe)]
+        cross[name] = {"streams_equal": sum(e for e, _ in pairs),
+                       "streams": len(pairs),
+                       "first_divergence": [n for _, n in pairs]}
+    prefill_err = []
+    for p in probe:
+        P = len(p)
+        padded = torch.zeros(1, DS_BUCKETS[-1], dtype=torch.int64,
+                             device="cuda")
+        padded[0, :P] = torch.tensor(p)
+        a, _ = T.make_paged_prefill_fn(FULL["n_heads"])(
+            lm.aux, list(lm.blocks), padded, P)
+        h, _ = T.prefill_panels(lm.aux, list(lm.blocks), padded[:, :P],
+                                FULL["n_heads"])
+        b = T.logits_fn(lm.aux, h[:, -1]).float()
+        prefill_err.append(float((a - b).norm() / b.norm()))
+    cross["prefill_logits_bucket_vs_exact_rel_err_max"] = max(prefill_err)
+    cross["step_logits_paged_vs_fixed_rel_err"] = _step_logits_rel_err(
+        lm, probe[0])
+    out["cross_shape"] = cross
+    print(f"  across layouts and shapes (8 prompts, 32 new tokens; "
+          f"measured, not pinned): " + "; ".join(
+              f"{k}: {v['streams_equal']}/{v['streams']} equal, first "
+              f"divergence {v['first_divergence']}"
+              for k, v in cross.items() if isinstance(v, dict))
+          + f"; prefill logits bucket 1024 vs exact length, rel. L2 "
+          f"{cross['prefill_logits_bucket_vs_exact_rel_err_max']:.3e}; first "
+          f"step logits paged (64 slots, 1280 rows) vs fixed (16, 8192) "
+          f"{cross['step_logits_paged_vs_fixed_rel_err']:.3e}")
+
+    del lm, lm2
+    torch.cuda.empty_cache()
+    if any(fa.launches.values()):
+        raise SystemExit(f"decode serving launched flash kernels: "
+                         f"{fa.launches}")
+    out["flash_launches"] = dict(fa.launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 22 launched no kernel of the port: {fa.launches}; "
+          f"{out['phase_s']:.1f} s")
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

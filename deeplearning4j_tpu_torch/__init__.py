@@ -18,8 +18,11 @@ the model zips (`util.model_serializer`) and the LeNet and ResNet-50 zoo
 models; the data and serving path: the datasets, iterators and
 normalizers, `AsyncDataSetIterator` staging on CUDA streams (`datasets`),
 `fit` over iterators, `evaluate` (`eval`), `InferenceServer` (`serving`),
-and the stdlib halves they use (`obs`, `common.resilience`). ROADMAP.md
-queues the rest.
+and the stdlib halves they use (`obs`, `common.resilience`); the
+TransformerLM's continuous-batching decode server (`serving.
+ContinuousDecodeServer`, its serving programs in `models.zoo.transformer`,
+and the block pool, admission control, KV artifacts and load generator it
+uses). ROADMAP.md queues the rest.
 """
 from .common.device import resolve_device
 

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM: port of
 deeplearning4j_tpu/models/zoo/transformer.py (training with `fit_batch`,
-inference with `logits`, `generate`, `generate_batch`).
+inference with `logits`, `generate`, `generate_batch`, and the serving
+programs that `serving/decode.py`'s ContinuousDecodeServer runs).
 
 Block = pre-LN multi-head causal self-attention + residual, then pre-LN GeLU
 (tanh form, as `jax.nn.gelu`) MLP + residual. `attention="flash"` runs the
@@ -24,8 +25,21 @@ with no card and no device given they raise.
 
 The KV cache is updated in place (JAX returns a new one).
 
-Not ported yet (ROADMAP.md queues them): `draft=` (speculative decoding)
-and the serving programs of serving/decode.py.
+The serving programs (fixed-slot and paged decode, prefill and install,
+chunked prefill, block copy, fused K-step windows) are plain functions on
+tensors, written with torch indexing as the reference writes them with
+XLA gather/scatter; no kernel of `ops/` runs in them. torch has no
+drop-mode scatter, so every serving cache carries one spare row past its
+end that no read covers: a write the reference drops (an inactive slot,
+a row past the cache or outside a write window) is sent there instead.
+Live rows never share an index within one write, so `index_put_` stays
+deterministic on CUDA; duplicate writes to the spare row race harmlessly.
+Nothing in a decode or window program waits on the host (argmax runs on
+the device), so a window can be captured as one CUDA graph.
+
+Not ported yet (ROADMAP.md queues it): `draft=` (speculative decoding)
+and its verify programs (`make_slot_verify_fn`, `make_paged_verify_fn`),
+and the durable-KV extract program (`make_block_extract_fn`).
 """
 from __future__ import annotations
 
@@ -235,6 +249,480 @@ def init_kv_cache(n_layers, batch, max_len, d_model, n_heads,
                             device=device)
     return [{"k": z(), "v": z()} for _ in range(n_layers)]
 
+
+# -- serving programs (serving/decode.py) -----------------------------------
+#
+# Shapes follow the reference; integer tensors (positions, tokens, tables,
+# row counts) are int64, the index type of torch. A fixed-slot serving cache
+# is [S + 1, L, H, hd] per layer (`init_slot_kv_cache`): slot S is the spare
+# that dropped writes land in. A paged arena is [n_rows + 1, H, hd]
+# (`init_paged_kv_cache`): row n_rows is the spare. Reads never cover the
+# spare, so the attended values, and the reductions over them, are the
+# reference's.
+
+
+def _embed_at(aux, tok, pos):
+    """tok/pos ids -> embeddings, ids clamped into range as XLA's gathers
+    clamp them (a stale slot's ids are computed over, never consumed)."""
+    max_len = aux.pos.shape[0]
+    tok = tok.clamp(0, aux.tok.shape[0] - 1)
+    return aux.tok[tok] + aux.pos[pos.clamp(0, max_len - 1)]
+
+
+def _attend(q, k_rows, v_rows, keep, dtype):
+    """The decode attention over gathered rows: q [S, (K,) H, hd], rows
+    [S, L, H, hd], keep [S, 1, (K,) L] bool -> [S, (K,) H, hd]. The same
+    einsum, mask and f32 softmax as `make_decode_block_fn`."""
+    hd = q.shape[-1]
+    if q.dim() == 3:
+        scores = torch.einsum("shd,slhd->shl", q, k_rows) / math.sqrt(hd)
+    else:
+        scores = torch.einsum("skhd,slhd->shkl", q, k_rows) / math.sqrt(hd)
+    scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
+    att = torch.softmax(scores.float(), -1).to(dtype)
+    if q.dim() == 3:
+        return torch.einsum("shl,slhd->shd", att, v_rows)
+    return torch.einsum("shkl,slhd->skhd", att, v_rows)
+
+
+def gated_cache_rows(cache, idx, k_new, v_new):
+    """The ONE cache row write shared by every serving program, in place:
+    cache {"k", "v"}; idx an index tuple addressing whole [..., H, hd]
+    rows; k_new / v_new the new rows, shaped like the selection.
+
+    The indices encode the gating. The reference sends a suppressed row
+    out of range, where its drop-mode scatter discards it (and gates the
+    fixed-slot writes by writing an inactive row's old value back); here
+    every suppressed row goes to the spare row past the cache's end (slot
+    S of a fixed cache, row n_rows of a paged arena), which no read
+    covers. Index gating is what the paged programs need anyway: a free
+    slot's stale block table may alias a live slot's block, and a
+    write-back would race the live row."""
+    for name, new in (("k", k_new), ("v", v_new)):
+        cache[name].index_put_(idx, new.to(cache[name].dtype))
+    return cache
+
+
+def init_slot_kv_cache(n_layers, slots, max_len, d_model, n_heads,
+                       dtype=torch.float32, device=None):
+    """The fixed-slot serving cache: per layer {k, v: [slots + 1, max_len,
+    H, hd]}, slot `slots` the spare that dropped writes land in."""
+    return init_kv_cache(n_layers, int(slots) + 1, max_len, d_model,
+                         n_heads, dtype, device)
+
+
+def make_slot_decode_block_fn(n_heads):
+    """`make_decode_block_fn` for a FIXED-SLOT serving batch:
+
+    block_decode(p, x [S, D], cache {k,v: [S + 1, L, H, hd]}, pos [S],
+                 active [S] bool) -> (y [S, D], cache)
+
+    Every slot's row is computed; only active slots write their k/v row
+    at `pos` (an inactive slot's write goes to the spare slot S), so an
+    inactive slot's cache stays bit-identical while neighbours decode.
+    Each row depends only on its own x/cache/pos rows: a request's token
+    stream does not depend on who shares the batch."""
+
+    def block_decode(p, x, cache, pos, active):
+        S, D = x.shape
+        H = n_heads
+        hd = D // H
+        h = _layer_norm(x, p.ln1.g, p.ln1.b)
+        q, k, v = (h @ p.attn.wqkv).split(D, -1)
+        L = cache["k"].shape[1]
+        rows = torch.where(active, torch.arange(S, device=x.device), S)
+        gated_cache_rows(cache, (rows, pos.clamp(0, L - 1)),
+                         k.reshape(S, H, hd), v.reshape(S, H, hd))
+        keep = (torch.arange(L, device=x.device)[None, None, :]
+                <= pos[:, None, None])
+        out = _attend(q.reshape(S, H, hd), cache["k"][:S], cache["v"][:S],
+                      keep, x.dtype).reshape(S, D)
+        return _mlp_residual(p, x + out @ p.attn.wo), cache
+
+    return block_decode
+
+
+def _decode_model(block_decode, aux, blocks, tok, pos, *args):
+    """Embed, every block, f32 logits and the device-side argmax."""
+    x = _embed_at(aux, tok, pos)
+    for p, c in zip(blocks, args[0]):
+        x, _ = block_decode(p, x, c, *args[1:])
+    logits = logits_fn(aux, x).float()
+    return logits.argmax(-1), logits
+
+
+def make_slot_decode_fn(n_heads):
+    """One ITERATION of continuous-batching decode, the whole model:
+
+    step(aux, blocks, cache, pos [S], tok [S], active [S])
+      -> (next_tok [S], logits [S, V] f32, cache, new pos)
+
+    Greedy argmax on the device over f32 logits; the cache is updated in
+    place; pos advances by `active`."""
+    block_decode = make_slot_decode_block_fn(n_heads)
+
+    @torch.no_grad()
+    def step(aux, blocks, cache, pos, tok, active):
+        nxt, logits = _decode_model(block_decode, aux, blocks, tok, pos,
+                                    cache, pos, active)
+        return nxt, logits, cache, pos + active.to(pos.dtype)
+
+    return step
+
+
+def make_slot_verify_block_fn(n_heads):
+    """`make_slot_decode_block_fn` widened to K query positions per slot,
+    the fixed layout's K-wide block (chunked prefill's chunk block):
+
+    block_verify(p, x [S, K, D], cache {k,v: [S + 1, L, H, hd]}, pos [S],
+                 active [S] bool) -> (y [S, K, D], cache)
+
+    Slot s's K inputs land at rows pos[s]..pos[s]+K-1, all written before
+    attention; query i attends to rows <= pos[s]+i. Inactive slots and
+    rows past the cache's end write to the spare slot."""
+
+    def block_verify(p, x, cache, pos, active):
+        S, K, D = x.shape
+        H = n_heads
+        hd = D // H
+        h = _layer_norm(x, p.ln1.g, p.ln1.b)
+        q, k, v = (h @ p.attn.wqkv).split(D, -1)
+        L = cache["k"].shape[1]
+        dev = x.device
+        pcols = pos[:, None] + torch.arange(K, device=dev)[None, :]
+        ok = active[:, None] & (pcols < L)
+        rows = torch.where(ok, torch.arange(S, device=dev)[:, None], S)
+        gated_cache_rows(cache, (rows, pcols.clamp(0, L - 1)),
+                         k.reshape(S, K, H, hd), v.reshape(S, K, H, hd))
+        keep = (torch.arange(L, device=dev)[None, None, None, :]
+                <= pcols[:, None, :, None])
+        out = _attend(q.reshape(S, K, H, hd), cache["k"][:S],
+                      cache["v"][:S], keep, x.dtype).reshape(S, K, D)
+        return _mlp_residual(p, x + out @ p.attn.wo), cache
+
+    return block_verify
+
+
+def make_prefill_fn(n_heads, cache_len):
+    """Serving prefill for ONE request, prompt right-padded to a bucket:
+
+    prefill(aux, blocks, prompt [1, Pb], length) -> (logits [1, V] f32 at
+    the last REAL token, cache rows [{k, v: [1, cache_len, H, hd]}])
+
+    The padding tail's k/v rows are installed too, and overwritten by
+    decode before any query attends to them."""
+
+    @torch.no_grad()
+    def prefill(aux, blocks, prompt, length):
+        h, cache = prefill_forward(aux, blocks, prompt, n_heads, cache_len)
+        return logits_fn(aux, h[:, int(length) - 1]).float(), cache
+
+    return prefill
+
+
+def init_paged_kv_cache(n_layers, n_blocks, block_size, d_model, n_heads,
+                        dtype=torch.float32, device=None):
+    """PAGED KV arena: per layer {k, v: [n_blocks * block_size + 1, H,
+    hd]}, flat row-major (physical row = block * block_size + offset),
+    the last row the spare that dropped writes land in. Which stream owns
+    which block is host state (`serving.kvpool.BlockPool`)."""
+    device = resolve_device(device)
+    hd = d_model // n_heads
+    rows = int(n_blocks) * int(block_size) + 1
+    z = lambda: torch.zeros(rows, n_heads, hd, dtype=dtype, device=device)
+    return [{"k": z(), "v": z()} for _ in range(n_layers)]
+
+
+def _window_rows(btab, bs):
+    """[S, NB] block table -> [S, NB * bs] physical rows of each slot's
+    logical window."""
+    S, NB = btab.shape
+    return (btab[:, :, None] * bs
+            + torch.arange(bs, device=btab.device)).reshape(S, NB * bs)
+
+
+def _gather_rows(buf, flat):
+    """arena [n_rows + 1, H, hd] at rows [S, L] -> [S, L, H, hd]."""
+    return buf.index_select(0, flat.reshape(-1)).view(
+        *flat.shape, *buf.shape[1:])
+
+
+def make_paged_decode_block_fn(n_heads, block_size):
+    """`make_slot_decode_block_fn` with the cache reached through a BLOCK
+    TABLE (vLLM PagedAttention):
+
+    block_decode(p, x [S, D], cache {k,v: [n_rows + 1, H, hd]},
+                 btab [S, NB], pos [S], active [S] bool) -> (y, cache)
+
+    Logical row l of slot s lives at physical row btab[s, l // bs] * bs +
+    l % bs. The write lands at the slot's frontier; an inactive slot's
+    goes to the spare row (gating by index: a free slot's stale table may
+    alias a live block). Attention gathers the slot's whole logical
+    window [S, NB * bs, H, hd] and runs the fixed block's math."""
+    bs = int(block_size)
+
+    def block_decode(p, x, cache, btab, pos, active):
+        S, D = x.shape
+        H = n_heads
+        hd = D // H
+        NB = btab.shape[1]
+        L = NB * bs
+        n_rows = cache["k"].shape[0] - 1
+        dev = x.device
+        h = _layer_norm(x, p.ln1.g, p.ln1.b)
+        q, k, v = (h @ p.attn.wqkv).split(D, -1)
+        blk = btab[torch.arange(S, device=dev), (pos // bs).clamp(0, NB - 1)]
+        widx = torch.where(active, blk * bs + pos % bs, n_rows)
+        gated_cache_rows(cache, (widx,), k.reshape(S, H, hd),
+                         v.reshape(S, H, hd))
+        flat = _window_rows(btab, bs)
+        keep = (torch.arange(L, device=dev)[None, None, :]
+                <= pos[:, None, None])
+        out = _attend(q.reshape(S, H, hd), _gather_rows(cache["k"], flat),
+                      _gather_rows(cache["v"], flat), keep,
+                      x.dtype).reshape(S, D)
+        return _mlp_residual(p, x + out @ p.attn.wo), cache
+
+    return block_decode
+
+
+def make_paged_decode_fn(n_heads, block_size):
+    """One ITERATION of paged continuous-batching decode:
+
+    step(aux, blocks, cache, btabs [S, NB], pos [S], tok [S], active [S])
+      -> (next_tok [S], logits [S, V] f32, cache, new pos)
+
+    `make_slot_decode_fn`'s contract over arena + block tables."""
+    block_decode = make_paged_decode_block_fn(n_heads, block_size)
+
+    @torch.no_grad()
+    def step(aux, blocks, cache, btabs, pos, tok, active):
+        nxt, logits = _decode_model(block_decode, aux, blocks, tok, pos,
+                                    cache, btabs, pos, active)
+        return nxt, logits, cache, pos + active.to(pos.dtype)
+
+    return step
+
+
+def _window_floor(k):
+    k = int(k)
+    if k < 2:
+        raise ValueError(f"fused window k must be >= 2 (k=1 is the "
+                         f"plain decode program), got {k}")
+    return k
+
+
+def make_fused_decode_fn(n_heads, k):
+    """K iterations of fixed-slot decode in one call, the body
+    `make_slot_decode_fn`'s step:
+
+    window(aux, blocks, cache, pos [S], tok [S], active [S], steps [S])
+      -> (toks [K, S], cache, new pos)
+
+    Step i gates each slot on `active & (i < steps)`: a slot whose budget
+    is spent freezes like an inactive one. toks[i, s] is garbage for
+    i >= steps[s]. Nothing waits on the host, so the server captures the
+    window as one CUDA graph (on the CPU it runs eagerly)."""
+    block_decode = make_slot_decode_block_fn(n_heads)
+    k = _window_floor(k)
+
+    @torch.no_grad()
+    def window(aux, blocks, cache, pos, tok, active, steps):
+        toks = []
+        for i in range(k):
+            act = active & (steps > i)
+            nxt, _ = _decode_model(block_decode, aux, blocks, tok, pos,
+                                   cache, pos, act)
+            tok = torch.where(act, nxt, tok)
+            pos = pos + act.to(pos.dtype)
+            toks.append(nxt)
+        return torch.stack(toks), cache, pos
+
+    return window
+
+
+def make_paged_fused_decode_fn(n_heads, block_size, k):
+    """`make_fused_decode_fn` through the block table:
+
+    window(aux, blocks, cache, btabs [S, NB], pos [S], tok [S],
+           active [S], steps [S], wto [S]) -> (toks [K, S], cache, pos)
+
+    The table is static across the window; step gating adds `pos < wto`
+    (the slot's reserved rows), so no write crosses an unreserved block."""
+    block_decode = make_paged_decode_block_fn(n_heads, block_size)
+    k = _window_floor(k)
+
+    @torch.no_grad()
+    def window(aux, blocks, cache, btabs, pos, tok, active, steps, wto):
+        toks = []
+        for i in range(k):
+            act = active & (steps > i) & (pos < wto)
+            nxt, _ = _decode_model(block_decode, aux, blocks, tok, pos,
+                                   cache, btabs, pos, act)
+            tok = torch.where(act, nxt, tok)
+            pos = pos + act.to(pos.dtype)
+            toks.append(nxt)
+        return torch.stack(toks), cache, pos
+
+    return window
+
+
+def make_paged_prefill_fn(n_heads):
+    """Serving prefill over the PAGED cache, the compute half:
+
+    prefill(aux, blocks, prompt [1, Pb], length)
+      -> (logits [1, V] f32 at the last REAL token,
+          panels [(kp, vp)] per layer, each [1, Pb, H, hd])
+
+    It neither reads nor writes the arena, so a failed prefill fails only
+    its request; `make_paged_install_fn` writes the panels."""
+
+    @torch.no_grad()
+    def prefill(aux, blocks, prompt, length):
+        h, panels = prefill_panels(aux, blocks, prompt, n_heads)
+        return logits_fn(aux, h[:, int(length) - 1]).float(), panels
+
+    return prefill
+
+
+def make_paged_install_fn(block_size):
+    """Install half of the paged prefill, in place:
+
+    install(cache, panels, btab [NB], length, shared_len) -> cache
+
+    Rows >= length (bucket padding) and rows < shared_len (a prefix-cache
+    hit: resident rows with the same bits) go to the spare row."""
+    bs = int(block_size)
+
+    @torch.no_grad()
+    def install(cache, panels, btab, length, shared_len):
+        P = panels[0][0].shape[1]
+        NB = btab.shape[0]
+        n_rows = cache[0]["k"].shape[0] - 1
+        r = torch.arange(P, device=btab.device)
+        pr = btab[(r // bs).clamp(0, NB - 1)] * bs + r % bs
+        write = (r >= int(shared_len)) & (r < int(length))
+        widx = torch.where(write, pr, n_rows)
+        for c, (kp, vp) in zip(cache, panels):
+            gated_cache_rows(c, (widx,), kp[0], vp[0])
+        return cache
+
+    return install
+
+
+def make_paged_verify_block_fn(n_heads, block_size):
+    """`make_paged_decode_block_fn` widened to K query positions per slot,
+    the paged layout's K-wide block (chunked prefill's chunk block):
+
+    block_verify(p, x [S, K, D], cache {k,v: [n_rows + 1, H, hd]},
+                 btab [S, NB], pos [S], active [S] bool, wfrom [S],
+                 wto [S]) -> (y [S, K, D], cache)
+
+    Slot s's K inputs sit at logical rows pos[s]..pos[s]+K-1, written
+    before attention. A row writes only when its slot is active and its
+    logical row lies in [wfrom[s], wto[s]) and inside the table: rows
+    below wfrom are a resident prefix (attended, never rewritten), rows
+    at or past wto would resolve through a zeroed table entry into block
+    0 of another stream. The others go to the spare row."""
+    bs = int(block_size)
+
+    def block_verify(p, x, cache, btab, pos, active, wfrom, wto):
+        S, K, D = x.shape
+        H = n_heads
+        hd = D // H
+        NB = btab.shape[1]
+        L = NB * bs
+        n_rows = cache["k"].shape[0] - 1
+        dev = x.device
+        h = _layer_norm(x, p.ln1.g, p.ln1.b)
+        q, k, v = (h @ p.attn.wqkv).split(D, -1)
+        lrows = pos[:, None] + torch.arange(K, device=dev)[None, :]
+        blk = btab[torch.arange(S, device=dev)[:, None],
+                   (lrows // bs).clamp(0, NB - 1)]
+        ok = (active[:, None] & (lrows >= wfrom[:, None])
+              & (lrows < wto[:, None]) & (lrows < L))
+        widx = torch.where(ok, blk * bs + lrows % bs, n_rows)
+        gated_cache_rows(cache, (widx,), k.reshape(S, K, H, hd),
+                         v.reshape(S, K, H, hd))
+        flat = _window_rows(btab, bs)
+        keep = (torch.arange(L, device=dev)[None, None, None, :]
+                <= lrows[:, None, :, None])
+        out = _attend(q.reshape(S, K, H, hd),
+                      _gather_rows(cache["k"], flat),
+                      _gather_rows(cache["v"], flat), keep,
+                      x.dtype).reshape(S, K, D)
+        return _mlp_residual(p, x + out @ p.attn.wo), cache
+
+    return block_verify
+
+
+def make_paged_chunk_block_fn(n_heads, block_size):
+    """Chunked prefill's paged block: the K-wide paged block under its
+    chunk-role name."""
+    return make_paged_verify_block_fn(n_heads, block_size)
+
+
+def make_chunked_prefill_fn(n_heads, chunk, block_size=None):
+    """CHUNKED prefill: C prompt rows of each prefilling slot per call,
+    attending into the rows earlier chunks installed.
+
+    block_size=None, the FIXED-SLOT layout:
+      step(aux, blocks, cache, pos [S], toks [S, C], nrows [S],
+           active [S]) -> (nxt [S, C], cache, new pos)
+    an int, the PAGED layout:
+      step(aux, blocks, cache, btabs [S, NB], pos [S], toks [S, C],
+           nrows [S], active [S], wfrom [S], wto [S])
+        -> (nxt [S, C], cache, new pos)
+
+    The K-wide block with prefill semantics: pos advances by nrows (the
+    real rows of this chunk); the host reads nxt[s, nrows - 1] of the last
+    chunk, the request's first generated token. C >= 2, as the reference's
+    floor (a 1-row product may take another accumulation path)."""
+    C = int(chunk)
+    if C < 2:
+        raise ValueError(f"chunk size must be >= 2 (a 1-row product takes "
+                         f"the gemv path), got {chunk}")
+    block = (make_slot_verify_block_fn(n_heads) if block_size is None
+             else make_paged_chunk_block_fn(n_heads, block_size))
+
+    def run(aux, blocks, cache, pos, toks, nrows, active, *args):
+        pcols = pos[:, None] + torch.arange(C, device=pos.device)[None, :]
+        x = _embed_at(aux, toks, pcols)
+        for p, c in zip(blocks, cache):
+            x, _ = block(p, x, c, *args)
+        nxt = logits_fn(aux, x).float().argmax(-1)
+        return nxt, cache, pos + torch.where(active, nrows, 0)
+
+    if block_size is None:
+        @torch.no_grad()
+        def step(aux, blocks, cache, pos, toks, nrows, active):
+            return run(aux, blocks, cache, pos, toks, nrows, active,
+                       pos, active)
+        return step
+
+    @torch.no_grad()
+    def step(aux, blocks, cache, btabs, pos, toks, nrows, active, wfrom,
+             wto):
+        return run(aux, blocks, cache, pos, toks, nrows, active, btabs,
+                   pos, active, wfrom, wto)
+
+    return step
+
+
+def make_block_copy_fn(block_size):
+    """Copy-on-write worker: copy(cache, src, dst) copies physical block
+    src's rows to block dst in every layer, in place (src, dst ints)."""
+    bs = int(block_size)
+
+    @torch.no_grad()
+    def copy(cache, src, dst):
+        s, d = int(src) * bs, int(dst) * bs
+        for c in cache:
+            for name in ("k", "v"):
+                c[name][d:d + bs].copy_(c[name][s:s + bs])
+        return cache
+
+    return copy
 
 def init_lm(vocab_size, d_model=128, n_heads=4, n_layers=4, d_ff=None,
             max_len=256, seed=0, dtype=torch.float32, device=None):

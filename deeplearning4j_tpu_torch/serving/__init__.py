@@ -1,17 +1,39 @@
 """Serving: port of deeplearning4j_tpu/serving/ (so far `InferenceServer`,
-the micro-batching server over a MultiLayerNetwork or ComputationGraph,
-its error types and `ServingMetrics`). The decode server, the fleet and
-the wire come with ROADMAP.md queue 1 items 1-6."""
+the micro-batching server over a MultiLayerNetwork or ComputationGraph;
+`ContinuousDecodeServer`, the continuous-batching decode server over a
+TransformerLM with fixed-slot and paged KV caches, chunked prefill,
+deadline-aware admission, brownout and fused decode windows; the block
+pool, the KV artifacts, the load generator, their error types and
+`ServingMetrics`). Speculative decoding, durable KV state in the server,
+the fleet and the wire come with ROADMAP.md queue 1 items 3, 4 and 6."""
+from .admission import (AdmissionController, BrownoutPolicy,
+                        ServiceRateEstimator)
 from .metrics import ServingMetrics
 from .server import (DeadlineExceededError, InferenceServer,
                      PoisonPillError, ReplicaDeadError,
                      RequestDrainedError, RequestMigratedError,
                      ServerClosedError, ServerOverloadedError,
                      ServingError, UnhealthyOutputError)
+from .decode import ContinuousDecodeServer
+from .kvpool import BlockPool, PagedAllocation
+from .kvstate import (KVStateError, KVStateVersionError,
+                      PrefixCacheArtifact, RequestArtifact)
+from .loadgen import (CHAOS_ACTIONS, ChaosSchedule, ClosedLoop,
+                      DecodeSizeMix, InferenceSizeMix, OnOffProcess,
+                      PoissonProcess, Schedule, SharedPrefixMix,
+                      build_chaos_schedule, build_schedule, run_load)
 
 __all__ = [
-    "InferenceServer", "ServingMetrics",
+    "InferenceServer", "ContinuousDecodeServer", "ServingMetrics",
     "ServingError", "ServerOverloadedError", "DeadlineExceededError",
-    "UnhealthyOutputError", "ServerClosedError", "RequestMigratedError",
-    "RequestDrainedError", "PoisonPillError", "ReplicaDeadError",
+    "UnhealthyOutputError", "ServerClosedError",
+    "BlockPool", "PagedAllocation",
+    "RequestArtifact", "PrefixCacheArtifact", "KVStateError",
+    "KVStateVersionError", "RequestMigratedError",
+    "ReplicaDeadError", "RequestDrainedError", "PoisonPillError",
+    "AdmissionController", "BrownoutPolicy", "ServiceRateEstimator",
+    "PoissonProcess", "OnOffProcess", "ClosedLoop",
+    "DecodeSizeMix", "SharedPrefixMix", "InferenceSizeMix", "Schedule",
+    "build_schedule", "run_load",
+    "ChaosSchedule", "CHAOS_ACTIONS", "build_chaos_schedule",
 ]

@@ -32,6 +32,11 @@ import deeplearning4j_tpu_torch.common.health
 import deeplearning4j_tpu_torch.serving
 import deeplearning4j_tpu_torch.serving.server
 import deeplearning4j_tpu_torch.serving.metrics
+import deeplearning4j_tpu_torch.serving.decode
+import deeplearning4j_tpu_torch.serving.kvpool
+import deeplearning4j_tpu_torch.serving.admission
+import deeplearning4j_tpu_torch.serving.kvstate
+import deeplearning4j_tpu_torch.serving.loadgen
 import deeplearning4j_tpu_torch.datasets
 import deeplearning4j_tpu_torch.datasets.iterators
 import deeplearning4j_tpu_torch.datasets.normalizers
