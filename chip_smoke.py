@@ -77,7 +77,11 @@ Phases, in order; any failure raises and exits non-zero:
      gradients and the single card's (K2, K4, K5) each agree with the f32
      plain gradient, within limits that the same gradient from an o one
      bit coarser than bf16 fails; an f32 ring (T=1024) on the card agrees
-     with the same ring on the CPU.
+     with the same ring on the CPU. The ranks also run the
+     sequence-parallel `SelfAttentionLayer` (d_model 512, 8 heads, causal,
+     a key mask with padding in every row; f32, the einsum ring), each on
+     its chunk of B=2, T=1024, held against the local layer's slice of the
+     same output.
      With four cards it runs again over NCCL, one rank per card; with fewer
      it says that it skipped that step.
 Phases 15-18 drive the DL4J training core (MultiLayerNetwork,
@@ -106,7 +110,7 @@ for its float32 networks inside its own calls.
      and peak memory; f32 master parameters on the card; a timed `output`
      at batch 128; the device time of one step by kernel, from a
      torch.profiler trace;
- 18. the golden model zips (tests/fixtures/golden/{mlp,lenet,cg}.zip)
+ 18. the golden model zips (tests/fixtures/golden/{mlp,lenet,lstm,cg}.zip)
      restored on the card: parameters equal, outputs as the zips' io["y"].
 Phases 19-21 drive the data and serving path (no port kernel either; the
 counters must still read 0 after them):
@@ -166,10 +170,29 @@ bucket through its own thread before its traffic:
      divergences, and the relative error of the prefill logits (bucket vs
      exact length) and of the first step's logits (paged vs fixed) -
      measured, not pinned.
+Phase 23 drives the recurrent path: BASELINE.md configuration #3, the
+char-RNN (`models/zoo/char_rnn.py`: V=77, two GravesLSTM layers of 200,
+RnnOutputLayer, truncated BPTT of 50, RMSProp lr 0.1). Its layers are
+eager torch and cuBLAS, as XLA runs the JAX package's `lax.scan`: no kernel
+of the port, and the counters must read 0 after it.
+ 23. (a) f32 and f64 correctness, card against CPU from the same seeded
+     weights: the char-RNN at B=8, T=120 (segments of 50, 50 and 20),
+     three `fit` calls with SGD in f32 and with its RMSProp in f64: every
+     segment's score and the final parameters; then `rnn_time_step` over
+     20 single steps against `output` of the same 20 steps; one
+     GravesBidirectionalLSTM and one causal SelfAttentionLayer forward
+     with a [B, T] mask that pads every row; (b) full width, bf16, as the
+     JAX package's bench.py runs it: B=64, T=200, one repeated one-hot
+     batch from the seed, 3 warm-up `fit`s, then 20 timed by CUDA events:
+     chars/s, ms per fit and per segment, peak memory, the losses (finite,
+     the last below the first); a torch.profiler trace of one fit: device
+     time by kernel kind, the device's busy share, launches per segment;
+     then the DL4J char example's streaming: `rnn_time_step` over a
+     50-char primer and 200 single greedy steps at batch 64, ms per step.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
-...} line, a {"decode_serving": ...} line, one {"kernels": [...]} JSON
-line and, as the last line, {"ok": true, "device": {...}}. It imports
-nothing of JAX.
+...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, one
+{"kernels": [...]} JSON line and, as the last line, {"ok": true,
+"device": {...}}. It imports nothing of JAX.
 """
 import json
 import math
@@ -198,6 +221,7 @@ LSE_ATOL = 1e-5   # read 1.9e-6 (bf16, T=8192) on an H100
 RING = 4          # ranks of the ring main path (phase 14)
 HOP_T = T // RING
 RING_GROUP_TIMEOUT_S, RING_JOIN_TIMEOUT_S = 60, 300
+ATT_T = 1024      # phase 14's sequence-parallel SelfAttentionLayer
 # Phase 14: (least atol at rtol 1e-2, max row err) of dq, dk, dv of
 # mean(o**2) against the f32 gradient, in units of its rms. Each is 1.5x
 # what the single card (K2, K4, K5) and the ring both read on an H100
@@ -671,6 +695,7 @@ def main():
     ring = ring_phases(fa, _build, H, D)
     core, serving = training_core_phases(fa)
     decode = decode_serving_phase(fa)
+    recurrent = char_rnn_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -699,6 +724,7 @@ def main():
     print(json.dumps({"training_core": core}))
     print(json.dumps({"data_and_serving": serving}))
     print(json.dumps({"decode_serving": decode}))
+    print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1000,11 +1026,42 @@ def ring_rank(rank, world, store, out_dir, backend, seed):
                          for a, b in zip(*f32_res))
     res["f32_finite"] = all(bool(torch.isfinite(a).all())
                             for a in f32_res[0])
+    # the sequence-parallel SelfAttentionLayer (the einsum ring, f32): this
+    # rank's chunk of its output
+    params, x, mask = attention_layer_inputs(seed + 2)
+    part = slice(rank * ATT_T // world, (rank + 1) * ATT_T // world)
+    with torch.no_grad():
+        res["layer_out"] = attention_layer().with_sequence_parallel(
+            None).forward(params, x[:, part].contiguous(),
+                          mask=mask[:, part].contiguous())
     to_cpu = lambda x: x.cpu() if torch.is_tensor(x) else x
     res = {key: ([to_cpu(t) for t in val] if isinstance(val, tuple)
                  else to_cpu(val)) for key, val in res.items()}
     torch.save(res, Path(out_dir) / f"rank{rank}.pt")
     dist.destroy_process_group()
+
+
+def attention_layer():
+    from deeplearning4j_tpu_torch.nn.conf.layers import SelfAttentionLayer
+    return SelfAttentionLayer(n_in=FULL["d_model"], n_out=FULL["d_model"],
+                              n_heads=FULL["n_heads"], causal=True)
+
+
+def attention_layer_inputs(seed):
+    """(params, x [2, ATT_T, d_model], mask [2, ATT_T]) of phase 14's
+    SelfAttentionLayer, f32 on cuda:0, from a seed: the same on every
+    process that asks. Every row is padded at its end (key 0 stays valid,
+    so every causal query sees a key)."""
+    d = FULL["d_model"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = {k: torch.randn(d, d, generator=gen, device="cuda") / d ** 0.5
+              for k in ("Wq", "Wk", "Wv", "Wo")}
+    params["b"] = torch.randn(d, generator=gen, device="cuda") / d ** 0.5
+    x = torch.randn(2, ATT_T, d, generator=gen, device="cuda")
+    mask = torch.ones(2, ATT_T, device="cuda")
+    mask[0, ATT_T - 100:] = 0.0
+    mask[1, ATT_T - 300:] = 0.0
+    return params, x, mask
 
 
 def run_ring(world, backend, seed):
@@ -1149,6 +1206,19 @@ def ring_main_path(fa, H, D, backend):
              else f"{RING} ranks, one per card, over NCCL")
     result, ring_grads = check_ring(ranks, backend, o.detach(), label)
     del o
+    # the layer: each rank's chunk against the local layer's slice, f32
+    # (1e-5: the ring folds the hops' softmax in another order)
+    params, x, mask = attention_layer_inputs(seed + 2)
+    with torch.no_grad():
+        want = attention_layer().forward(params, x, mask=mask)
+    tl = ATT_T // len(ranks)
+    result["layer_err"] = max(
+        (r["layer_out"].cuda() - want[:, i * tl:(i + 1) * tl]).abs().max()
+        .item() for i, r in enumerate(ranks))
+    _check(f"{label}: sequence-parallel SelfAttentionLayer (d_model "
+           f"{FULL['d_model']}, causal, masked, f32, B=2 T={ATT_T}) vs the "
+           f"local layer, max abs err", result["layer_err"], 1e-5)
+    del params, x, mask, want
     check_gradients(fa, leaves, {
         "ring": ring_grads, "single card (K2, K4, K5)": single})
     result["launches"] = {
@@ -1159,7 +1229,8 @@ def ring_main_path(fa, H, D, backend):
         "ranks": RING, "backend": backend,
         "cards": 1 if backend == "gloo" else RING,
         **{key: result[key] for key in ("fwd_ms", "fwd_bwd_ms",
-                                        "rotate_fwd_ms", "rotate_bwd_ms")},
+                                        "rotate_fwd_ms", "rotate_bwd_ms",
+                                        "layer_err")},
         "note": ("four ranks share one card and rotate K/V through the "
                  "host; not a multi-card figure") if backend == "gloo"
         else "one rank per card; NCCL P2P over NVLink"}))
@@ -1461,8 +1532,8 @@ def resnet_f32_card_vs_cpu():
     # on (the port's forward and loss called outside its own
     # `card_numerics` scope)
     with torch.no_grad():
-        acts, _, _ = gpu._apply_graph(gpu._cast_params(), gpu._states(),
-                                      gpu._inputs([x]), train=False, rng=None)
+        acts, *_ = gpu._apply_graph(gpu._cast_params(), gpu._states(),
+                                    gpu._inputs([x]), train=False, rng=None)
         tf32_out = acts["fc"].cpu().numpy()
         tf32 = float(gpu._loss(*gpu._batch(MultiDataSet([x], [y])), True,
                                None)[0])
@@ -1648,7 +1719,8 @@ def _kernel_kind(name):
              ("copy or cast", ("copy",)),
              ("convolution", ("fprop", "dgrad", "wgrad", "implicit", "conv",
                               "cudnn")),
-             ("matrix product", ("gemm", "gemv", "xmma", "cutlass")),
+             ("matrix product", ("gemm", "gemv", "xmma", "cutlass",
+                                 "nvjet")),
              ("elementwise", ("elementwise",)))
     for kind, keys in kinds:
         if any(k in name for k in keys):
@@ -1665,6 +1737,7 @@ def golden_zips_on_card():
     out = {}
     for name, restore in (("mlp", ms.restore_multi_layer_network),
                           ("lenet", ms.restore_multi_layer_network),
+                          ("lstm", ms.restore_multi_layer_network),
                           ("cg", ms.restore_computation_graph)):
         net = restore(str(golden / f"{name}.zip"))
         io = np.load(golden / f"{name}_io.npz")
@@ -1674,7 +1747,8 @@ def golden_zips_on_card():
         y = net.output(io["x"])
         y = y[0] if name == "cg" else y
         # 1e-5: the zips' outputs were computed by the JAX package on the
-        # CPU in f32; cuDNN may pick Winograd or FFT algorithms
+        # CPU in f32; cuDNN may pick Winograd or FFT algorithms, cuBLAS
+        # sums the LSTM's products in another order
         out[name] = _max_err(y, io["y"])
         _check(f"{name}.zip output vs io['y']", out[name], 1e-5)
     return out
@@ -2819,6 +2893,301 @@ def decode_serving_phase(fa):
     print(f"  phase 22 launched no kernel of the port: {fa.launches}; "
           f"{out['phase_s']:.1f} s")
     return out
+
+
+# Phase 23: the recurrent path, BASELINE.md configuration #3 (the char-RNN
+# as the JAX package's bench.py:342-366 runs it).
+CHAR_V, CHAR_B, CHAR_T, CHAR_TBPTT = 77, 64, 200, 50
+
+
+def _recorded_scores(net):
+    """Every optimizer step's score (one per TBPTT segment) of `net`'s
+    fits from now on, as tensors (read once, at the end)."""
+    scores, step = [], net._train_step
+
+    def recording(loss_fn):
+        carries = step(loss_fn)
+        scores.append(net._score)
+        return carries
+
+    net._train_step = recording
+    return scores
+
+
+def _rel_err(a, b):
+    """max |a - b| / (1 + |b|): the absolute error for values below 1, the
+    relative one above."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / (1.0 + np.abs(b))).max())
+
+
+def _three_fits(nets, x, y, t):
+    """Three fits of each net on (x, y); every segment's score, per net."""
+    scores = [_recorded_scores(n) for n in nets]
+    for _ in range(3):
+        for n in nets:
+            n.fit(x, y)
+    want = 3 * -(-t // CHAR_TBPTT)
+    for n, sc in zip(nets, scores):
+        if len(sc) != want or n.conf.iteration_count != want:
+            raise SystemExit(f"{len(sc)} segment scores, iteration_count "
+                             f"{n.conf.iteration_count}; want {want}")
+    return [[float(v) for v in sc] for sc in scores]
+
+
+def char_rnn_card_vs_cpu():
+    """Phase 23(a). Returns its readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.zoo.char_rnn import char_rnn
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GravesBidirectionalLSTM, SelfAttentionLayer)
+    b, t = 8, 120
+    print(f"phase 23(a): char-RNN (V={CHAR_V}, 2x200 GravesLSTM, tbptt "
+          f"{CHAR_TBPTT}) B={b} T={t}, card vs CPU from the same seeded "
+          f"weights: three fits, SGD in f32 and RMSProp in f64")
+    rng = np.random.default_rng(23)
+    x = np.eye(CHAR_V, dtype=np.float32)[rng.integers(0, CHAR_V, (b, t))]
+    y = np.eye(CHAR_V, dtype=np.float32)[rng.integers(0, CHAR_V, (b, t))]
+    out = {}
+    # f32 with SGD, pinned: scores and parameters 1e-5 as max |card - CPU|
+    # / (1 + |CPU|). The configuration's RMSProp at lr 0.1 is chaotic on
+    # this random batch (its scores jump several-fold from segment to
+    # segment): two runs whose weights differ by 1e-15 (relative) part by
+    # orders of magnitude a segment. So in f64 it is measured, not pinned:
+    # each segment's score error card vs CPU, beside the CPU's own from
+    # weights moved by 1e-15; only the first segment (the same weights on
+    # both) is held, to 1e-9.
+    nets = [char_rnn(device=d, updater="sgd") for d in ("cuda", "cpu")]
+    if not np.array_equal(nets[0].params(), nets[1].params()):
+        raise SystemExit("char-RNN weights differ between devices")
+    seen = _three_fits(nets, x, y, t)
+    res = {"scores": seen[0], "score_err": _rel_err(*seen),
+           "param_err": _rel_err(nets[0].params(), nets[1].params())}
+    print(f"  sgd_f32: card scores {[round(v, 4) for v in seen[0]]}")
+    _check("sgd_f32 segment scores, card vs CPU", res["score_err"], 1e-5)
+    _check("sgd_f32 parameters after 3 fits, card vs CPU", res["param_err"],
+           1e-5)
+    out["sgd_f32"], net = res, nets[0]
+    nets = [char_rnn(device=d, data_type="float64")
+            for d in ("cuda", "cpu", "cpu")]
+    nets[2].set_params(nets[2].params() * (1 + 1e-15))
+    seen = _three_fits(nets, x, y, t)
+    res = {"scores": seen[0],
+           "card_vs_cpu": [_rel_err(a, b) for a, b in zip(*seen[:2])],
+           "cpu_perturbed_vs_cpu": [_rel_err(a, b)
+                                    for a, b in zip(*seen[1:][::-1])]}
+    print(f"  rmsprop_f64: card scores {[round(v, 4) for v in seen[0]]}")
+    print(f"  rmsprop_f64 per-segment score error card vs CPU "
+          f"{[float(f'{e:.2e}') for e in res['card_vs_cpu']]}; CPU vs CPU "
+          f"from weights moved by 1e-15 "
+          f"{[float(f'{e:.2e}') for e in res['cpu_perturbed_vs_cpu']]}")
+    _check("rmsprop_f64 first segment's score, card vs CPU",
+           res["card_vs_cpu"][0], 1e-9)
+    out["rmsprop_f64"] = res
+    # streaming on the card: 20 single steps against the same 20 steps'
+    # output, f32 (1e-5: one step's hoisted projection is a product of
+    # another shape)
+    full = net.output(x[:, :20])
+    net.rnn_clear_previous_state()
+    steps = np.stack([net.rnn_time_step(x[:, i]) for i in range(20)], 1)
+    out["rnn_time_step_err"] = _max_err(steps, full)
+    _check("rnn_time_step x20 vs output, f32 on the card",
+           out["rnn_time_step_err"], 1e-5)
+    # a GravesBidirectionalLSTM and a causal SelfAttentionLayer forward,
+    # f32, with a mask that pads every row: card vs CPU (1e-5: cuBLAS and
+    # the CPU sum the 200-wide products in another order; outputs O(1))
+    mask = np.ones((b, t), np.float32)
+    for i in range(b):
+        mask[i, t - 5 * (i + 1):] = 0.0
+    xs = np.random.default_rng(24).standard_normal((b, t, 200)).astype(
+        np.float32)
+    gen = torch.Generator().manual_seed(24)
+    for name, layer in (
+            ("GravesBidirectionalLSTM",
+             GravesBidirectionalLSTM(n_in=200, n_out=200, activation="tanh",
+                                     weight_init="xavier")),
+            ("SelfAttentionLayer causal",
+             SelfAttentionLayer(n_in=200, n_out=200, n_heads=4,
+                                causal=True))):
+        params = layer.init_params(gen)
+        got = []
+        for dev in ("cuda", "cpu"):
+            with torch.no_grad():
+                got.append(layer.forward(
+                    {k: v.to(dev) for k, v in params.items()},
+                    torch.from_numpy(xs).to(dev),
+                    mask=torch.from_numpy(mask).to(dev)).cpu())
+        if not bool((got[0][torch.from_numpy(mask) == 0] == 0).all()):
+            raise SystemExit(f"{name}: a masked step's output is not 0")
+        key = name.split()[0] + "_err"
+        out[key] = _max_err(got[0].numpy(), got[1].numpy())
+        _check(f"{name} [{b}, {t}, 200] masked forward, card vs CPU",
+               out[key], 1e-5)
+    return out
+
+
+def char_rnn_full_width():
+    """Phase 23(b). Returns its readings."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.char_rnn import char_rnn
+    warmup, fits = 3, 20
+    segments = -(-CHAR_T // CHAR_TBPTT)
+    print(f"phase 23(b): char-RNN full width, bf16: V={CHAR_V}, 2x200 "
+          f"GravesLSTM, B={CHAR_B}, T={CHAR_T}, tbptt {CHAR_TBPTT} "
+          f"({segments} segments), RMSProp lr 0.1; one repeated one-hot "
+          f"batch")
+    torch.cuda.empty_cache()
+    net = char_rnn(data_type="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    onehot = lambda: torch.nn.functional.one_hot(torch.randint(
+        0, CHAR_V, (CHAR_B, CHAR_T), generator=gen, device="cuda"),
+        CHAR_V).float()
+    ds = DataSet(onehot(), onehot())
+    t0 = time.perf_counter()
+    warm = []
+    for _ in range(warmup):
+        net.fit(ds)
+        warm.append(net._score)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(fits + 1)]
+    scores = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(fits):
+        net.fit(ds)
+        scores.append(net._score)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fit_ms = [events[i].elapsed_time(events[i + 1]) for i in range(fits)]
+    losses = [float(v) for v in scores]
+    mean_ms = sum(fit_ms) / fits
+    out = {"fit_ms": fit_ms, "mean_fit_ms": mean_ms,
+           "segment_ms": mean_ms / segments,
+           "chars_per_s": CHAR_B * CHAR_T * 1e3 / mean_ms,
+           "chars_per_s_wall": CHAR_B * CHAR_T * fits / wall_s,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_over_held_gib": (torch.cuda.max_memory_allocated() - held)
+           / 2 ** 30,
+           "losses": losses, "warmup_losses": [float(v) for v in warm],
+           "warmup_s": warm_s, "iteration_count": net.conf.iteration_count}
+    print(f"  warm-up losses {[round(v, 3) for v in out['warmup_losses']]} "
+          f"({warm_s:.1f} s)")
+    print(f"  losses {[round(v, 3) for v in losses]}")
+    print(f"  fit ms {[round(v, 2) for v in fit_ms]}; mean {mean_ms:.2f} ms "
+          f"a fit, {out['segment_ms']:.2f} ms a segment, "
+          f"{out['chars_per_s']:.0f} chars/s ({out['chars_per_s_wall']:.0f} "
+          f"by the host clock); peak memory {out['peak_memory_gib']:.3f} GiB "
+          f"({out['peak_over_held_gib']:.3f} over what was held before)")
+    if (not all(math.isfinite(v) for v in losses)
+            or not losses[-1] < losses[0]):
+        raise SystemExit(f"char-RNN losses not finite and falling: {losses}")
+    if net.conf.iteration_count != (warmup + fits) * segments:
+        raise SystemExit(f"iteration_count {net.conf.iteration_count}, want "
+                         f"{(warmup + fits) * segments}")
+    bad = [n for n, p in net.named_parameters()
+           if p.dtype != torch.float32 or not p.is_cuda]
+    if bad:
+        raise SystemExit(f"parameters not f32 on the card: {bad[:5]}")
+    # the host's share: autograd makes tens of thousands of Python objects
+    # a fit, so the garbage collector runs often, and each full collection
+    # walks the whole heap, which the earlier phases of this process grew.
+    # The same fits with the heap's objects frozen out of its reach:
+    import gc
+    import threading
+    out.update(threads=threading.active_count(),
+               gc_objects=len(gc.get_objects()))
+    gc.collect()
+    gc.freeze()
+    try:
+        frozen = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        frozen[0].record()
+        for i in range(5):
+            net.fit(ds)
+            frozen[i + 1].record()
+        torch.cuda.synchronize()
+    finally:
+        gc.unfreeze()
+    out["mean_fit_ms_gc_frozen"] = sum(
+        frozen[i].elapsed_time(frozen[i + 1]) for i in range(5)) / 5
+    print(f"  {out['gc_objects']} objects on the heap, {out['threads']} "
+          f"threads; with them frozen out of the collector's reach: "
+          f"{out['mean_fit_ms_gc_frozen']:.2f} ms a fit")
+    # where one fit's device time goes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net.fit(ds)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.device_time_total, e.count, e.key)
+                      for e in prof.key_averages() if e.device_time_total),
+                     reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    launches = sum(k[1] for k in kernels)
+    out.update(traced_device_ms=busy_ms, device_busy_share=busy_ms / mean_ms,
+               launches_per_fit=launches,
+               launches_per_segment=launches / segments, by_kind_ms={})
+    for us, _, name in kernels:
+        kind = _kernel_kind(name)
+        out["by_kind_ms"][kind] = out["by_kind_ms"].get(kind, 0.0) + us / 1e3
+    out["top_kernels"] = [{"name": k[2][:90], "ms": k[0] / 1e3, "count": k[1]}
+                          for k in kernels[:10]]
+    print(f"  one traced fit: {busy_ms:.2f} ms of device time in {launches} "
+          f"launches ({out['launches_per_segment']:.0f} a segment), "
+          f"{out['device_busy_share']:.1%} of the mean fit; by kind: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+              out["by_kind_ms"].items(), key=lambda kv: -kv[1])))
+    print("  the largest:")
+    for k in out["top_kernels"]:
+        print(f"    {k['ms']:8.3f} ms  x{k['count']:<6d} {k['name']}")
+    # the DL4J char example's streaming: a primer, then greedy steps
+    primer, n_steps = 50, 200
+    x = ds.features[:, :primer].cpu().numpy()
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = net.rnn_time_step(x)
+    primer_ms = 1e3 * (time.perf_counter() - t0)
+    eye = np.eye(CHAR_V, dtype=np.float32)
+    step = eye[probs[:, -1].argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        p = net.rnn_time_step(step)
+        step = eye[p.argmax(-1)]
+    step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    if (probs.shape != (CHAR_B, primer, CHAR_V) or p.shape != (CHAR_B, CHAR_V)
+            or not np.isfinite(p).all()
+            or _max_err(p.sum(-1), np.ones(CHAR_B)) > 1e-2):
+        raise SystemExit(f"bad rnn_time_step output {p.shape}")
+    out.update(primer_ms=primer_ms, rnn_time_step_ms=step_ms)
+    print(f"  rnn_time_step: {primer}-char primer at batch {CHAR_B} "
+          f"{primer_ms:.2f} ms, then {step_ms:.3f} ms a single greedy step "
+          f"(host clock; each step returns numpy)")
+    return out
+
+
+def char_rnn_phase(fa):
+    """Phase 23. Returns its readings."""
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    out = {"card_vs_cpu": char_rnn_card_vs_cpu(),
+           "full_width_bf16": char_rnn_full_width()}
+    torch.cuda.empty_cache()
+    if any(fa.launches.values()):
+        raise SystemExit(f"the recurrent path launched flash kernels: "
+                         f"{fa.launches}")
+    out["flash_launches"] = dict(fa.launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 23 launched no kernel of the port: {fa.launches}; "
+          f"{out['phase_s']:.1f} s")
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

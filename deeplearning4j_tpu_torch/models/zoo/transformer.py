@@ -54,7 +54,7 @@ from ...common.device import resolve_device
 from ...ops.flash_attention import flash_attention
 from ...parallel.pipeline import sgd_momentum_update
 
-_NOT_PORTED = "is not ported yet; ROADMAP.md queues it"
+_NOT_PORTED = "is not ported yet: ROADMAP.md queue 1 item 3"
 _TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64,
                 "float16": torch.float16, "bfloat16": torch.bfloat16}
 
@@ -888,7 +888,7 @@ class TransformerLM(nn.Module):
 
     @torch.inference_mode()
     def generate(self, prompt, max_new_tokens=32, temperature=0.0, seed=0,
-                 use_cache=False, draft=None):
+                 use_cache=False, draft=None, speculate_k=4):
         """Autoregressive continuation of `prompt` (token ids); returns the
         list prompt + new tokens. temperature 0 = greedy argmax on f32
         logits; > 0 = sampled on the host with np.random.default_rng(seed),
@@ -897,7 +897,9 @@ class TransformerLM(nn.Module):
         use_cache=False re-encodes the context (at most max_len tokens) for
         every new token: the full causal forward, through the flash kernel
         when attention="flash". use_cache=True feeds the prompt, then each
-        new token, through the single-token KV-cache decode step."""
+        new token, through the single-token KV-cache decode step.
+        `draft` / `speculate_k` (speculative decoding) are the reference's
+        parameters; `draft` raises until it is ported."""
         if draft is not None:
             raise NotImplementedError(f"speculative decoding (draft=) "
                                       f"{_NOT_PORTED}")
@@ -937,13 +939,14 @@ class TransformerLM(nn.Module):
 
     @torch.inference_mode()
     def generate_batch(self, prompts, max_new_tokens, temperature=0.0,
-                       seed=0, draft=None):
+                       seed=0, draft=None, speculate_k=4):
         """Batched KV-cache decode of equal-length `prompts` [B, P]: one
         parallel prefill fills every layer's cache, then one decode step per
         new token. temperature <= 0 = greedy (argmax on f32 logits);
         > 0 = sampled on the device from a torch.Generator seeded with
         `seed` (deterministic per seed; not the JAX package's draws).
-        Returns a numpy array [B, P + max_new_tokens]."""
+        Returns a numpy array [B, P + max_new_tokens]. `draft` /
+        `speculate_k` as in `generate`."""
         if draft is not None:
             raise NotImplementedError(f"speculative decoding (draft=) "
                                       f"{_NOT_PORTED}")

@@ -1,9 +1,13 @@
+from .attention import SelfAttentionLayer
 from .base import LAYER_REGISTRY, NOT_PORTED, LayerConf, register_layer
 from .convolution import (ConvolutionLayer, GlobalPoolingLayer,
                           SubsamplingLayer, ZeroPaddingLayer)
 from .feedforward import (ActivationLayer, DenseLayer, DropoutLayer,
-                          EmbeddingLayer, LossLayer, OutputLayer)
+                          EmbeddingLayer, LossLayer, OutputLayer,
+                          RnnOutputLayer)
 from .normalization import BatchNormalization, LocalResponseNormalization
+from .recurrent import (BaseRecurrentLayer, GravesBidirectionalLSTM,
+                        GravesLSTM, SimpleRnn)
 
 
 def _not_ported_class(name, layer_type):
@@ -15,12 +19,6 @@ def _not_ported_class(name, layer_type):
 
 # The reference's other layers: constructing one raises, naming its
 # ROADMAP.md item.
-GravesLSTM = _not_ported_class("GravesLSTM", "graveslstm")
-GravesBidirectionalLSTM = _not_ported_class("GravesBidirectionalLSTM",
-                                            "gravesbidirectionallstm")
-SimpleRnn = _not_ported_class("SimpleRnn", "simplernn")
-RnnOutputLayer = _not_ported_class("RnnOutputLayer", "rnnoutput")
-SelfAttentionLayer = _not_ported_class("SelfAttentionLayer", "selfattention")
 RBM = _not_ported_class("RBM", "rbm")
 VariationalAutoencoder = _not_ported_class("VariationalAutoencoder", "vae")
 AutoEncoder = _not_ported_class("AutoEncoder", "autoencoder")
@@ -31,6 +29,7 @@ __all__ = [
     "LossLayer", "OutputLayer",
     "ConvolutionLayer", "SubsamplingLayer", "ZeroPaddingLayer",
     "GlobalPoolingLayer", "BatchNormalization", "LocalResponseNormalization",
-    "GravesLSTM", "GravesBidirectionalLSTM", "SimpleRnn", "RnnOutputLayer",
+    "BaseRecurrentLayer", "GravesLSTM", "GravesBidirectionalLSTM",
+    "SimpleRnn", "RnnOutputLayer",
     "SelfAttentionLayer", "RBM", "VariationalAutoencoder", "AutoEncoder",
 ]

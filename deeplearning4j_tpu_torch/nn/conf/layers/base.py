@@ -25,14 +25,9 @@ LAYER_REGISTRY = {}
 # Layers of the reference that the port has not ported yet, by JSON type,
 # with the ROADMAP.md item (queue 1) that queues each.
 NOT_PORTED = {
-    "graveslstm": "item 18 (recurrent layers)",
-    "gravesbidirectionallstm": "item 18 (recurrent layers)",
-    "simplernn": "item 18 (recurrent layers)",
-    "rnnoutput": "item 18 (recurrent layers)",
-    "selfattention": "item 18 (attention.py)",
-    "rbm": "item 18 (rbm.py)",
-    "vae": "item 18 (variational.py)",
-    "autoencoder": "item 18 (pretrain layers)",
+    "rbm": "item 18b (rbm.py)",
+    "vae": "item 18b (variational.py)",
+    "autoencoder": "item 18b (pretrain layers)",
 }
 
 # Fields that participate in global-default override (reference:

@@ -1,10 +1,10 @@
 """Feed-forward layer configs: port of
-deeplearning4j_tpu/nn/conf/layers/feedforward.py (Dense, Output, Loss,
-Activation, Dropout, Embedding).
+deeplearning4j_tpu/nn/conf/layers/feedforward.py (Dense, Output, RnnOutput,
+Loss, Activation, Dropout, Embedding).
 
 Forward math as the reference: preOutput = x @ W + b with W [n_in, n_out],
-the activation on top; cuBLAS runs the product. RnnOutputLayer and
-AutoEncoder are not ported yet (`base.NOT_PORTED`).
+the activation on top; cuBLAS runs the product. AutoEncoder is not ported
+yet (`base.NOT_PORTED`).
 """
 from __future__ import annotations
 
@@ -60,6 +60,31 @@ class OutputLayer(DenseLayer):
                                   rng=None, mask=None):
         pre = self.preout(params, x, train=train, rng=rng)
         return losses.get(self.loss_function)(labels, pre, self.activation, mask)
+
+
+@register_layer("rnnoutput")
+@dataclass
+class RnnOutputLayer(OutputLayer):
+    """Output layer over [batch, time, size] sequences: the dense head
+    broadcasts over the time axis, and the loss sums each example's time
+    steps and features. A 2-D [batch, time] label mask applies per step."""
+
+    def set_n_in(self, input_type, override=True):
+        if isinstance(input_type, RecurrentInputType):
+            if self.n_in is None or override:
+                self.n_in = input_type.size
+        else:
+            super().set_n_in(input_type, override)
+
+    def get_output_type(self, input_type):
+        return InputType.recurrent(self.n_out)
+
+    def compute_score_per_example(self, params, x, labels, *, train=False,
+                                  rng=None, mask=None):
+        if mask is not None and mask.ndim == 2:
+            mask = mask[:, :, None]
+        return super().compute_score_per_example(
+            params, x, labels, train=train, rng=rng, mask=mask)
 
 
 @register_layer("loss")

@@ -14,14 +14,15 @@ topological order; the per-layer trees of the reference (its
 `_params`, `_updater_state`, `_model_state`) are dicts keyed by vertex
 name.
 
-`fit` over an iterator of DataSets or MultiDataSets, `evaluate` and
-`make_inference_fn` are `MultiLayerNetwork`'s, over the graph's inputs and
-outputs.
+`fit` over an iterator of DataSets or MultiDataSets, `evaluate`,
+`make_inference_fn`, truncated BPTT and `rnn_time_step` are
+`MultiLayerNetwork`'s, over the graph's inputs and outputs: a recurrent
+layer vertex carries its state by vertex name; a TBPTT segment slices the
+sequence inputs, labels and masks and passes static ones whole.
 
 Not ported yet (NotImplementedError, naming the ROADMAP.md item):
 `remat_segments=True` (to come on `torch.utils.checkpoint`),
-`fused_steps`, `training_health`, listeners, truncated BPTT,
-`rnn_time_step`.
+`fused_steps`, `training_health`, listeners.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from ...common.device import card_numerics, to_port, to_public
 from ...datasets.dataset import DataSet, MultiDataSet
 from ...datasets.iterators import DataSetIterator, next_processed
 from ..conf.computation_graph_configuration import ComputationGraphConfiguration
+from ..conf.layers.recurrent import BaseRecurrentLayer
 from ..multilayer import Network, _host, mean_score, not_ported
 
 
@@ -60,12 +62,15 @@ class ComputationGraph(Network):
     # Forward: per vertex in topological order
     # ------------------------------------------------------------------
     def _apply_graph(self, params, state, inputs, *, train, rng,
-                     fmasks=None):
-        """inputs: input name -> tensor (compute type). Returns
-        (activations incl. inputs, new state, masks)."""
+                     fmasks=None, carries=None):
+        """inputs: input name -> tensor (compute type); carries: layer
+        name -> carry (TBPTT, `rnn_time_step`), or None for zero carries.
+        Returns (activations incl. inputs, new state, masks, new carries;
+        None without `carries`)."""
         acts = dict(inputs)
         masks = {n: (fmasks.get(n) if fmasks else None) for n in inputs}
         new_state = dict(state)
+        new_carries = dict(carries) if carries is not None else None
         for name in self.conf.topological_order:
             spec = self.conf.vertices[name]
             in_acts = [acts[i] for i in spec.inputs]
@@ -75,7 +80,12 @@ class ComputationGraph(Network):
                 x = in_acts[0]
                 if spec.preprocessor is not None:
                     x = spec.preprocessor.pre_process(x)
-                if layer.has_state():
+                if (isinstance(layer, BaseRecurrentLayer)
+                        and carries is not None):
+                    out, new_carries[name] = layer.forward_with_carry(
+                        params[name], x, carries[name], train=train, rng=rng,
+                        mask=in_masks[0])
+                elif layer.has_state():
                     out, new_state[name] = layer.forward_with_state(
                         params[name], x, state[name], train=train, rng=rng,
                         mask=in_masks[0])
@@ -89,7 +99,7 @@ class ComputationGraph(Network):
                                         rng=rng)
                 masks[name] = spec.conf.output_mask(in_masks)
             acts[name] = out
-        return acts, new_state, masks
+        return acts, new_state, masks, new_carries
 
     def _inputs(self, features):
         if isinstance(features, dict):
@@ -130,11 +140,13 @@ class ComputationGraph(Network):
     # ------------------------------------------------------------------
     # Loss over the output vertices
     # ------------------------------------------------------------------
-    def _loss(self, features, labels, fmasks, lmasks, train, rng):
+    def _loss(self, features, labels, fmasks, lmasks, train, rng,
+              carries=None):
+        """(score, new layer state, new carries)."""
         params = self._cast_params()
-        acts, new_state, _ = self._apply_graph(
+        acts, new_state, _, new_carries = self._apply_graph(
             params, self._states(), features, train=train, rng=rng,
-            fmasks=fmasks)
+            fmasks=fmasks, carries=carries)
         total = 0.0
         for oi, out_name in enumerate(self.conf.network_outputs):
             spec = self.conf.vertices[out_name]
@@ -149,7 +161,32 @@ class ComputationGraph(Network):
                 params[out_name], x, labels[oi], train=train, rng=rng,
                 mask=lmask)
             total = total + mean_score(per_ex)
-        return total + self._reg_score(), new_state
+        return total + self._reg_score(), new_state, new_carries
+
+    def _time_steps(self, batch):
+        """T from the first sequence input."""
+        features = batch[0]
+        seq = [f for f in features.values() if f.ndim >= 3]
+        return int(seq[0].shape[1]), int(next(iter(features.values()))
+                                          .shape[0])
+
+    def _segment(self, batch, t0, length):
+        """Only arrays with the whole time axis are sliced: sequence
+        inputs and labels (3-D) and their masks; static inputs, labels and
+        masks pass whole."""
+        features, labels, fmasks, lmasks = batch
+        T, _ = self._time_steps(batch)
+
+        def cut(a):
+            if a is None or a.ndim < 2 or a.shape[1] < T:
+                return a
+            return a[:, t0:t0 + length]
+
+        return ({n: cut(f) if f.ndim >= 3 else f
+                 for n, f in features.items()},
+                [cut(l) if l.ndim >= 3 else l for l in labels],
+                {n: cut(m) for n, m in fmasks.items()} if fmasks else None,
+                [cut(m) for m in lmasks] if lmasks else None)
 
     # ------------------------------------------------------------------
     # fit
@@ -167,8 +204,6 @@ class ComputationGraph(Network):
         self._ensure_init()
         if labels is not None:
             data = MultiDataSet(data, labels)
-        if self.conf.backprop_type == "tbptt":
-            raise not_ported("truncated BPTT", 18)
         if isinstance(data, (DataSet, MultiDataSet)):
             batch = self._batch(self._dataset(data))
             for _ in range(num_epochs):
@@ -209,7 +244,7 @@ class ComputationGraph(Network):
         inputs = self._inputs(features)
         with torch.no_grad(), card_numerics(self._device,
                                             self.compute_dtype):
-            acts, _, _ = self._apply_graph(
+            acts, *_ = self._apply_graph(
                 self._cast_params(), self._states(), inputs, train=train,
                 rng=self._dropout_gen if train else None,
                 fmasks=self._masks(features_masks))
@@ -225,6 +260,42 @@ class ComputationGraph(Network):
         return {n: to_public(a)
                 for n, a in self._forward(features, train).items()}
 
+    def rnn_time_step(self, *features):
+        """Streaming inference with the state carried between calls (see
+        MultiLayerNetwork.rnn_time_step): each input [B, F] is one step,
+        [B, T, F] a run; returns the outputs as a list of numpy arrays,
+        a single step's without its time axis. Raises if the batch size
+        differs from the held state's: call `rnn_clear_previous_state`
+        first."""
+        self._ensure_init()
+        if len(features) == 1 and isinstance(features[0],
+                                              (list, tuple, dict)):
+            features = features[0]
+        inputs = self._inputs(features)
+        single = all(x.ndim == 2 for x in inputs.values())
+        if single:
+            inputs = {n: x[:, None, :] for n, x in inputs.items()}
+        B = int(next(iter(inputs.values())).shape[0])
+        if self._rnn_state:
+            held = next(iter(next(iter(self._rnn_state.values())).values()))
+            if held.shape[0] != B:
+                raise ValueError(
+                    f"rnn_time_step batch size changed ({held.shape[0]} -> "
+                    f"{B}); call rnn_clear_previous_state() first")
+        if self._rnn_state is None:
+            self._rnn_state = self._init_carries(B)
+        with torch.no_grad(), card_numerics(self._device,
+                                            self.compute_dtype):
+            acts, _, _, self._rnn_state = self._apply_graph(
+                self._cast_params(), self._states(), inputs, train=False,
+                rng=None, carries=self._rnn_state)
+        outs = [acts[n] for n in self.conf.network_outputs]
+        if single:
+            outs = [o[:, 0] if o.ndim >= 3 else o for o in outs]
+        return [to_public(o) for o in outs]
+
+    rnnTimeStep = rnn_time_step
+
     def make_inference_fn(self):
         """The pure inference step `(params, state, x) -> [outputs]`, the
         graph's twin of MultiLayerNetwork.make_inference_fn: `x` is one
@@ -237,9 +308,9 @@ class ComputationGraph(Network):
             feats = x if isinstance(x, dict) else {in_names[0]: x}
             with torch.no_grad(), card_numerics(self._device,
                                                 self.compute_dtype):
-                acts, _, _ = self._apply_graph(params, state,
-                                               self._inputs(feats),
-                                               train=False, rng=None)
+                acts, *_ = self._apply_graph(params, state,
+                                             self._inputs(feats),
+                                             train=False, rng=None)
             return [acts[n] for n in self.conf.network_outputs]
 
         return infer
@@ -281,7 +352,9 @@ class ComputationGraph(Network):
 
 def _keeps_time_axis(layer):
     """Whether the layer's output keeps its input's time axis (so the mask
-    stays meaningful)."""
+    stays meaningful): recurrent layers and per-step heads."""
+    if isinstance(layer, BaseRecurrentLayer):
+        return True
     return getattr(layer, "layer_type", "") in ("rnnoutput", "activation",
                                                 "dropoutlayer", "batchnorm",
                                                 "loss")

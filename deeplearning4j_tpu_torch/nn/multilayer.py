@@ -24,6 +24,14 @@ format, the same bytes), and `params()` / `set_params()` /
 `from_jax_params()` / the model zip in the reference's layout (HWIO
 kernels) and flat order (`_param_sort_key`).
 
+Recurrent layers carry their state (h, c) through `forward_with_carry`.
+With `backprop_type="tbptt"` a `fit` step is truncated BPTT: the time axis
+is cut into `tbptt_fwd_length` segments (the last one short when the
+length does not divide T), one updater step per segment, the carries
+handed on between segments detached, so no gradient crosses a segment
+boundary and memory does not grow with T. `rnn_time_step` streams: the
+carries stay on the network between calls until `rnn_clear_previous_state`.
+
 `fit` also takes a DataSetIterator: the batches are staged onto the
 network's device by `datasets.iterators.AsyncDataSetIterator` while the
 previous step runs (a bf16 feature wire for bf16 networks), with the
@@ -35,8 +43,8 @@ Entry points run on the CUDA card unless the caller passes device="cpu";
 on the card float32 networks run with TF32 off (`card_numerics`).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): `fused_steps`, `training_health`, listeners, truncated BPTT,
-`pretrain`, `rnn_time_step`.
+item): `fused_steps` (with it the fused TBPTT route), `training_health`,
+listeners, `pretrain`.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from ..datasets.dataset import DataSet
 from ..datasets.iterators import (AsyncDataSetIterator, DataSetIterator,
                                   ListDataSetIterator, next_processed,
                                   wrap_async_for_fit)
+from .conf.layers.recurrent import BaseRecurrentLayer
 from .conf.neural_net_configuration import MultiLayerConfiguration
 from .updater import updaters as U
 
@@ -115,6 +124,7 @@ class Network(nn.Module):
         self._pos = None
         self._updater_state = None   # key -> param -> state name -> tensor
         self._score = None
+        self._rnn_state = None       # rnn_time_step's carries, per layer
 
     # -- what a subclass provides ------------------------------------------
     def _keyed_layers(self):
@@ -124,6 +134,14 @@ class Network(nn.Module):
         raise NotImplementedError
 
     def _untree(self, tree):
+        raise NotImplementedError
+
+    def _time_steps(self, batch):
+        """(T, batch size) of a device batch of sequences."""
+        raise NotImplementedError
+
+    def _segment(self, batch, t0, length):
+        """The TBPTT segment [t0, t0 + length) of a device batch."""
         raise NotImplementedError
 
     # ------------------------------------------------------------------
@@ -186,10 +204,36 @@ class Network(nn.Module):
         return self._states()
 
     def _step(self, batch):
-        """num_iterations optimizer steps on one device batch."""
+        """num_iterations optimizer steps on one device batch, or with
+        truncated BPTT one step per segment."""
+        if self.conf.backprop_type == "tbptt":
+            return self._fit_tbptt(batch)
         for _ in range(int(self.conf.global_conf.get("num_iterations", 1))):
             with obs.TRACER.span("train.dispatch", cat="train"):
                 self._train_step(lambda rng: self._loss(*batch, True, rng))
+
+    def _init_carries(self, batch_size):
+        """Every recurrent layer's zero carry, by key, in the compute type
+        (the reference's choice: a recurrent forward returns its carry in
+        the compute type)."""
+        return {key: layer.init_carry(batch_size, self.compute_dtype,
+                                      self._device)
+                for key, layer in self._keyed_layers()
+                if isinstance(layer, BaseRecurrentLayer)}
+
+    def _fit_tbptt(self, batch):
+        """Truncated BPTT over one device batch: one updater step per
+        `tbptt_fwd_length` segment, iteration_count advanced per segment,
+        the recurrent state carried across segments without its gradient
+        (each segment starts from detached carries)."""
+        T, n = self._time_steps(batch)
+        L = int(self.conf.tbptt_fwd_length)
+        carries = self._init_carries(n)
+        for t0 in range(0, T, L):
+            seg = self._segment(batch, t0, L)
+            with obs.TRACER.span("train.dispatch", cat="train", tbptt=True):
+                carries = _detached(self._train_step(
+                    lambda rng: self._loss(*seg, True, rng, carries)))
 
     def _fit_iterator(self, it, num_epochs):
         """fit over an iterator, with the reference's epoch semantics: a
@@ -242,9 +286,9 @@ class Network(nn.Module):
 
     def _train_step(self, loss_fn):
         """One optimizer step on the loss `loss_fn(rng)` -> (score, new
-        layer state)."""
+        layer state, new carries). Returns the new carries."""
         with card_numerics(self._device, self.compute_dtype):
-            score, new_state = loss_fn(self._dropout_gen)
+            score, new_state, new_carries = loss_fn(self._dropout_gen)
             grads = self._grads(score)
             minimize = self.conf.global_conf.get("minimize", True)
             it = self.conf.iteration_count
@@ -255,6 +299,7 @@ class Network(nn.Module):
             self._store_state(new_state)
         self._score = score.detach()
         self.conf.iteration_count += 1
+        return new_carries
 
     @torch.no_grad()
     def _store_state(self, new_state):
@@ -275,8 +320,8 @@ class Network(nn.Module):
         batch = self._batch(self._dataset(data))
         with torch.no_grad(), card_numerics(self._device,
                                             self.compute_dtype):
-            s, _ = self._loss(*batch, training,
-                              self._dropout_gen if training else None)
+            s, *_ = self._loss(*batch, training,
+                               self._dropout_gen if training else None)
         return float(s)
 
     def _gradient_and_score(self, batch, train):
@@ -285,8 +330,8 @@ class Network(nn.Module):
         reference uses PRNGKey(0)."""
         self._ensure_init()
         with card_numerics(self._device, self.compute_dtype):
-            score, _ = self._loss(*batch, train,
-                                  torch.Generator(self._device).manual_seed(0))
+            score, *_ = self._loss(
+                *batch, train, torch.Generator(self._device).manual_seed(0))
             grads = self._grads(score)
         return self._tree(grads), float(score.detach())
 
@@ -418,6 +463,12 @@ class Network(nn.Module):
                 for key, per in self._updater_state.items()}
         return net
 
+    def rnn_clear_previous_state(self):
+        """Forget the state `rnn_time_step` carries between calls."""
+        self._rnn_state = None
+
+    rnnClearPreviousState = rnn_clear_previous_state
+
     # -- not ported yet ------------------------------------------------
     def fused_steps(self, k=8):
         raise not_ported("fused_steps", 17)
@@ -428,8 +479,11 @@ class Network(nn.Module):
     def set_listeners(self, *listeners):
         raise not_ported("listeners", 16)
 
-    def rnn_time_step(self, *args, **kwargs):
-        raise not_ported("rnn_time_step", 18)
+
+def _detached(carries):
+    """Carries (key -> name -> tensor) cut from the autograd graph."""
+    return {key: {n: t.detach() for n, t in c.items()}
+            for key, c in carries.items()}
 
 
 def _to_numpy(t):
@@ -466,49 +520,71 @@ class MultiLayerNetwork(Network):
     # Forward
     # ------------------------------------------------------------------
     def _apply_layers(self, params, state, x, *, train, rng, fmask=None,
-                      upto=None):
-        """Forward through layers [0, upto) -> (activations, new state)."""
+                      upto=None, carries=None):
+        """Forward through layers [0, upto) -> (activations, new state,
+        new carries). With `carries` (index -> carry), each recurrent layer
+        starts from its carry; without, from zero, and new carries is
+        None."""
         n = len(self.layers) if upto is None else upto
         acts = []
         new_state = dict(state)
+        new_carries = dict(carries) if carries is not None else None
         for i in range(n):
             layer = self.layers[i]
             if i in self.conf.preprocessors:
                 x = self.conf.preprocessors[i].pre_process(x)
-            if layer.has_state():
+            if isinstance(layer, BaseRecurrentLayer) and carries is not None:
+                x, new_carries[i] = layer.forward_with_carry(
+                    params[i], x, carries[i], train=train, rng=rng,
+                    mask=fmask)
+            elif layer.has_state():
                 x, new_state[i] = layer.forward_with_state(
                     params[i], x, state[i], train=train, rng=rng, mask=fmask)
             else:
                 x = layer.forward(params[i], x, train=train, rng=rng,
                                   mask=fmask)
             acts.append(x)
-        return acts, new_state
+        return acts, new_state, new_carries
 
     def _input(self, x):
         x = to_port(x, self._device)
         return x.to(self.compute_dtype) if x.is_floating_point() else x
 
     def _output_layer_input(self, params, state, x, *, train, rng,
-                            fmask=None):
-        """(h, new state, acts): the output layer's input after its
-        preprocessor, and the interior activations."""
+                            fmask=None, carries=None):
+        """(h, new state, new carries, acts): the output layer's input
+        after its preprocessor, and the interior activations."""
         i = len(self.layers) - 1
-        acts, new_state = self._apply_layers(params, state, x, train=train,
-                                             rng=rng, fmask=fmask, upto=i)
+        acts, new_state, new_carries = self._apply_layers(
+            params, state, x, train=train, rng=rng, fmask=fmask, upto=i,
+            carries=carries)
         h = acts[-1] if acts else x
         if i in self.conf.preprocessors:
             h = self.conf.preprocessors[i].pre_process(h)
-        return h, new_state, acts
+        return h, new_state, new_carries, acts
 
-    def _loss(self, features, labels, fmask, lmask, train, rng):
+    def _loss(self, features, labels, fmask, lmask, train, rng,
+              carries=None):
+        """(score, new layer state, new carries)."""
         params = self._cast_params()
-        h, new_state, _ = self._output_layer_input(
+        h, new_state, new_carries, _ = self._output_layer_input(
             params, self._states(), features, train=train, rng=rng,
-            fmask=fmask)
+            fmask=fmask, carries=carries)
         i = len(self.layers) - 1
         per_ex = self.layers[i].compute_score_per_example(
             params[i], h, labels, train=train, rng=rng, mask=lmask)
-        return mean_score(per_ex) + self._reg_score(), new_state
+        return mean_score(per_ex) + self._reg_score(), new_state, new_carries
+
+    def _time_steps(self, batch):
+        return int(batch[0].shape[1]), int(batch[0].shape[0])
+
+    def _segment(self, batch, t0, length):
+        features, labels, fmask, lmask = batch
+        cut = slice(t0, t0 + length)
+        return (features[:, cut],
+                labels[:, cut] if labels.ndim >= 3 else labels,
+                None if fmask is None else fmask[:, cut],
+                None if lmask is None else lmask[:, cut])
 
     def _batch(self, ds):
         dev = self._device
@@ -529,8 +605,6 @@ class MultiLayerNetwork(Network):
         self._ensure_init()
         if labels is not None:
             data = DataSet(data, labels, features_mask, labels_mask)
-        if self.conf.backprop_type == "tbptt":
-            raise not_ported("truncated BPTT", 18)
         if isinstance(data, DataSetIterator):
             return self._fit_iterator(data, num_epochs)
         batch = self._batch(self._dataset(data))
@@ -548,15 +622,19 @@ class MultiLayerNetwork(Network):
         return data
 
     def pretrain(self, *args, **kwargs):
-        raise not_ported("layerwise pretraining", 18)
+        raise not_ported("layerwise pretraining", "18b")
 
 
     # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------
     def _forward_out(self, params, state, x, *, train, rng, fmask=None):
-        h, _, _ = self._output_layer_input(params, state, x, train=train,
-                                           rng=rng, fmask=fmask)
+        h, _, _, _ = self._output_layer_input(params, state, x, train=train,
+                                              rng=rng, fmask=fmask)
+        return self._head(params, state, h, train=train, rng=rng)
+
+    def _head(self, params, state, h, *, train, rng):
+        """The output layer's activations for its input `h`."""
         i = len(self.layers) - 1
         layer = self.layers[i]
         if layer.has_state():
@@ -576,6 +654,29 @@ class MultiLayerNetwork(Network):
                                     train=train, fmask=fmask,
                                     rng=self._dropout_gen if train else None)
         return to_public(out)
+
+    def rnn_time_step(self, x):
+        """Streaming inference: x [B, F] is one time step, [B, T, F] a
+        run of them; returns the output with the same time rank, as numpy.
+        Each recurrent layer starts from the state the previous call left
+        (zero after `rnn_clear_previous_state`) and keeps its new one."""
+        self._ensure_init()
+        x = self._input(x)
+        single = x.ndim == 2
+        if single:
+            x = x[:, None, :]
+        if self._rnn_state is None:
+            self._rnn_state = self._init_carries(int(x.shape[0]))
+        with torch.no_grad(), card_numerics(self._device,
+                                            self.compute_dtype):
+            params, state = self._cast_params(), self._states()
+            h, _, self._rnn_state, _ = self._output_layer_input(
+                params, state, x, train=False, rng=None,
+                carries=self._rnn_state)
+            out = self._head(params, state, h, train=False, rng=None)
+        return to_public(out[:, 0] if single else out)
+
+    rnnTimeStep = rnn_time_step
 
     def make_inference_fn(self):
         """The pure inference step `(params, state, x) -> out` that
@@ -635,7 +736,7 @@ class MultiLayerNetwork(Network):
         self._ensure_init()
         with torch.no_grad(), card_numerics(self._device,
                                             self.compute_dtype):
-            acts, _ = self._apply_layers(
+            acts, _, _ = self._apply_layers(
                 self._cast_params(), self._states(), self._input(x),
                 train=train, rng=self._dropout_gen if train else None)
         return [np.asarray(x)] + [to_public(a) for a in acts]

@@ -269,12 +269,17 @@ def test_golden_conf_json_round_trips(J, name):
         assert want == text
 
 
-def test_conf_naming_an_unported_layer_raises_with_its_roadmap_item():
-    with zipfile.ZipFile(os.path.join(GOLDEN, "lstm.zip")) as zf:
-        text = zf.read("configuration.json").decode("utf-8")
-    with pytest.raises(NotImplementedError, match="graveslstm.*item 18"):
+def test_conf_naming_an_unported_layer_raises_with_its_roadmap_item(J):
+    """A reference document with a VAE layer (ROADMAP.md item 18b)."""
+    from deeplearning4j_tpu.nn.conf import layers as JLy
+    from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration as JNNC
+    text = (JNNC.Builder().seed(1).list()
+            .layer(JLy.VariationalAutoencoder(n_in=6, n_out=3))
+            .layer(JLy.OutputLayer(n_in=3, n_out=2)).build().to_json())
+    with pytest.raises(NotImplementedError, match="vae.*item 18b"):
         MultiLayerConfiguration.from_json(text)
-    with pytest.raises(NotImplementedError, match="vae.*item 18"):
+    with pytest.raises(NotImplementedError, match="vae.*item 18b"):
         TLy.VariationalAutoencoder(n_out=3)
 
 
@@ -381,8 +386,7 @@ def test_unported_paths_raise_with_their_roadmap_items():
     for call, item in ((lambda: net.fused_steps(4), "item 17"),
                        (lambda: net.training_health(), "item 17"),
                        (lambda: net.set_listeners(object()), "item 16"),
-                       (lambda: net.rnn_time_step(None), "item 18"),
-                       (lambda: net.pretrain(None), "item 18")):
+                       (lambda: net.pretrain(None), "item 18b")):
         with pytest.raises(NotImplementedError, match=item):
             call()
 

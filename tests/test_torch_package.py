@@ -1,7 +1,7 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
-`chip_bwd_ab.py` and `chip_fwd_ab.py` import neither JAX nor anything of
-the JAX package `deeplearning4j_tpu`, and importing the port builds no
-kernel and needs no card."""
+`chip_bwd_ab.py`, `chip_fwd_ab.py` and `chip_recurrent.py` import neither
+JAX nor anything of the JAX package `deeplearning4j_tpu`, and importing the
+port builds no kernel and needs no card."""
 import os
 import re
 import subprocess
@@ -25,6 +25,9 @@ import deeplearning4j_tpu_torch.nn.graph.computation_graph
 import deeplearning4j_tpu_torch.util.model_serializer
 import deeplearning4j_tpu_torch.models.zoo.lenet
 import deeplearning4j_tpu_torch.models.zoo.resnet
+import deeplearning4j_tpu_torch.models.zoo.char_rnn
+import deeplearning4j_tpu_torch.nn.conf.layers.recurrent
+import deeplearning4j_tpu_torch.nn.conf.layers.attention
 import deeplearning4j_tpu_torch.obs
 import deeplearning4j_tpu_torch.obs.decompose
 import deeplearning4j_tpu_torch.common.resilience
@@ -73,7 +76,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py"]))
+    + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
+       "chip_recurrent.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"

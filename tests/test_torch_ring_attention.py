@@ -11,7 +11,13 @@ versions. The same cases run again on a ring of 2: the group of global
 ranks [1, 3], whose group ranks differ from their global ones. Each rank
 saves its chunks and the parent concatenates them along T.
 
-Shapes: B=2, T=32, H=2, D=16, f32 (chunks of 8 and 16). A ring of any size
+The ranks also run `SelfAttentionLayer.with_sequence_parallel(group)`
+(causal, key mask): each rank's chunk of the output and of the input's
+gradient, and the parameters' gradient summed over the ranks, against the
+local layer over the whole sequence (the einsum route on both sides).
+
+Shapes: B=2, T=32, H=2, D=16, f32 (chunks of 8 and 16); the layer's width
+is H*D = 32. A ring of any size
 computes the same global function, only the order of the f32 sums
 changes, so the JAX ring of 4 is the reference for both. Tolerances: 1e-5
 abs for f32 outputs and for the gradients of mean(out**2) (JAX's own
@@ -39,12 +45,14 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from deeplearning4j_tpu_torch.nn.conf.layers import SelfAttentionLayer
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.parallel import ring_attention as ra
 
 REPO = Path(__file__).resolve().parents[1]
 B, T, H, D = 2, 32, 2, 16      # D: a head dim the kernels take
-SEED, BF16_SEED = 3, 11
+SEED, BF16_SEED, LAYER_SEED = 3, 11, 13
+WIDTH = H * D                  # the attention layer's model width
 PAIR = [1, 3]            # the ring of 2: these global ranks
 GROUP_TIMEOUT_S, JOIN_TIMEOUT_S = 60, 120
 # every row keeps key 0, so no row of the masked cases sees only masked keys
@@ -57,6 +65,32 @@ def _qkv(seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((B, T, H, D)).astype(np.float32)
             for _ in range(3)]
+
+
+def _layer_inputs():
+    """(parameters, x [B, T, WIDTH]) of the sequence-parallel layer case."""
+    rng = np.random.default_rng(LAYER_SEED)
+    params = {k: (0.3 * rng.standard_normal(
+        (WIDTH,) if k == "b" else (WIDTH, WIDTH))).astype(np.float32)
+        for k in ("Wq", "Wk", "Wv", "Wo", "b")}
+    return params, rng.standard_normal((B, T, WIDTH)).astype(np.float32)
+
+
+def _attention_layer():
+    return SelfAttentionLayer(n_in=WIDTH, n_out=WIDTH, n_heads=H,
+                              causal=True)
+
+
+def _layer_grads(layer, params, x, mask):
+    """(out, dx, flat parameter gradient) of mean(out**2) over the whole
+    sequence's elements (a rank's share of it on a rank)."""
+    params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    x = x.clone().requires_grad_()
+    out = layer.forward(params, x, mask=mask)
+    loss = (out ** 2).sum() / (B * T * WIDTH)
+    grads = torch.autograd.grad(loss, [x] + list(params.values()))
+    return out.detach(), grads[0], torch.cat([g.reshape(-1)
+                                              for g in grads[1:]])
 
 
 def _bf16_qkv():
@@ -101,6 +135,16 @@ def _rank_cases(group, device):
     qb, kb, vb = (_chunk(a, n, r, torch.bfloat16, device)
                   for a in _bf16_qkv())
     res["bf16"] = _loss_and_grads(qb, kb, vb, group, True, True)
+    # the layer on the ring: the parameters' gradient summed over the
+    # ranks, kept as [1, 1, P] so that the ranks' copies line up along T
+    params, x = _layer_inputs()
+    out, dx, dp = _layer_grads(
+        _attention_layer().with_sequence_parallel(group),
+        {k: torch.from_numpy(v).to(device) for k, v in params.items()},
+        _chunk(x, n, r, torch.float32, device), mask)
+    dp = dp.cpu()
+    dist.all_reduce(dp, group=group)
+    res["layer"] = [out, dx, dp[None, None, :]]
     return {key: [t.cpu() for t in val] for key, val in res.items()}
 
 
@@ -263,6 +307,24 @@ def test_bf16_flash_grads_track_f32(port_rings, jax_rings, n):
         assert top > 0
         np.testing.assert_allclose(g.float().numpy() / top, want / top,
                                    rtol=0, atol=0.03, err_msg=name)
+
+
+@pytest.mark.parametrize("n", RING_SIZES)
+def test_sequence_parallel_attention_layer_matches_local(port_rings, n):
+    """Each rank's output and input gradient is the local layer's slice
+    over the whole sequence, and the ranks' summed parameter gradient is
+    the local one, f32 1e-5. The local layer is held against JAX's in
+    tests/test_torch_recurrent.py."""
+    out, dx, dp = port_rings[0][n]["layer"]
+    params, x = _layer_inputs()
+    want = _layer_grads(_attention_layer(),
+                        {k: torch.from_numpy(v) for k, v in params.items()},
+                        torch.from_numpy(x), torch.from_numpy(MASK))
+    torch.testing.assert_close(out, want[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(dx, want[1], rtol=0, atol=1e-5)
+    assert dp.shape == (1, n, want[2].numel())
+    for rank_dp in dp[0]:
+        torch.testing.assert_close(rank_dp, want[2], rtol=0, atol=1e-5)
 
 
 def test_cpu_ranks_count_no_launch(port_rings):
