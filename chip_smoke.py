@@ -189,10 +189,38 @@ of the port, and the counters must read 0 after it.
      time by kernel kind, the device's busy share, launches per segment;
      then the DL4J char example's streaming: `rnn_time_step` over a
      50-char primer and 200 single greedy steps at batch 64, ms per step.
+Phase 24 drives the embeddings path: BASELINE.md configuration #4,
+Word2Vec / ParagraphVectors skip-gram with negative sampling
+(`models/embeddings/learning.py`, `sequencevectors/`, `word2vec/`,
+`paragraphvectors/`, `glove/`), pairs from the native generator
+(native/dl4j_tpu_native.cpp through `common/native_ops.py`; the phase fails
+without it). Its steps are torch gathers, batched products and a
+deterministic scatter-add, one CUDA graph a flush shape, as XLA runs the
+JAX package's `lax.scan`: no kernel of the port, and the counters must read
+0 after it.
+ 24. (a) f32, card against CPU from the same numpy tables and pair arrays
+     (V=10,000 words with counts zipf(1.5), D=100, window 5): one flush of
+     skip-gram with negative sampling at 65,536 and at 4,096 pairs, of
+     skip-gram with hierarchical softmax (T = the longest Huffman code) and
+     of CBOW, each within 1e-5, its chunks checked to repeat ids, and on
+     the card graph == its rerun == eager, bit for bit; one GloVe AdaGrad
+     batch of 8,192 co-occurrence entries, 1e-5, two card runs bit-equal;
+     then the JAX package's toy fits on the card (tests/test_word2vec.py's
+     corpus): Word2Vec skip-gram HS and negative, CBOW (the cluster pin:
+     intra > inter + 0.2, the nearest words in the cluster), ParagraphVectors
+     DBOW (document clusters) and DM (`infer_vector`), GloVe, each through
+     the serializer and back; (b) config 4 at full width as bench.py runs
+     it: sequences of 40 random ids through the native corpus route (256
+     a call), arms of 65,536 and 4,096 pairs a flush, each as a CUDA graph
+     and eager, 5 interleaved segments of 640 sequences after 100, every
+     arm on the same chunk: pairs/s (median, best), ms a flush, a
+     torch.profiler trace of one segment (device time, busy share, kernels
+     a flush), peak memory, and graph and eager tables bit-equal at the
+     end; then `SequenceVectors.fit` once at full width.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
-...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, one
-{"kernels": [...]} JSON line and, as the last line, {"ok": true,
-"device": {...}}. It imports nothing of JAX.
+...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, an
+{"embeddings": ...} line, one {"kernels": [...]} JSON line and, as the last
+line, {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 import json
 import math
@@ -696,6 +724,7 @@ def main():
     core, serving = training_core_phases(fa)
     decode = decode_serving_phase(fa)
     recurrent = char_rnn_phase(fa)
+    embeddings = embeddings_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -725,6 +754,7 @@ def main():
     print(json.dumps({"data_and_serving": serving}))
     print(json.dumps({"decode_serving": decode}))
     print(json.dumps({"recurrent": recurrent}))
+    print(json.dumps({"embeddings": embeddings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3185,6 +3215,456 @@ def char_rnn_phase(fa):
     out["flash_launches"] = dict(fa.launches)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 23 launched no kernel of the port: {fa.launches}; "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the embeddings path (BASELINE.md configuration #4)
+# ---------------------------------------------------------------------------
+
+EMB_V, EMB_D, EMB_NEG, EMB_WINDOW = 10_000, 100, 5, 5
+EMB_SEQ, EMB_SEGMENTS, EMB_PER_SEG, EMB_WARM = 40, 5, 640, 100
+EMB_TOL = 1e-5
+ANIMALS = ["cat", "dog", "pet", "fur", "tail", "paw", "claw", "kitten",
+           "puppy", "whisker", "leash", "collar"]
+VEHICLES = ["car", "truck", "road", "wheel", "engine", "tire", "brake",
+            "gear", "fuel", "axle", "lane", "horn"]
+
+
+def _emb_vocab(seed=24):
+    """bench.py's config-4 vocabulary: V words with counts zipf(1.5), ranked,
+    with Huffman codes."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.word2vec.vocab import (
+        VocabCache, build_huffman)
+    rng = np.random.default_rng(seed)
+    vocab = VocabCache()
+    for i in range(EMB_V):
+        vocab.add_token(f"w{i}", count=int(rng.zipf(1.5)))
+    vocab.finish()
+    return build_huffman(vocab)
+
+
+def _emb_learner(vocab, algo, hs, batch_pairs, device, graph=True):
+    from deeplearning4j_tpu_torch.models.embeddings import learning
+    from deeplearning4j_tpu_torch.models.embeddings.lookup_table import \
+        InMemoryLookupTable
+    neg = 0 if hs else EMB_NEG
+    table = InMemoryLookupTable(vocab, EMB_D, seed=1, negative=neg,
+                                use_hs=hs).reset_weights()
+    learner = learning.ELEMENTS_LEARNING[algo](batch_pairs=batch_pairs,
+                                               cuda_graph=graph)
+    return learner.configure(vocab, table, window=EMB_WINDOW, negative=neg,
+                             use_hs=hs, seed=1, device=device)
+
+
+def _emb_tables(learner):
+    return [learner._fetch(learner._syn0), learner._fetch(learner._syn1)]
+
+
+def _chunk_repeats(idx):
+    """Share of 64-row chunks of idx [B, ...] that hold some id twice
+    (padding, -1, left out): the flush's chunks are these rows."""
+    import numpy as np
+    idx = np.asarray(idx)
+    chunks = idx.reshape(-1, 64 * int(np.prod(idx.shape[1:])))
+    return float(np.mean([len(np.unique(c[c >= 0])) < (c >= 0).sum()
+                          for c in chunks]))
+
+
+def emb_flush_check(vocab, label, algo, hs, batch_pairs, pairs):
+    """Phase 24(a): one flush of `pairs` from the same numpy tables on the
+    card (graph, its rerun, eager) and on the CPU. Returns its readings."""
+    import numpy as np
+    repeats = {"rows": _chunk_repeats(pairs[0]),
+               "predicted": _chunk_repeats(pairs[1])}
+    runs = {}
+    for name, device, graph in (("graph", "cuda", True),
+                                ("graph_rerun", "cuda", True),
+                                ("eager", "cuda", False),
+                                ("cpu", "cpu", False)):
+        learner = _emb_learner(vocab, algo, hs, batch_pairs, device, graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if algo == "skipgram":
+            learner.enqueue_pairs(*pairs, 0.025)
+        else:
+            learner.enqueue_windows(*pairs, 0.025)
+        learner._flush(force=True)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        runs[name] = (_emb_tables(learner), ms, learner.flushes)
+    T = learner._max_code_len if hs else EMB_NEG + 1
+    if not all(repeats.values()):
+        raise SystemExit(f"{label}: no chunk repeats an id ({repeats}); the "
+                         f"determinism check would be vacuous")
+    err = max(_max_err(a, b) for a, b in zip(runs["graph"][0],
+                                              runs["cpu"][0]))
+    _check(f"{label}: tables, card vs CPU", err, EMB_TOL)
+    for other in ("graph_rerun", "eager"):
+        for a, b in zip(runs["graph"][0], runs[other][0]):
+            if not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+                raise SystemExit(f"{label}: graph and {other} tables differ "
+                                 f"({_max_err(a, b):.3e})")
+    moved = _max_err(runs["cpu"][0][0], _emb_learner(
+        vocab, algo, hs, batch_pairs, "cpu").lookup.syn0)
+    print(f"  {label}: graph == its rerun == eager, bit for bit; chunks "
+          f"repeating an id: {repeats}; syn0 moved up to {moved:.3e}; "
+          f"wall ms (first call, graph capture included): graph "
+          f"{runs['graph'][1]:.1f}, rerun {runs['graph_rerun'][1]:.1f}, "
+          f"eager {runs['eager'][1]:.1f}, CPU {runs['cpu'][1]:.1f}")
+    return {"max_abs_err": err, "chunks_with_repeats": repeats,
+            "batch_pairs": batch_pairs, "T": T,
+            "flushes": runs["graph"][2], "syn0_moved": moved,
+            "wall_ms": {k: v[1] for k, v in runs.items()}}
+
+
+def emb_glove_check(devices=("cuda", "cuda", "cpu")):
+    """Phase 24(a): one GloVe AdaGrad batch of 8,192 co-occurrence entries,
+    card (twice) vs CPU, from the same numpy state."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common import card_numerics, native_ops
+    from deeplearning4j_tpu_torch.models.glove.glove import glove_step
+    B = 8192
+    rng = np.random.default_rng(26)
+    seqs = [(rng.zipf(1.5, EMB_SEQ).clip(1, EMB_V) - 1).tolist()
+            for _ in range(400)]
+    ci, cj, cx = native_ops.glove_cooc(*native_ops.pack_corpus(seqs),
+                                       EMB_WINDOW, True)
+    pick = rng.permutation(len(ci))[:B]
+    wi, wj, x = ci[pick], cj[pick], cx[pick].astype(np.float64)
+    fx = (np.minimum(x / 100.0, 1.0) ** 0.75).astype(np.float32)
+    logx = np.log(np.maximum(x, 1e-12)).astype(np.float32)
+    init = lambda s: ((rng.random(s) - 0.5) / EMB_D).astype(  # noqa: E731
+        np.float32)
+    state = {"W": init((EMB_V, EMB_D)), "Wc": init((EMB_V, EMB_D)),
+             "b": init((EMB_V,)), "bc": init((EMB_V,))}
+    for k in ("W", "Wc", "b", "bc"):
+        state["h" + k] = np.abs(init(state[k].shape))
+    out = []
+    for dev in devices:
+        st = {k: torch.tensor(v, device=dev) for k, v in state.items()}
+        put = lambda a, dt: torch.as_tensor(  # noqa: E731
+            np.asarray(a)).to(dev, dt)
+        with card_numerics(torch.device(dev), torch.float32):
+            glove_step(st, put(wi, torch.int64), put(wj, torch.int64),
+                       put(logx, torch.float32), put(fx, torch.float32),
+                       put(np.float32(0.05), torch.float32))
+        out.append({k: v.cpu().numpy() for k, v in st.items()})
+    err = max(_max_err(out[0][k], out[2][k]) for k in state)
+    _check("GloVe batch of 8,192 entries: state, card vs CPU", err, EMB_TOL)
+    if not all(np.array_equal(out[0][k], out[1][k]) for k in state):
+        raise SystemExit("GloVe: two card runs differ")
+    distinct = {"wi": len(set(wi.tolist())), "wj": len(set(wj.tolist()))}
+    if max(distinct.values()) == B:
+        raise SystemExit("GloVe: no repeated id in the batch; the "
+                         "determinism check would be vacuous")
+    print(f"  GloVe: two card runs bit-equal; distinct ids in the batch of "
+          f"{B}: {distinct}")
+    return {"max_abs_err": err, "entries": B, "distinct_ids": distinct}
+
+
+def emb_card_vs_cpu():
+    """Phase 24(a), the steps: card against CPU, and the card's bits."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common import native_ops
+    print(f"phase 24(a): embeddings flushes, card vs CPU, f32: V={EMB_V} "
+          f"(counts zipf(1.5)), D={EMB_D}, window {EMB_WINDOW}")
+    vocab = _emb_vocab()
+    rng = np.random.default_rng(25)
+    seqs = [rng.integers(0, EMB_V, EMB_SEQ).tolist() for _ in range(400)]
+    ids, offsets = native_ops.pack_corpus(seqs)
+    sg = native_ops.skipgram_pairs(ids, offsets, EMB_WINDOW, 25)
+    cbow = native_ops.cbow_contexts(ids, offsets, EMB_WINDOW, 25)
+    out = {"max_code_length": max(len(w.codes) for w in vocab.vocab_words())}
+    for label, algo, hs, bp, pairs in (
+            ("skip-gram, negative 5, 65,536 pairs", "skipgram", False,
+             65536, (sg[0][:65536], sg[1][:65536])),
+            ("skip-gram, negative 5, 4,096 pairs", "skipgram", False, 4096,
+             (sg[0][:4096], sg[1][:4096])),
+            (f"skip-gram, hierarchical softmax (T={out['max_code_length']}),"
+             f" 4,096 pairs", "skipgram", True, 4096,
+             (sg[0][:4096], sg[1][:4096])),
+            ("CBOW, negative 5, 4,096 windows", "cbow", False, 4096,
+             (cbow[0][:4096], cbow[1][:4096]))):
+        key = f"{algo}_{'hs' if hs else 'neg'}_{bp}"
+        out[key] = emb_flush_check(vocab, label, algo, hs, bp, pairs)
+    out["glove"] = emb_glove_check()
+    return out
+
+
+def _toy_corpus(n_repeat=150, seed=0):
+    """The JAX package's tests/test_word2vec.py toy corpus (one vehicle
+    word named differently): two topic clusters whose words never co-occur
+    across."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    seqs = []
+    for _ in range(n_repeat):
+        seqs.append(list(rng.choice(ANIMALS, 6, replace=False)))
+        seqs.append(list(rng.choice(VEHICLES, 6, replace=False)))
+    return seqs
+
+
+def _cluster_pin(label, model):
+    """The reference's pin (tests/test_word2vec.py:38-43)."""
+    intra = model.similarity("cat", "dog")
+    inter = model.similarity("cat", "car")
+    nearest = [str(w) for w in model.words_nearest("cat", top_n=4)]
+    print(f"  {label}: intra {intra:.3f}, inter {inter:.3f}, nearest "
+          f"{nearest}")
+    if not intra > inter + 0.2 or not set(nearest) <= set(ANIMALS):
+        raise SystemExit(f"{label}: cluster pin failed")
+    return {"intra": intra, "inter": inter, "nearest": nearest}
+
+
+def emb_toy_fits(tmp):
+    """Phase 24(a), end to end on the card: the reference's toy fits and
+    their pins, each round-tripped through the serializer."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import (Glove, ParagraphVectors,
+                                                 Word2Vec)
+    from deeplearning4j_tpu_torch.models.embeddings import serializer as ws
+    from deeplearning4j_tpu_torch.models.embeddings.model_utils import \
+        cosine_sim
+    print("phase 24(a): toy fits on the card (tests/test_word2vec.py's "
+          "corpus and pins), each through the serializer")
+    out = {}
+    for label, algo, neg, epochs in (("skipgram_hs", "skipgram", 0, 8),
+                                     ("skipgram_neg", "skipgram", 5, 8),
+                                     ("cbow_neg", "cbow", 5, 10)):
+        b = (Word2Vec.Builder().layer_size(24).window_size(3).seed(7)
+             .min_word_frequency(1).learning_rate(0.05).epochs(epochs)
+             .elements_learning_algorithm(algo))
+        b = b.negative_sample(neg) if neg else b.use_hierarchic_softmax(True)
+        t0 = time.perf_counter()
+        m = b.build().fit(_toy_corpus())
+        out[label] = _cluster_pin(f"Word2Vec {label}", m)
+        out[label]["fit_s"] = time.perf_counter() - t0
+        path = os.path.join(tmp, f"{label}.zip")
+        ws.write_full_model(m, path)
+        back = ws.read_full_model(path)
+        if not np.array_equal(back.lookup.syn0, m.lookup.syn0):
+            raise SystemExit(f"{label}: the full-model zip changed syn0")
+        _cluster_pin(f"  read back from {os.path.basename(path)}", back)
+    docs = [(f"DOC_{i}", t) for i, t in enumerate(_toy_corpus(60))]
+    for algo, epochs in (("dbow", 25), ("dm", 6)):
+        pv = (ParagraphVectors.Builder().layer_size(24).seed(7)
+              .learning_rate(0.05).epochs(epochs).negative_sample(5)
+              .sequence_learning_algorithm(algo).build())
+        t0 = time.perf_counter()
+        pv.fit(docs)
+        fit_s = time.perf_counter() - t0
+        path = os.path.join(tmp, f"pv_{algo}.zip")
+        ws.write_paragraph_vectors(pv, path)
+        back = ws.read_paragraph_vectors(path)
+        if (back.labels_source.get_labels() != pv.labels_source.get_labels()
+                or not np.array_equal(back.lookup.syn0, pv.lookup.syn0)):
+            raise SystemExit(f"ParagraphVectors {algo}: the zip differs")
+        if algo == "dbow":   # tests/test_word2vec.py:111-124
+            va0, va2, vv1 = (pv.get_label_vector(f"DOC_{i}")
+                             for i in (0, 2, 1))
+            same, other = cosine_sim(va0, va2), cosine_sim(va0, vv1)
+            ok = same > other + 0.15
+        else:                # :126-136, infer_vector on the restored model
+            inferred = back.infer_vector(["cat", "dog", "pet"])
+            same = cosine_sim(inferred, back.get_word_vector("fur"))
+            other = cosine_sim(inferred, back.get_word_vector("wheel"))
+            ok = same > other and inferred.shape == (24,)
+        print(f"  ParagraphVectors {algo}: same-cluster {same:.3f}, other "
+              f"{other:.3f}; zip round trip equal; {fit_s:.1f} s")
+        if not ok:
+            raise SystemExit(f"ParagraphVectors {algo}: pin failed")
+        out[f"pv_{algo}"] = {"same": same, "other": other, "fit_s": fit_s}
+    g = (Glove.Builder().layer_size(24).window_size(3).seed(7)
+         .learning_rate(0.1).epochs(25).build())
+    t0 = time.perf_counter()
+    g.fit(_toy_corpus())
+    out["glove"] = _cluster_pin("GloVe", g)
+    out["glove"]["fit_s"] = time.perf_counter() - t0
+    path = os.path.join(tmp, "glove.txt")
+    ws.write_glove_text(g, path)
+    err = _max_err(ws.read_word2vec_text(path).lookup.syn0, g.lookup.syn0)
+    _check("GloVe text export read back (6 decimals)", err, 1e-5)
+    return out
+
+
+def _emb_segment(learner, chunk):
+    """One segment of bench.py's config 4: the chunk through the native
+    corpus route, 256 sequences a call, then a forced flush. Returns
+    (pairs, seconds)."""
+    base = learner._flushed_pairs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(0, len(chunk), 256):
+        learner.learn_sequences_batch(chunk[j:j + 256], 0.025)
+    learner._flush(force=True)
+    torch.cuda.synchronize()
+    return learner._flushed_pairs - base, time.perf_counter() - t0
+
+
+def emb_full_width():
+    """Phase 24(b): config 4 as bench.py runs it, graph and eager."""
+    import statistics
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.common import native_ops
+    print(f"phase 24(b): config 4 at full width: skip-gram, V={EMB_V}, "
+          f"D={EMB_D}, negative {EMB_NEG}, window {EMB_WINDOW}, sequences of "
+          f"{EMB_SEQ} random ids; native pairs, 256 sequences a call; arms "
+          f"65,536 and 4,096 pairs a flush, each as a CUDA graph and eager; "
+          f"{EMB_SEGMENTS} interleaved segments of {EMB_PER_SEG} sequences "
+          f"after {EMB_WARM}")
+    vocab = _emb_vocab()
+    rng = np.random.default_rng(27)
+    seqs = [rng.integers(0, EMB_V, EMB_SEQ).tolist()
+            for _ in range(EMB_WARM + EMB_SEGMENTS * EMB_PER_SEG)]
+    arms = {f"batch{bp}_{mode}": _emb_learner(vocab, "skipgram", False, bp,
+                                              "cuda", mode == "graph")
+            for bp in (65536, 4096) for mode in ("graph", "eager")}
+    out = {"native_pairs": native_ops.available(), "arms": {}}
+    for name, learner in arms.items():      # warm: capture the graphs
+        t0 = time.perf_counter()
+        for s in seqs[:EMB_WARM]:
+            learner.learn_sequence(s, 0.025)
+        learner._flush(force=True)
+        torch.cuda.synchronize()
+        out["arms"][name] = {"warmup_s": time.perf_counter() - t0,
+                             "pairs_per_s": [], "flush_ms": []}
+    for i in range(EMB_SEGMENTS):
+        chunk = seqs[EMB_WARM + EMB_PER_SEG * i:
+                     EMB_WARM + EMB_PER_SEG * (i + 1)]
+        for name, learner in arms.items():
+            flushes = learner.flushes
+            pairs, secs = _emb_segment(learner, chunk)
+            arm = out["arms"][name]
+            arm["pairs_per_s"].append(pairs / secs)
+            arm["flush_ms"].append(1e3 * secs / (learner.flushes - flushes))
+            arm["flushes_per_segment"] = learner.flushes - flushes
+            arm["pairs_per_segment"] = pairs
+    for bp in (65536, 4096):
+        g, e = arms[f"batch{bp}_graph"], arms[f"batch{bp}_eager"]
+        for a, b in zip(_emb_tables(g), _emb_tables(e)):
+            if not np.array_equal(a, b):
+                raise SystemExit(f"batch {bp}: graph and eager tables differ "
+                                 f"after the segments ({_max_err(a, b)})")
+        if not all(np.isfinite(t).all() for t in _emb_tables(g)):
+            raise SystemExit(f"batch {bp}: tables not finite")
+    print("  after the segments, each arm's graph and eager tables are "
+          "bit-equal")
+    chunk = seqs[EMB_WARM:EMB_WARM + EMB_PER_SEG]
+    for name, learner in arms.items():
+        arm = out["arms"][name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        flushes = learner.flushes
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pairs, secs = _emb_segment(learner, chunk)
+        kernels = [e for e in prof.key_averages() if e.device_time_total]
+        busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+        n = learner.flushes - flushes
+        pps = arm["pairs_per_s"]
+        arm.update(
+            median_pairs_per_s=statistics.median(pps),
+            best_pairs_per_s=max(pps),
+            median_flush_ms=statistics.median(arm["flush_ms"]),
+            traced_segment_ms=1e3 * secs, traced_device_ms=busy_ms,
+            device_ms_per_flush=busy_ms / n,
+            device_busy_share=busy_ms / (1e3 * secs),
+            kernels_per_flush=sum(e.count for e in kernels) / n,
+            host_launches_per_flush=(1 if "graph" in name else
+                                     sum(e.count for e in kernels) / n),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            peak_over_held_gib=(torch.cuda.max_memory_allocated() - held)
+            / 2 ** 30,
+            top_kernels=[{"name": e.key[:80], "ms": e.device_time_total / 1e3,
+                          "count": e.count} for e in sorted(
+                              kernels, key=lambda e: -e.device_time_total)[:6]])
+        print(f"  {name}: pairs/s median {arm['median_pairs_per_s']:.0f}, "
+              f"best {arm['best_pairs_per_s']:.0f} (segments "
+              f"{[round(v) for v in pps]}); {arm['median_flush_ms']:.2f} ms a "
+              f"flush ({arm['flushes_per_segment']} flushes, "
+              f"{arm['pairs_per_segment']} pairs a segment); traced segment: "
+              f"{busy_ms:.1f} ms of device time in {secs * 1e3:.1f} ms "
+              f"(busy {arm['device_busy_share']:.1%}), "
+              f"{arm['kernels_per_flush']:.0f} kernels a flush; peak "
+              f"{arm['peak_memory_gib']:.3f} GiB "
+              f"({arm['peak_over_held_gib']:.3f} over what was held)")
+        for k in arm["top_kernels"][:3]:
+            print(f"      {k['ms']:8.2f} ms x{k['count']:<7d} {k['name']}")
+    for bp in (65536, 4096):
+        g = out["arms"][f"batch{bp}_graph"]["median_pairs_per_s"]
+        e = out["arms"][f"batch{bp}_eager"]["median_pairs_per_s"]
+        out[f"graph_over_eager_{bp}"] = g / e
+        print(f"  batch {bp}: graph / eager pairs/s (medians) {g / e:.2f}x")
+    return out
+
+
+def emb_sequence_vectors_fit():
+    """Phase 24(b): the user's entry point at full width, once:
+    `SequenceVectors.fit` (vocab, the native corpus route, one graph a
+    flush shape) over 740 sequences of 40 random tokens of V words,
+    negative 5, 65,536 pairs a flush."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import SequenceVectors
+    rng = np.random.default_rng(28)
+    seqs = [[f"w{i}" for i in rng.integers(0, EMB_V, EMB_SEQ)]
+            for _ in range(EMB_WARM + EMB_PER_SEG)]
+    sv = SequenceVectors(vector_length=EMB_D, window=EMB_WINDOW,
+                         negative=EMB_NEG, use_hierarchic_softmax=False,
+                         batch_pairs=65536, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sv.fit(seqs)
+    secs = time.perf_counter() - t0
+    W = sv.get_word_vector_matrix()
+    if W.shape != (len(sv.vocab), EMB_D) or not np.isfinite(W).all():
+        raise SystemExit(f"SequenceVectors.fit: bad table {W.shape}")
+    print(f"  SequenceVectors.fit at full width (graph capture included): "
+          f"{len(sv.vocab)} words, {len(seqs)} sequences, {secs:.2f} s")
+    return {"vocab": len(sv.vocab), "sequences": len(seqs), "fit_s": secs}
+
+
+def embeddings_phase(fa):
+    """Phase 24. Returns its readings."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common import native_ops
+    t_phase = time.perf_counter()
+    if not native_ops.available():
+        raise SystemExit("phase 24 needs the native pair generator: the "
+                         "port's loader could not build or load "
+                         f"{native_ops.library_path()}")
+    print(f"phase 24: the embeddings path; native library "
+          f"{native_ops.library_path().name}")
+    fa.reset_launches()
+    out, part_s = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, part in (("card_vs_cpu", emb_card_vs_cpu),
+                          ("toy_fits", partial(emb_toy_fits, tmp)),
+                          ("full_width", emb_full_width),
+                          ("sequence_vectors_fit", emb_sequence_vectors_fit)):
+            t0 = time.perf_counter()
+            out[key] = part()
+            part_s[key] = time.perf_counter() - t0
+            print(f"  ({key}: {part_s[key]:.1f} s)")
+    out["part_s"] = part_s
+    torch.cuda.empty_cache()
+    if any(fa.launches.values()):
+        raise SystemExit(f"the embeddings path launched flash kernels: "
+                         f"{fa.launches}")
+    out["flash_launches"] = dict(fa.launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 24 launched no kernel of the port: {fa.launches}; "
           f"{out['phase_s']:.1f} s")
     return out
 

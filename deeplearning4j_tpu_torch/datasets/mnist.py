@@ -1,10 +1,10 @@
 """MNIST dataset: IDX binary parser + DataSetIterator.
 
-The port's copy of deeplearning4j_tpu/datasets/mnist.py (numpy). The
-reference reads IDX files with its native C++ parser when that library is
-built (common/native_ops.py); the port's ctypes loader for it is ROADMAP.md
-queue 1 item 21, so here `read_idx` is the reference's Python parser, whose
-arrays give the same images and labels.
+The port's copy of deeplearning4j_tpu/datasets/mnist.py (numpy). As in the
+reference, `read_idx` parses a plain u8 IDX file with the native C++ parser
+through the port's own loader (common/native_ops.py), and falls back to the
+Python parser without the library, for gzipped files and other element
+types. The two routes give the same values (tests/test_torch_native_ops.py).
 
 TPU-native equivalent of reference base/MnistFetcher.java +
 datasets/mnist/MnistManager (binary IDX parsing) +
@@ -51,7 +51,14 @@ def _open_maybe_gz(path):
 
 def read_idx(path):
     """Parse an IDX file (reference: datasets/mnist/MnistImageFile /
-    MnistLabelFile binary readers), optionally gzipped."""
+    MnistLabelFile binary readers), optionally gzipped. Uses the native C++
+    parser when the library is built (common/native_ops.py); python
+    fallback otherwise."""
+    if os.path.exists(path):
+        from ..common import native_ops
+        arr = native_ops.read_idx_u8(path, scale=1.0)
+        if arr is not None:
+            return arr   # raw byte values as float32
     with _open_maybe_gz(path) as f:
         magic = struct.unpack(">HBB", f.read(4))
         _, dtype_code, ndim = magic

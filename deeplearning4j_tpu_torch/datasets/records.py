@@ -1,10 +1,13 @@
 """Record readers + RecordReader->DataSet adapters (the DataVec bridge).
 
 The port's copy of deeplearning4j_tpu/datasets/records.py (numpy and csv).
-The reference's native C++ CSV parser (common/native_ops.py) waits for the
-port's ctypes loader (ROADMAP.md queue 1 item 21): CSV records come from
-Python's csv module (strings; the iterators convert them with float()),
-and `prefetch` > 0 keeps its contract (float values) on the same parser.
+As in the reference, `CSVRecordReader` parses a numeric file with the native
+C++ parser through the port's own loader (common/native_ops.py; float
+values) and falls back to Python's csv module (strings; the iterators
+convert them with float()) for other content or without the library. The
+reference's threaded native prefetch loader is not bound yet (ROADMAP.md
+queue 1 item 22): `prefetch` > 0 keeps its contract (float values) on the
+Python parser.
 
 TPU-native equivalent of the reference's DataVec integration:
 - RecordReader SPI (DataVec's CSVRecordReader / CSVSequenceRecordReader /
@@ -80,9 +83,17 @@ class CSVRecordReader(RecordReader):
 
     def initialize(self, path):
         self.path = str(path)
-        with open(self.path, "r", encoding="utf-8", newline="") as fh:
-            rows = list(csv.reader(fh, delimiter=self.delimiter))
-        self._records = [r for r in rows[self.skip_lines:] if r]
+        # numeric fast path: the native C++ parser (common/native_ops);
+        # non-numeric content makes it return None -> python csv fallback
+        from ..common import native_ops
+        mat = native_ops.parse_csv(self.path, self.delimiter,
+                                   self.skip_lines)
+        if mat is not None:
+            self._records = [row.tolist() for row in mat]
+        else:
+            with open(self.path, "r", encoding="utf-8", newline="") as fh:
+                rows = list(csv.reader(fh, delimiter=self.delimiter))
+            self._records = [r for r in rows[self.skip_lines:] if r]
         self._pos = 0
         return self
 

@@ -301,7 +301,10 @@ def test_real_data_readers_equal_reference(J, name, monkeypatch, tmp_path):
     assert _stream(ours) == _stream(ref)
 
 
-def test_read_idx_python_parser(J, tmp_path):
+def test_read_idx_python_parser(J, tmp_path, monkeypatch):
+    # the Python route (the native one: tests/test_torch_native_ops.py)
+    from deeplearning4j_tpu_torch.common import native_ops
+    monkeypatch.setattr(native_ops, "get_lib", lambda: None)
     _write_idx(str(tmp_path), n=7)
     for fname in ("train-images-idx3-ubyte", "train-labels-idx1-ubyte"):
         p = os.path.join(tmp_path, fname)

@@ -1,7 +1,9 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
-`chip_bwd_ab.py`, `chip_fwd_ab.py` and `chip_recurrent.py` import neither
-JAX nor anything of the JAX package `deeplearning4j_tpu`, and importing the
-port builds no kernel and needs no card."""
+`chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py` and
+`chip_embeddings.py` import neither JAX nor anything of the JAX package
+`deeplearning4j_tpu`, and importing the port (its `models` package with the
+embeddings included) builds no kernel, builds or loads no native library,
+and needs no card."""
 import os
 import re
 import subprocess
@@ -47,6 +49,17 @@ import deeplearning4j_tpu_torch.datasets.mnist
 import deeplearning4j_tpu_torch.datasets.fetchers
 import deeplearning4j_tpu_torch.datasets.records
 import deeplearning4j_tpu_torch.eval
+import deeplearning4j_tpu_torch.models
+import deeplearning4j_tpu_torch.models.embeddings
+import deeplearning4j_tpu_torch.models.embeddings.learning
+import deeplearning4j_tpu_torch.models.embeddings.serializer
+import deeplearning4j_tpu_torch.models.word2vec.static_word2vec
+import deeplearning4j_tpu_torch.models.word2vec.word2vec
+import deeplearning4j_tpu_torch.models.sequencevectors
+import deeplearning4j_tpu_torch.models.paragraphvectors
+import deeplearning4j_tpu_torch.models.glove
+import deeplearning4j_tpu_torch.text
+from deeplearning4j_tpu_torch.common import native_ops
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
@@ -55,6 +68,10 @@ assert not leaked, leaked
 import threading
 assert threading.active_count() == 1, threading.enumerate()
 assert not any(fa.launches.values()) and not fa._fns and not _build._libs
+# nor is the native library built or loaded, and CUDA is not initialised
+assert native_ops._lib is None and not native_ops._build_attempted
+import torch
+assert not torch.cuda.is_initialized()
 print("ok")
 """
 
@@ -77,7 +94,7 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
-       "chip_recurrent.py"]))
+       "chip_recurrent.py", "chip_embeddings.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
