@@ -725,6 +725,7 @@ def main():
     decode = decode_serving_phase(fa)
     recurrent = char_rnn_phase(fa)
     embeddings = embeddings_phase(fa)
+    parallel = parallel_phase(fa, core["resnet50_bf16_full"])
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -755,6 +756,7 @@ def main():
     print(json.dumps({"decode_serving": decode}))
     print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"embeddings": embeddings}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3665,6 +3667,570 @@ def embeddings_phase(fa):
     out["flash_launches"] = dict(fa.launches)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 24 launched no kernel of the port: {fa.launches}; "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
+# Phase 25: data-parallel and parameter-server training, BASELINE.md
+# configuration #5 (bench.py:1293-1329: ResNet-50 through ParallelWrapper
+# on one device, global batch 128). One card hosts one NCCL rank, so the
+# 2-rank runs go through the host over gloo on cuda:0.
+PAR_BATCH, PAR_WARM, PAR_TIMED = 128, 2, 10
+PS_BATCH, PS_WORKERS, PS_SHORT, PS_LONG = 64, 2, 8, 24
+PAR_RANKS = 2        # gloo ranks on cuda:0; over NCCL one per card
+PAR_GROUP_TIMEOUT_S, PAR_JOIN_TIMEOUT_S = 60, 240
+# 2 ranks against one process, f32, after 4 steps (one k = 4 round): the
+# mean of two half-batch gradients against the global batch's, ~1e-8 on
+# the CPU. Not longer: a ReLU whose input crosses 0 by a rounding turns
+# that into ~1e-5 (LeNet on the CPU: 1.5e-8 for 6 steps, 1.8e-5 after 8).
+# The ranks and the one-process run ask for cuDNN's deterministic
+# algorithms, which the port then picks by heuristics, alike in every
+# process: under cuDNN's timed search each process picks its own, and on
+# an H100 that moved LeNet k = 4 by 7.5e-9 to 1.15e-5 from run to run.
+# The one-process run is rank 0's own, after the group's.
+PAR_TOL = 1e-5
+
+
+def _par_conv_bn(device, seed=25):
+    """The small conv + BatchNorm net of phase 25's pins and (c): 28x28x1,
+    conv 8 5x5, BatchNorm, ReLU, 10-way softmax, Nesterov, f32."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.Builder().seed(seed).updater("nesterovs")
+            .learning_rate(0.05).list()
+            .layer(0, L.ConvolutionLayer(n_out=8, kernel_size=(5, 5),
+                                         stride=(2, 2), activation="identity"))
+            .layer(1, L.BatchNormalization())
+            .layer(2, L.ActivationLayer(activation="relu"))
+            .layer(3, L.OutputLayer(n_out=10, activation="softmax",
+                                    loss_function="mcxent"))
+            .set_input_type(InputType.convolutional(28, 28, 1)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _par_net(kind, device):
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    return (lenet(device=device, data_type="float32") if kind == "lenet"
+            else _par_conv_bn(device))
+
+
+def _par_batches(n, rows, seed):
+    """n global batches of 28x28x1 images and one-hot labels (numpy)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.random((rows, 28, 28, 1), dtype=np.float32),
+                    _one_hot(rng, rows, 10)) for _ in range(n)]
+
+
+def par_world1_pins():
+    """Phase 25 pins: on one rank the wrapper is plain `fit`, bit for bit,
+    in both modes (cuDNN's deterministic algorithms for both runs)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    batches = _par_batches(8, 32, seed=251)
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in ("lenet", "conv_bn"):
+            for k in (1, 4):
+                a, b = _par_net(kind, "cuda"), _par_net(kind, "cuda")
+                (ParallelWrapper.Builder(a).workers(1).averaging_frequency(k)
+                 .build().fit(ListDataSetIterator(batches)))
+                for ds in batches:
+                    b.fit(ds)
+                equal = bool(np.array_equal(a.params(), b.params())
+                             and all(torch.equal(s, t) for s, t in zip(
+                                 a.buffers(), b.buffers())))
+                out[f"{kind}_k{k}"] = equal
+                print(f"  one rank, {kind}, averaging frequency {k}: "
+                      f"wrapper == plain fit bit for bit: {equal}")
+                if not equal:
+                    raise SystemExit(f"the one-rank wrapper ({kind}, k={k}) "
+                                     f"is not plain fit")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def par_config5(p17):
+    """Phase 25(a): BASELINE config 5 at full width through the wrapper on
+    one card, in turns with plain `fit` on the same network. Returns the
+    readings and the network."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    print(f"phase 25(a): BASELINE config 5, ResNet-50 bf16, 224x224x3, "
+          f"global batch {PAR_BATCH} through ParallelWrapper.workers(1)"
+          f".averaging_frequency(1)")
+    torch.cuda.empty_cache()
+    net = resnet50(data_type="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    x = torch.rand((PAR_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (PAR_BATCH,), generator=gen, device="cuda"), 1000).float()
+    ds = DataSet(x, y)
+    pw = (ParallelWrapper.Builder(net).workers(1).averaging_frequency(1)
+          .build())
+    t0 = time.perf_counter()
+    for _ in range(PAR_WARM):
+        pw.fit(ds)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(step, n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        scores = []
+        ev[0].record()
+        for i in range(n):
+            step()
+            scores.append(net._score)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return ([ev[i].elapsed_time(ev[i + 1]) for i in range(n)],
+                [float(s) for s in scores])
+
+    half = PAR_TIMED // 2
+    it0 = net.conf.iteration_count
+    w1, l1 = timed(lambda: pw.fit(ds), half)
+    p1, _ = timed(lambda: net.fit(ds), half)
+    p2, _ = timed(lambda: net.fit(ds), half)
+    w2, l2 = timed(lambda: pw.fit(ds), half)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wrap, plain = w1 + w2, p1 + p2
+    out = {"wrapper_step_ms": wrap, "plain_step_ms": plain,
+           "wrapper_mean_ms": sum(wrap) / len(wrap),
+           "plain_mean_ms": sum(plain) / len(plain),
+           "warmup_s": warm_s, "peak_memory_gib": peak,
+           "losses": l1 + l2, "last_batch_size": net._last_batch_size,
+           "iterations": net.conf.iteration_count - it0}
+    out["images_per_s"] = PAR_BATCH * 1e3 / out["wrapper_mean_ms"]
+    out["plain_images_per_s"] = PAR_BATCH * 1e3 / out["plain_mean_ms"]
+    if p17 is not None:
+        out["phase17_mean_ms"] = p17["mean_step_ms"]
+    print(f"  {PAR_WARM} warm-up fits (cuDNN search) {warm_s:.1f} s; in "
+          f"turns (wrapper, plain, plain, wrapper; {half} steps each):")
+    print(f"  wrapper {out['wrapper_mean_ms']:.2f} ms a step, "
+          f"{out['images_per_s']:.1f} images/s; plain fit "
+          f"{out['plain_mean_ms']:.2f} ms, {out['plain_images_per_s']:.1f} "
+          f"images/s" + (f"; phase 17 {p17['mean_step_ms']:.2f} ms"
+                         if p17 else "") + f"; peak {peak:.2f} GiB")
+    print(f"  wrapper losses {[round(l, 4) for l in out['losses']]}")
+    if (not all(math.isfinite(l) for l in out["losses"])
+            or out["iterations"] != 2 * PAR_TIMED
+            or net._last_batch_size != PAR_BATCH):
+        raise SystemExit(f"config 5 through the wrapper: bad run {out}")
+    return out, net
+
+
+def par_parameter_server(net):
+    """Phase 25(b): ParameterServerParallelWrapper, PS_WORKERS worker
+    threads (each on its own stream) on ResNet-50 bf16, PS_BATCH-row
+    batches from the card. A first fit of PS_SHORT batches (the worker
+    threads' cuDNN search: PyTorch keeps searched plans per thread, and
+    the wrapper keeps its threads), then a timed fit of PS_LONG."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import \
+        ParameterServerParallelWrapper
+    print(f"phase 25(b): ParameterServerParallelWrapper, {PS_WORKERS} "
+          f"workers, ResNet-50 bf16, {PS_BATCH}-row batches on the card")
+    gen = torch.Generator(device="cuda").manual_seed(252)
+    x = torch.rand((PS_LONG * PS_BATCH, 224, 224, 3), generator=gen,
+                   device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (PS_LONG * PS_BATCH,), generator=gen, device="cuda"),
+        1000).float()
+    batches = [DataSet(x[i * PS_BATCH:(i + 1) * PS_BATCH],
+                       y[i * PS_BATCH:(i + 1) * PS_BATCH])
+               for i in range(PS_LONG)]
+    psw = (ParameterServerParallelWrapper.Builder(net).workers(PS_WORKERS)
+           .queue_size(8).build())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for label, n in (("first", PS_SHORT), ("timed", PS_LONG)):
+        it0 = net.conf.iteration_count
+        t0 = time.perf_counter()
+        psw.fit(ListDataSetIterator(batches[:n]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = dict(psw.last_stats)
+        if (st["applied"] + st["stale_dropped"] != n
+                or net.conf.iteration_count - it0 != st["applied"]
+                or not math.isfinite(float(net._score))):
+            raise SystemExit(f"parameter server ({label}): {st}")
+        out[label] = dict(st, batches=n, seconds=secs,
+                          images_per_s=n * PS_BATCH / secs,
+                          score=float(net._score))
+    # where the time goes: a torch.profiler trace of a fit of PS_SHORT
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        psw.fit(ListDataSetIterator(batches[:PS_SHORT]))
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_time_total]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    out["traced"] = {"batches": PS_SHORT, "seconds": traced_s,
+                     "device_ms": busy_ms,
+                     "device_busy_share": busy_ms / (traced_s * 1e3),
+                     "kernels": sum(e.count for e in kernels)}
+    psw.close()
+    out["images_per_s"] = out["timed"]["images_per_s"]
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [n for n, p in net.named_parameters()
+           if not torch.isfinite(p).all()]
+    if bad:
+        raise SystemExit(f"parameter server left non-finite weights: {bad}")
+    for label in ("first", "timed"):
+        r = out[label]
+        print(f"  {label} fit, {r['batches']} batches: {r['seconds']:.2f} s,"
+              f" {r['images_per_s']:.1f} images/s; applied {r['applied']}, "
+              f"dropped {r['stale_dropped']}, staleness mean "
+              f"{r['mean_staleness']:.2f} max {r['max_staleness_seen']}")
+    tr = out["traced"]
+    print(f"  (the first fit holds the worker threads' cuDNN search); peak "
+          f"{out['peak_memory_gib']:.2f} GiB; a traced fit of {PS_SHORT} "
+          f"batches: {tr['device_ms']:.1f} ms of device time in "
+          f"{tr['seconds'] * 1e3:.1f} ms (busy {tr['device_busy_share']:.1%}"
+          f"), {tr['kernels'] / PS_SHORT:.0f} kernels a batch")
+    return out
+
+
+def parallel_rank(rank, world, store, out_dir, backend):
+    """One rank of phase 25(c), started by spawn: on cuda:0 in a gloo group,
+    or on its own card over NCCL. LeNet and the conv + BatchNorm net
+    through the wrapper in all-reduce mode and with k = 4 on this rank's
+    rows of the same global batches; rank 0 then runs the same in one
+    process; then each net's step timed, its gradient's all-reduce alone,
+    and the same step on this rank's rows without the group."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.sharding import (all_reduce_mean,
+                                                            make_mesh)
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=PAR_GROUP_TIMEOUT_S))
+    torch.backends.cudnn.deterministic = True     # until the timings
+    res = {}
+    for kind in ("lenet", "conv_bn"):
+        for k in (1, 4):
+            net = _par_net(kind, "cuda")
+            pw = ParallelWrapper.Builder(net).averaging_frequency(k).build()
+            pw.fit(ListDataSetIterator(_par_batches(4, 64, seed=253)))
+            res[f"{kind}_k{k}"] = {"params": net.params(),
+                                   "state": [b.cpu() for b in net.buffers()],
+                                   "score": float(net._score),
+                                   "iterations": net.conf.iteration_count}
+    dist.barrier()
+    if rank == 0:           # while the others wait: the same cuDNN plans
+        batches = _par_batches(4, 64, seed=253)
+        for kind in ("lenet", "conv_bn"):
+            for k in (1, 4):
+                one = _par_one_process(kind, k, batches, world)
+                res[f"{kind}_k{k}"]["one_process"] = {
+                    "params": one.params(),
+                    "state": [b.cpu() for b in one.buffers()]}
+    dist.barrier()
+    torch.backends.cudnn.deterministic = False    # the timed search again
+    timing = {}
+    for kind in ("lenet", "conv_bn"):
+        net = _par_net(kind, "cuda")
+        pw = ParallelWrapper.Builder(net).build()
+        batches = _par_batches(4, 128, seed=254)
+        it = ListDataSetIterator(batches)
+        pw.fit(it)                                  # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        pw.fit(it, num_epochs=5)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 20
+        grads = [torch.randn_like(p) for p in net.parameters()]
+        mesh = make_mesh(device="cuda")
+        all_reduce_mean(grads, mesh)                # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            all_reduce_mean(grads + [torch.zeros(1, device="cuda")], mesh)
+        torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t0) * 1e3 / 20
+        # the same step without the group: plain fit on this rank's rows
+        per = 128 // world
+        local = [DataSet(b.features[rank * per:(rank + 1) * per],
+                         b.labels[rank * per:(rank + 1) * per])
+                 for b in batches]
+        for ds in local:
+            net.fit(ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            for ds in local:
+                net.fit(ds)
+        torch.cuda.synchronize()
+        local_ms = (time.perf_counter() - t0) * 1e3 / 20
+        timing[kind] = {"step_ms": step_ms, "allreduce_ms": ar_ms,
+                        "allreduce_share": ar_ms / step_ms,
+                        "local_step_ms": local_ms,
+                        "gradient_bytes": 4 * sum(g.numel() for g in grads)}
+    res["timing"] = timing
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _par_spawn(target, args_for, n, timeout_s, label):
+    """Start n spawn processes of target(*args_for(i)); wait at most
+    timeout_s, kill what is left, fail unless all exit 0."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_for(i)) for i in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * n:
+        raise SystemExit(f"{label} exited {codes}")
+
+
+def _par_one_process(kind, k, batches, n):
+    """What n ranks must compute, in this process: all-reduce mode is plain
+    `fit` on the global batch; k-step mode is n networks, each taking k
+    plain steps on its rows, then their mean (parameters, updater state,
+    layer state), round by round."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    if k == 1:
+        net = _par_net(kind, "cuda")
+        for ds in batches:
+            net.fit(ds)
+        return net
+    nets = [_par_net(kind, "cuda") for _ in range(n)]
+    per = batches[0].num_examples() // n
+    for r0 in range(0, len(batches), k):
+        for r, net in enumerate(nets):
+            for ds in batches[r0:r0 + k]:
+                net.fit(DataSet(ds.features[r * per:(r + 1) * per],
+                                ds.labels[r * per:(r + 1) * per]))
+        with torch.no_grad():
+            groups = [list(net.parameters()) + list(net.buffers())
+                      + [t for key in net._updater_state
+                         for st in net._updater_state[key].values()
+                         for t in st.values()] for net in nets]
+            for same in zip(*groups):
+                m = sum(same[1:], same[0].clone()) / n
+                for t in same:
+                    t.copy_(m)
+    return nets[0]
+
+
+def par_ranks(world, backend):
+    """Phase 25(c): `world` ranks against one process; gloo ranks share
+    cuda:0 (through the host), NCCL ranks have a card each."""
+    where = ("on cuda:0 over gloo (through the host)" if backend == "gloo"
+             else "over NCCL, one a card")
+    print(f"phase 25(c): {world} ranks {where}: LeNet f32 and conv + "
+          f"BatchNorm f32, all-reduce and k = 4, against one process")
+    work = (Path(__file__).resolve().parent / "build"
+            / f"par_{backend}_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    _par_spawn(parallel_rank, lambda r: (r, world, str(work / "store"),
+                                         str(work), backend),
+               world, PAR_JOIN_TIMEOUT_S, f"phase 25(c) {backend} ranks")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    shutil.rmtree(work, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    out = {"ranks": world, "backend": backend, "spawn_and_run_s": spawn_s}
+    batches = _par_batches(4, 64, seed=253)
+    for kind in ("lenet", "conv_bn"):
+        for k in (1, 4):
+            key = f"{kind}_k{k}"
+            r0 = ranks[0][key]
+            want = r0["one_process"]
+            err = _max_err(r0["params"], want["params"])
+            state_err = max((_max_err(s, t) for s, t in zip(
+                r0["state"], want["state"])), default=0.0)
+            torch.backends.cudnn.deterministic = True
+            try:
+                here = _par_one_process(kind, k, batches, world)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            out[key] = {"max_abs_err": err, "state_err": state_err,
+                        "other_process_err": _max_err(r0["params"],
+                                                      here.params()),
+                        "ranks_equal": all(bool((r0["params"] == r[key][
+                            "params"]).all()) for r in ranks),
+                        "iterations": r0["iterations"],
+                        "score": r0["score"]}
+            _check(f"{key}: {world} ranks vs one process (rank 0's), "
+                   f"parameters", err, PAR_TOL)
+            _check(f"{key}: layer state", state_err, PAR_TOL)
+            print(f"  {key}: against one process here (another process, "
+                  f"the same heuristics; measured) "
+                  f"{out[key]['other_process_err']:.3e}")
+            if not out[key]["ranks_equal"] or r0["iterations"] != 4:
+                raise SystemExit(f"{key}: ranks differ or bad counters "
+                                 f"{out[key]}")
+    out["timing"] = [r["timing"] for r in ranks]
+    for kind in ("lenet", "conv_bn"):
+        t = [r["timing"][kind] for r in ranks]
+        print(f"  {kind}, global batch 128, {world} ranks: "
+              f"{max(x['step_ms'] for x in t):.2f} ms a step (slowest rank);"
+              f" the {backend} all-reduce of its {t[0]['gradient_bytes']} "
+              f"gradient bytes alone {max(x['allreduce_ms'] for x in t):.2f}"
+              f" ms ({max(x['allreduce_share'] for x in t):.1%} of the "
+              f"step); the same step on {128 // world} rows without the "
+              f"group {max(x['local_step_ms'] for x in t):.2f} ms")
+    print(f"  ({spawn_s:.1f} s with the ranks' start)")
+    return out
+
+
+def ps_worker_main(port, seed):
+    """Phase 25(d)'s worker process: ps_worker_fit of LeNet f32 on cuda:0
+    against the smoke's PSServer, two epochs of 6 batches of 32."""
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ps_worker_fit
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ps_worker_fit(_par_net("lenet", "cuda"), "127.0.0.1", port,
+                  ListDataSetIterator(_par_batches(6, 32, seed=seed)),
+                  num_epochs=2, seed=seed, heartbeat_interval=1.0)
+
+
+def par_ps_worker_process():
+    """Phase 25(d): one ps_worker_fit process against a PSServer here."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import PSServer
+    print("phase 25(d): a ps_worker_fit process on cuda:0 against a "
+          "PSServer (LeNet f32) in this process")
+    net = _par_net("lenet", "cuda")
+    ds = DataSet.merge(_par_batches(6, 32, seed=255))   # the worker's data
+    s0 = net.score(ds)
+    srv = PSServer(net, queue_size=4, n_workers=1, heartbeat_timeout=60.0)
+    try:
+        _par_spawn(ps_worker_main, lambda _: (srv.port, 255), 1,
+                   PAR_JOIN_TIMEOUT_S, "phase 25(d) worker")
+        stats = srv.wait(timeout=60)
+    finally:
+        srv.stop()
+    s1 = net.score(ds)
+    out = dict(stats, score_before=s0, score_after=s1,
+               iterations=net.conf.iteration_count)
+    print(f"  server stats {stats}; score {s0:.4f} -> {s1:.4f}")
+    if (stats["applied"] + stats["stale_dropped"] != 12
+            or stats["workers_done"] != 1 or stats["dup_pushes"]
+            or stats["workers_reaped"]
+            or net.conf.iteration_count != stats["applied"]
+            or not s1 < s0):
+        raise SystemExit(f"phase 25(d): the server's stats do not add up "
+                         f"{out}")
+    return out
+
+
+def par_training_master():
+    """Phase 25(e): TpuDl4jMultiLayer over LeNet, "direct" and "export"."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        ParameterAveragingTrainingMaster, TpuDl4jMultiLayer)
+    print("phase 25(e): TpuDl4jMultiLayer over LeNet f32, direct and export")
+    batches = _par_batches(6, 64, seed=256)
+    data = DataSet.merge(batches)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for approach in ("direct", "export"):
+            net = _par_net("lenet", "cuda")
+            s0 = net.score(data)
+            tm = (ParameterAveragingTrainingMaster.Builder(32)
+                  .averaging_frequency(2).collect_training_stats(True)
+                  .rdd_training_approach(approach)
+                  .export_directory(os.path.join(tmp, "export")).build())
+            TpuDl4jMultiLayer(net, tm).fit(data, num_epochs=2)
+            s1 = net.score(data)
+            phases = sorted({e["phase"] for e in tm.stats.events})
+            out[approach] = {"score_before": s0, "score_after": s1,
+                             "phases": phases,
+                             "iterations": net.conf.iteration_count,
+                             "fit_ms": tm.stats.phase_total("fit")}
+            print(f"  {approach}: score {s0:.4f} -> {s1:.4f}, phases "
+                  f"{phases}, {net.conf.iteration_count} steps")
+            want = ["export", "fit"] if approach == "export" else \
+                ["fit", "split"]
+            if not s1 < s0 or phases != want:
+                raise SystemExit(f"phase 25(e) {approach}: {out[approach]}")
+    return out
+
+
+def parallel_phase(fa, p17=None):
+    """Phase 25. Returns its readings."""
+    t_phase = time.perf_counter()
+    print("phase 25: data-parallel and parameter-server training "
+          "(BASELINE config 5)")
+    fa.reset_launches()
+    torch.backends.cudnn.allow_tf32 = False
+    out, part_s = {}, {}
+    t0 = time.perf_counter()
+    out["world1_pins"] = par_world1_pins()
+    part_s["world1_pins"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["config5"], net = par_config5(p17)
+    part_s["config5"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["parameter_server"] = par_parameter_server(net)
+    part_s["parameter_server"] = time.perf_counter() - t0
+    del net
+    torch.cuda.empty_cache()
+    parts = [("two_ranks", partial(par_ranks, PAR_RANKS, "gloo"))]
+    if torch.cuda.device_count() >= 2:
+        parts.append(("nccl_ranks", partial(par_ranks,
+                                            torch.cuda.device_count(),
+                                            "nccl")))
+    parts += [("ps_worker_process", par_ps_worker_process),
+              ("training_master", par_training_master)]
+    for key, part in parts:
+        t0 = time.perf_counter()
+        out[key] = part()
+        part_s[key] = time.perf_counter() - t0
+    out["part_s"] = part_s
+    if any(fa.launches.values()):
+        raise SystemExit(f"the parallel path launched flash kernels: "
+                         f"{fa.launches}")
+    out["flash_launches"] = dict(fa.launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  parts (s): " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in part_s.items()))
+    print(f"  phase 25 launched no kernel of the port: {fa.launches}; "
           f"{out['phase_s']:.1f} s")
     return out
 

@@ -42,6 +42,13 @@ def _flags():
     return cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32
 
 
+def _search():
+    """Whether cuDNN may time its algorithms: not when the caller asked
+    for deterministic ones."""
+    return not (torch.backends.cudnn.deterministic
+                or torch.are_deterministic_algorithms_enabled())
+
+
 def _set_flags(benchmark, cudnn_tf32, matmul_tf32):
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     cudnn.benchmark = benchmark
@@ -52,7 +59,11 @@ def _set_flags(benchmark, cudnn_tf32, matmul_tf32):
 def card_numerics(device, dtype):
     """cuDNN and cuBLAS settings for one of the port's calls on the card
     (a no-op off the card). cuDNN picks its convolution algorithms by timing
-    them (`benchmark`; the first call of a shape pays the search). For
+    them (`benchmark`; the first call of a shape pays the search), unless
+    the caller asked for deterministic algorithms (`cudnn.deterministic` or
+    `torch.use_deterministic_algorithms`): then by its heuristics, which
+    every process resolves alike for a shape, where two processes' timed
+    searches may pick algorithms that round differently. For
     float32 and float64 work TF32 is off: PyTorch's default
     `cudnn.allow_tf32 = True` would run f32 convolutions with 10-bit
     mantissas. The flags are process-wide, and calls may overlap (a server's
@@ -69,7 +80,7 @@ def card_numerics(device, dtype):
             _Numerics.saved = _flags()
         _Numerics.depth += 1
         _Numerics.strict += strict
-        _set_flags(True, *((False, False) if _Numerics.strict
+        _set_flags(_search(), *((False, False) if _Numerics.strict
                            else _Numerics.saved[1:]))
     try:
         yield
@@ -81,7 +92,7 @@ def card_numerics(device, dtype):
                 _set_flags(*_Numerics.saved)
                 _Numerics.saved = None
             elif not _Numerics.strict:
-                _set_flags(True, *_Numerics.saved[1:])
+                _set_flags(_search(), *_Numerics.saved[1:])
 
 
 def to_port(a, device):

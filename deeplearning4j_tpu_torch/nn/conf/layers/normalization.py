@@ -14,6 +14,19 @@ and E[x²] statistics accumulated in f32 (or the two-pass variance with
 `use_fast_variance=False`), and the closed-form backward with its two
 reductions. `F.batch_norm` is not used: its two-pass variance is another
 function than the default one-pass one.
+
+Over a data-parallel group (`group`, which `parallel.ParallelWrapper` hands
+the step in all-reduce mode through `Network.batch_stats_over`), the
+statistics are those of the global batch, as the reference's GSPMD step
+computes them over a batch sharded on "data": the forward all-reduces the
+per-channel sums (with the sum of squares, or the two-pass variance's
+second sum, and the element count), and `_BNTrain`'s backward all-reduces
+s1 and s2 for dx, while dgamma and dbeta keep this rank's sums (the
+wrapper's gradient all-reduce adds them). The unfused branch differentiates
+through the statistics: its group sum is `_GroupSum`, whose backward
+all-reduces the incoming gradient. Each rank backpropagates its own mean
+loss, so every gradient is n times its share of the global one until the
+wrapper's all-reduce divides by n.
 """
 from __future__ import annotations
 
@@ -21,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ....parallel.sharding import all_reduce_sum
 from ..input_type import (ConvolutionalInputType, FeedForwardInputType,
                           InputType, RecurrentInputType)
 from .base import LayerConf, register_layer
@@ -39,13 +53,46 @@ def _acc_type(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
-def _batch_stats(xf, dims, fast_var):
-    mean = xf.mean(dim=dims)
+class _GroupSum(torch.autograd.Function):
+    """The sum of `x` over the ranks of `group`, on every rank; the
+    gradient of a sum that every rank holds is the sum of the ranks'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, all_reduce_sum(g, ctx.group)
+
+
+def _batch_stats(xf, dims, fast_var, group=None):
+    """(mean, var, element count per channel) of the batch, or of the
+    global batch over `group`."""
+    count = xf.numel() // xf.shape[1 if xf.ndim == 4 else -1]
+    if group is None:
+        mean = xf.mean(dim=dims)
+        if fast_var:
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                              min=0.0)
+        else:
+            var = xf.var(dim=dims, unbiased=False)
+        return mean, var, count
+    c = xf.shape[1 if xf.ndim == 4 else -1]
+    local_n = xf.new_full((1,), float(count))
+    parts = [xf.sum(dim=dims)] + ([(xf * xf).sum(dim=dims)] if fast_var
+                                  else []) + [local_n]
+    sums = _GroupSum.apply(group, torch.cat(parts))
+    n = sums[-1]
+    mean = sums[:c] / n
     if fast_var:
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
     else:
-        var = xf.var(dim=dims, unbiased=False)
-    return mean, var
+        xc = xf - mean.view(_channel_shape(xf))
+        var = _GroupSum.apply(group, (xc * xc).sum(dim=dims)) / n
+    return mean, var, n
 
 
 class _BNTrain(torch.autograd.Function):
@@ -57,14 +104,17 @@ class _BNTrain(torch.autograd.Function):
     Backward, the closed form of the reference's `_bn_train_fused`:
         dx = gamma·rstd·(dy - s1/n - (x - mean)·rstd²·s2/n),
         dgamma = s2·rstd, dbeta = s1,
-    with s1 = Σ dy and s2 = Σ dy·(x - mean), both in f32."""
+    with s1 = Σ dy and s2 = Σ dy·(x - mean), both in f32. Over `group`,
+    dx takes s1, s2 and n summed over the ranks; dgamma and dbeta this
+    rank's s1 and s2."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, fast_var):
+    def forward(ctx, x, gamma, beta, eps, fast_var, group=None):
         dims, shape = _stat_dims(x), _channel_shape(x)
         acc = _acc_type(x.dtype)
         xf = x.to(acc)
-        mean, var = _batch_stats(xf, dims, fast_var)
+        mean, var, n = _batch_stats(xf, dims, fast_var, group)
+        ctx.group, ctx.n = group, n
         rstd = torch.rsqrt(var + eps)
         y = ((xf - mean.view(shape)) * (rstd * gamma.to(acc)).view(shape)
              + beta.to(acc).view(shape)).to(x.dtype)
@@ -77,17 +127,20 @@ class _BNTrain(torch.autograd.Function):
         x, gamma, mean, rstd = ctx.saved_tensors
         dims, shape = _stat_dims(x), _channel_shape(x)
         acc = _acc_type(x.dtype)
-        n = x.numel() // x.shape[1 if x.ndim == 4 else -1]
+        n = ctx.n
         dyf = dy.to(acc)
         xc = x.to(acc) - mean.view(shape)
         s1 = dyf.sum(dim=dims)
         s2 = (dyf * xc).sum(dim=dims)
+        t1, t2 = s1, s2
+        if ctx.group is not None:
+            t1, t2 = all_reduce_sum(torch.cat([s1, s2]), ctx.group).chunk(2)
         g = gamma.to(acc)
         dx = (g * rstd).view(shape) * (
-            dyf - (s1 / n).view(shape)
-            - xc * (rstd * rstd * (s2 / n)).view(shape))
+            dyf - (t1 / n).view(shape)
+            - xc * (rstd * rstd * (t2 / n)).view(shape))
         return (dx.to(x.dtype), (s2 * rstd).to(gamma.dtype),
-                s1.to(gamma.dtype), None, None)
+                s1.to(gamma.dtype), None, None, None)
 
 
 @register_layer("batchnorm")
@@ -140,17 +193,21 @@ class BatchNormalization(LayerConf):
                 "var": d * state["var"] + (1 - d) * var.detach()}
 
     def forward_with_state(self, params, x, state, *, train=False, rng=None,
-                           mask=None):
-        """(y, new_state); new_state is `state` itself at inference."""
+                           mask=None, group=None):
+        """(y, new_state); new_state is `state` itself at inference. In
+        training with a `group` (a torch.distributed process group) the
+        statistics are the global batch's over its ranks."""
         shape = _channel_shape(x)
         if train and self.fused_backward and params \
                 and not self.lock_gamma_beta:
             y, mean, var = _BNTrain.apply(x, params["gamma"], params["beta"],
-                                          self.eps, self.use_fast_variance)
+                                          self.eps, self.use_fast_variance,
+                                          group)
             return y, self._ema(state, mean, var)
         if train:
-            mean, var = _batch_stats(x.to(_acc_type(x.dtype)), _stat_dims(x),
-                                     self.use_fast_variance)
+            mean, var, _ = _batch_stats(x.to(_acc_type(x.dtype)),
+                                        _stat_dims(x), self.use_fast_variance,
+                                        group)
             new_state = self._ema(state, mean, var)
         else:
             mean, var = state["mean"], state["var"]

@@ -88,7 +88,7 @@ class ComputationGraph(Network):
                 elif layer.has_state():
                     out, new_state[name] = layer.forward_with_state(
                         params[name], x, state[name], train=train, rng=rng,
-                        mask=in_masks[0])
+                        mask=in_masks[0], group=self._stats_group)
                 else:
                     out = layer.forward(params[name], x, train=train,
                                         rng=rng, mask=in_masks[0])
@@ -141,12 +141,15 @@ class ComputationGraph(Network):
     # Loss over the output vertices
     # ------------------------------------------------------------------
     def _loss(self, features, labels, fmasks, lmasks, train, rng,
-              carries=None):
-        """(score, new layer state, new carries)."""
-        params = self._cast_params()
+              carries=None, params=None, state=None):
+        """(score, new layer state, new carries), on the network's masters
+        and layer state or on `params` and `state` in their place (see
+        MultiLayerNetwork._loss)."""
+        masters = params
+        params = self._cast_params(masters)
         acts, new_state, _, new_carries = self._apply_graph(
-            params, self._states(), features, train=train, rng=rng,
-            fmasks=fmasks, carries=carries)
+            params, self._states() if state is None else state, features,
+            train=train, rng=rng, fmasks=fmasks, carries=carries)
         total = 0.0
         for oi, out_name in enumerate(self.conf.network_outputs):
             spec = self.conf.vertices[out_name]
@@ -161,7 +164,7 @@ class ComputationGraph(Network):
                 params[out_name], x, labels[oi], train=train, rng=rng,
                 mask=lmask)
             total = total + mean_score(per_ex)
-        return total + self._reg_score(), new_state, new_carries
+        return total + self._reg_score(masters), new_state, new_carries
 
     def _time_steps(self, batch):
         """T from the first sequence input."""

@@ -32,6 +32,18 @@ handed on between segments detached, so no gradient crosses a segment
 boundary and memory does not grow with T. `rnn_time_step` streams: the
 carries stay on the network between calls until `rnn_clear_previous_state`.
 
+The step is also two pure functions, as the reference's containers expose
+it: `make_grad_fn()`, `(params, state, batch) -> (grads, score, new_state,
+carries)` on the given parameter tensors (an asynchronous
+parameter-server worker computes it on a snapshot), and `make_apply_fn()`,
+`(params, ustate, grads, iteration) -> (params, ustate)`, the updaters
+(which write the given parameters in place). `_train_step` takes an
+optional gradient reduction between the two: `parallel.ParallelWrapper`
+all-reduces there, before `normalize_gradients`, since the reference
+normalises and clips the global gradient. `batch_stats_over(group)` makes
+BatchNorm's training statistics those of the global batch over a process
+group for the steps taken inside it.
+
 `fit` also takes a DataSetIterator: the batches are staged onto the
 network's device by `datasets.iterators.AsyncDataSetIterator` while the
 previous step runs (a bf16 feature wire for bf16 networks), with the
@@ -47,6 +59,8 @@ item): `fused_steps` (with it the fused TBPTT route), `training_health`,
 listeners, `pretrain`.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -125,6 +139,9 @@ class Network(nn.Module):
         self._updater_state = None   # key -> param -> state name -> tensor
         self._score = None
         self._rnn_state = None       # rnn_time_step's carries, per layer
+        # the process group BatchNorm's training statistics span
+        # (batch_stats_over); None: this rank's batch
+        self._stats_group = None
 
     # -- what a subclass provides ------------------------------------------
     def _keyed_layers(self):
@@ -179,12 +196,27 @@ class Network(nn.Module):
     def _slot(self, key):
         return self.slots[self._pos[key]]
 
-    def _cast_params(self):
+    def _cast_params(self, masters=None):
         """Every layer's parameters in the compute type (a no-op for f32;
-        gradients flow back to the masters)."""
+        gradients flow back to the masters): the network's own masters, or
+        `masters` ({key: {name: tensor}}) in their place."""
         cdt = self.compute_dtype
-        return {key: {k: p.to(cdt) for k, p in self._slot(key).params.items()}
+        if masters is None:
+            masters = {key: self._slot(key).params
+                       for key, _ in self._keyed_layers()}
+        return {key: {k: p.to(cdt) for k, p in masters[key].items()}
                 for key, _ in self._keyed_layers()}
+
+    @contextlib.contextmanager
+    def batch_stats_over(self, group):
+        """Inside it, BatchNorm's training statistics (forward and
+        backward) are the global batch's over the ranks of `group` (a
+        torch.distributed process group; None: this rank's batch)."""
+        prev, self._stats_group = self._stats_group, group
+        try:
+            yield
+        finally:
+            self._stats_group = prev
 
     def _states(self):
         return {key: self._slot(key).state() for key, _ in self._keyed_layers()}
@@ -267,16 +299,22 @@ class Network(nn.Module):
                                       device=self._device)
         return data
 
-    def _reg_score(self):
+    def _reg_score(self, masters=None):
         total = 0.0
         for key, layer in self._keyed_layers():
-            total = total + layer.reg_score(dict(self._slot(key).params))
+            p = (self._slot(key).params if masters is None
+                 else masters[key])
+            total = total + layer.reg_score(dict(p))
         return total
 
-    def _grads(self, score):
-        """{key: {param name: gradient}} of `score` for the masters."""
+    def _grads(self, score, masters=None):
+        """{key: {param name: gradient}} of `score` for the masters (or
+        for `masters`, the tensors the loss was evaluated on)."""
+        if masters is None:
+            masters = {key: self._slot(key).params
+                       for key, _ in self._keyed_layers()}
         leaves = [(key, k, p) for key, _ in self._keyed_layers()
-                  for k, p in self._slot(key).params.items()]
+                  for k, p in masters[key].items()]
         grads = torch.autograd.grad(score, [p for _, _, p in leaves],
                                     allow_unused=True, materialize_grads=True)
         out = {key: {} for key, _ in self._keyed_layers()}
@@ -284,20 +322,73 @@ class Network(nn.Module):
             out[key][k] = g
         return out
 
-    def _train_step(self, loss_fn):
+    def _apply_updates(self, params, ustate, grads, iteration):
+        """Each layer's updater (gradient normalization, the learning rate
+        at `iteration`, the update rule) on `params` in place; returns
+        (params, the new updater state)."""
+        minimize = self.conf.global_conf.get("minimize", True)
+        new_ustate = {}
+        for key, layer in self._keyed_layers():
+            new_ustate[key] = U.apply_layer(layer, dict(params[key]),
+                                            grads[key], ustate[key],
+                                            iteration, minimize)
+        return params, new_ustate
+
+    def make_grad_fn(self):
+        """The gradient half of the step, `(params, state, batch) ->
+        (grads, score, new_state, new_carries)`, evaluated on the given
+        parameters ({key: {name: tensor}}, f32 masters in the port's
+        layout; e.g. a parameter-server snapshot) and layer state (None:
+        the network's own). `batch`: a dict of the container's device
+        batch (`features`, `labels`, `fmask`, `lmask`), `rng` (the dropout
+        torch.Generator) and optional `carries`. Everything returned is
+        detached; the network is not touched."""
+        self._ensure_init()
+
+        def grad_fn(params, state, batch):
+            leaves = {key: {k: p.detach().requires_grad_()
+                            for k, p in params[key].items()}
+                      for key, _ in self._keyed_layers()}
+            with card_numerics(self._device, self.compute_dtype):
+                score, new_state, carries = self._loss(
+                    batch["features"], batch["labels"], batch.get("fmask"),
+                    batch.get("lmask"), True, batch.get("rng"),
+                    batch.get("carries"), params=leaves, state=state)
+                grads = self._grads(score, leaves)
+            new_state = {key: {n: t.detach() for n, t in st.items()}
+                         for key, st in new_state.items()}
+            return (grads, score.detach(), new_state,
+                    None if carries is None else _detached(carries))
+
+        return grad_fn
+
+    def make_apply_fn(self):
+        """The updater half of the step, `(params, ustate, grads,
+        iteration) -> (params, ustate)`: gradient normalization, the
+        learning-rate schedule and each updater, in f32. Unlike the
+        reference's pure function it writes `params` in place (and returns
+        them); the updater state comes back new."""
+        self._ensure_init()
+        return self._apply_updates
+
+    def _train_step(self, loss_fn, reduce=None):
         """One optimizer step on the loss `loss_fn(rng)` -> (score, new
-        layer state, new carries). Returns the new carries."""
+        layer state, new carries). `reduce(grads, score) -> (grads,
+        score)`, when given, runs between the gradients and the updaters
+        (a data-parallel all-reduce: the updaters' gradient normalization
+        and clipping then see the global gradient). Returns the new
+        carries."""
         with card_numerics(self._device, self.compute_dtype):
             score, new_state, new_carries = loss_fn(self._dropout_gen)
             grads = self._grads(score)
-            minimize = self.conf.global_conf.get("minimize", True)
-            it = self.conf.iteration_count
-            for key, layer in self._keyed_layers():
-                self._updater_state[key] = U.apply_layer(
-                    layer, dict(self._slot(key).params), grads[key],
-                    self._updater_state[key], it, minimize)
+            score = score.detach()
+            if reduce is not None:
+                grads, score = reduce(grads, score)
+            _, self._updater_state = self._apply_updates(
+                self._params, self._updater_state, grads,
+                self.conf.iteration_count)
             self._store_state(new_state)
-        self._score = score.detach()
+        self._score = score
         self.conf.iteration_count += 1
         return new_carries
 
@@ -539,7 +630,8 @@ class MultiLayerNetwork(Network):
                     mask=fmask)
             elif layer.has_state():
                 x, new_state[i] = layer.forward_with_state(
-                    params[i], x, state[i], train=train, rng=rng, mask=fmask)
+                    params[i], x, state[i], train=train, rng=rng, mask=fmask,
+                    group=self._stats_group)
             else:
                 x = layer.forward(params[i], x, train=train, rng=rng,
                                   mask=fmask)
@@ -564,16 +656,19 @@ class MultiLayerNetwork(Network):
         return h, new_state, new_carries, acts
 
     def _loss(self, features, labels, fmask, lmask, train, rng,
-              carries=None):
-        """(score, new layer state, new carries)."""
-        params = self._cast_params()
+              carries=None, params=None, state=None):
+        """(score, new layer state, new carries), on the network's masters
+        and layer state, or on `params` (masters, {key: {name: tensor}})
+        and `state` in their place."""
+        cast = self._cast_params(params)
         h, new_state, new_carries, _ = self._output_layer_input(
-            params, self._states(), features, train=train, rng=rng,
-            fmask=fmask, carries=carries)
+            cast, self._states() if state is None else state, features,
+            train=train, rng=rng, fmask=fmask, carries=carries)
         i = len(self.layers) - 1
         per_ex = self.layers[i].compute_score_per_example(
-            params[i], h, labels, train=train, rng=rng, mask=lmask)
-        return mean_score(per_ex) + self._reg_score(), new_state, new_carries
+            cast[i], h, labels, train=train, rng=rng, mask=lmask)
+        return (mean_score(per_ex) + self._reg_score(params), new_state,
+                new_carries)
 
     def _time_steps(self, batch):
         return int(batch[0].shape[1]), int(batch[0].shape[0])

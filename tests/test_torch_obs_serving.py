@@ -352,6 +352,31 @@ def test_card_numerics_many_threads_restore_the_caller(caller_flags):
     assert _flags() == caller_flags
 
 
+@pytest.mark.parametrize("ask", ["cudnn", "torch"])
+def test_card_numerics_keeps_the_search_off_for_deterministic_callers(
+        caller_flags, ask):
+    """A caller who asked for deterministic algorithms gets cuDNN's
+    heuristics, which resolve alike in every process, not its timed search;
+    TF32 is still off under f32, and the caller's flags come back."""
+    det = torch.backends.cudnn.deterministic
+    algorithms = torch.are_deterministic_algorithms_enabled()
+    if ask == "cudnn":
+        torch.backends.cudnn.deterministic = True
+    else:
+        torch.use_deterministic_algorithms(True)
+    try:
+        with card_numerics(torch.device("cuda"), torch.float32):
+            assert _flags() == (False, False, False)
+        with card_numerics(torch.device("cuda"), torch.bfloat16):
+            assert _flags() == caller_flags
+        assert _flags() == caller_flags
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.use_deterministic_algorithms(algorithms)
+    with card_numerics(torch.device("cuda"), torch.float32):
+        assert _flags() == OFF
+
+
 def test_card_numerics_is_a_no_op_off_the_card(caller_flags):
     with card_numerics(torch.device("cpu"), torch.float32):
         assert _flags() == caller_flags

@@ -1,9 +1,12 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
-`chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py` and
-`chip_embeddings.py` import neither JAX nor anything of the JAX package
-`deeplearning4j_tpu`, and importing the port (its `models` package with the
-embeddings included) builds no kernel, builds or loads no native library,
-and needs no card."""
+`chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py`,
+`chip_embeddings.py` and `chip_parallel.py` import neither JAX nor anything
+of the JAX package `deeplearning4j_tpu`, and importing the port (its
+`models` package with the embeddings included, and the whole `parallel`
+package) builds no kernel, builds or loads no native library, starts no
+thread, opens no process group and needs no card. The names the port does
+not have yet raise NotImplementedError naming their ROADMAP.md queue 1
+item."""
 import os
 import re
 import subprocess
@@ -22,6 +25,17 @@ import deeplearning4j_tpu_torch.models.zoo.transformer
 import deeplearning4j_tpu_torch.ops.flash_attention as fa
 import deeplearning4j_tpu_torch.parallel.pipeline
 import deeplearning4j_tpu_torch.parallel.ring_attention
+import deeplearning4j_tpu_torch.parallel
+import deeplearning4j_tpu_torch.parallel.sharding
+import deeplearning4j_tpu_torch.parallel.parallel_wrapper
+import deeplearning4j_tpu_torch.parallel.distributed
+import deeplearning4j_tpu_torch.parallel.magic_queue
+import deeplearning4j_tpu_torch.parallel.parameter_server
+import deeplearning4j_tpu_torch.parallel.ps_transport
+import deeplearning4j_tpu_torch.parallel.training_hook
+import deeplearning4j_tpu_torch.parallel.training_master
+import deeplearning4j_tpu_torch.parallel.time_source
+import deeplearning4j_tpu_torch.util.sharded_checkpoint
 import deeplearning4j_tpu_torch.nn.multilayer
 import deeplearning4j_tpu_torch.nn.graph.computation_graph
 import deeplearning4j_tpu_torch.util.model_serializer
@@ -72,6 +86,8 @@ assert not any(fa.launches.values()) and not fa._fns and not _build._libs
 assert native_ops._lib is None and not native_ops._build_attempted
 import torch
 assert not torch.cuda.is_initialized()
+import torch.distributed as dist
+assert not dist.is_initialized()
 print("ok")
 """
 
@@ -94,7 +110,7 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
-       "chip_recurrent.py", "chip_embeddings.py"]))
+       "chip_recurrent.py", "chip_embeddings.py", "chip_parallel.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
@@ -110,3 +126,31 @@ def test_forbidden_pattern_catches_what_it_should():
                  "import deeplearning4j_tpu_torch", "# no jax here",
                  "x = 'deeplearning4j_tpu/ops/flash_attention.py:108'"):
         assert not _FORBIDDEN.search(line), line
+
+
+@pytest.mark.parametrize("name,item", [
+    ("EarlyStoppingParallelTrainer", 16), ("TpuEarlyStoppingTrainer", 16),
+    ("PipelineParallel", 20), ("moe_mlp_sharded", 20),
+    ("zero_state_sharding", 20), ("main", 22)])
+def test_unported_parallel_names_raise_with_their_items(name, item):
+    import deeplearning4j_tpu_torch.parallel as P
+    with pytest.raises(NotImplementedError, match=f"item {item}$"):
+        getattr(P, name)
+    with pytest.raises(AttributeError):
+        P.no_such_name
+
+
+def test_unported_training_options_raise_with_their_items():
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, ParameterAveragingTrainingMaster)
+    net = lenet(device="cpu")
+    for call, item in (
+            (lambda: ParallelWrapper.Builder(net).health_policy(True), 17),
+            (lambda: ParallelWrapper.Builder(net).checkpointing("d"), 20),
+            (lambda: ParameterAveragingTrainingMaster.Builder()
+             .health_policy(True), 17),
+            (lambda: net.fused_steps(4), 17),
+            (lambda: net.set_listeners(), 16)):
+        with pytest.raises(NotImplementedError, match=f"item {item}$"):
+            call()
