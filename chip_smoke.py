@@ -217,10 +217,37 @@ JAX package's `lax.scan`: no kernel of the port, and the counters must read
      torch.profiler trace of one segment (device time, busy share, kernels
      a flush), peak memory, and graph and eager tables bit-equal at the
      end; then `SequenceVectors.fit` once at full width.
+Phase 25 drives data-parallel and parameter-server training, BASELINE.md
+configuration #5 (`chip_parallel.py` runs it alone). Phase 26 drives fused
+steps and the training-health watchdog (`nn/fused.py`, `common/health.py`,
+`util/sharded_checkpoint.py`; `chip_fused.py` runs it alone): a fused group
+of K steps is one CUDA graph replay; no kernel of the port, and the
+counters must read 0 after it.
+ 26. (c) fused_steps(8) bit-equal to single steps on small nets on the
+     card (parameters, updater and layer state, every step's score,
+     iteration_count): exponential and schedule-map learning rates over two
+     groups, dropout, a fresh net's first group, TBPTT groups at t0 = 0 and
+     8 from one capture; f32 LeNet fused8 card vs CPU on phase 15's batch
+     (1e-5), and measured on fresh batches beside the CPU against itself
+     from one weight moved by 1e-7; (d) the watchdog on the card: a NaN at
+     inner step 3 of a group of 8 skipped as the sequential run skips it, a
+     divergence mid-group rolled back through the checkpoints (restored
+     round 4, the group's last batches replayed, equal to the run without
+     the poisoned batches), an abort naming its rounds, and the one-rank
+     ParallelWrapper's rollback in both modes (restored round 5,
+     iteration_count 7, bit-equal to the run without the poisoned batch);
+     (a) BASELINE config 1 as bench.py runs it: LeNet bf16, batch 512, 16
+     batches a fit, fused8 against fused1, 5 interleaved segments an arm
+     (images/s, median; peak memory; 2 replays a fit), both arms bit-equal,
+     one group and one single step traced (kernels, device time, busy
+     share); (b) config 3: the char-RNN bf16 at B=64, T=200, TBPTT 50, 20
+     timed fits an arm in interleaved blocks of 5 (chars/s, peak memory; 1
+     replay a fit), both arms bit-equal, one fit of each traced.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
 ...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, an
-{"embeddings": ...} line, one {"kernels": [...]} JSON line and, as the last
-line, {"ok": true, "device": {...}}. It imports nothing of JAX.
+{"embeddings": ...} line, a {"parallel": ...} line, a {"fused": ...} line,
+one {"kernels": [...]} JSON line and, as the last line, {"ok": true,
+"device": {...}}. It imports nothing of JAX.
 """
 import json
 import math
@@ -726,6 +753,7 @@ def main():
     recurrent = char_rnn_phase(fa)
     embeddings = embeddings_phase(fa)
     parallel = parallel_phase(fa, core["resnet50_bf16_full"])
+    fused = fused_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -757,6 +785,7 @@ def main():
     print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"embeddings": embeddings}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"fused": fused}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4231,6 +4260,581 @@ def parallel_phase(fa, p17=None):
     print(f"  parts (s): " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in part_s.items()))
     print(f"  phase 25 launched no kernel of the port: {fa.launches}; "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: fused steps and the training-health watchdog (configs 1 and 3)
+# ---------------------------------------------------------------------------
+
+FUSED_K = 8
+LENET_B, LENET_BATCHES, LENET_SEGMENTS = 512, 16, 5
+CHAR_FITS, CHAR_BLOCK = 20, 5
+
+
+def _record_steps(net):
+    """Every optimizer step's score of `net` from now on, in order: the
+    single steps' scores and each fused group's [K] scores (tensors, read
+    at the end)."""
+    seen = []
+    step, replay = net._train_step, net._replay
+
+    def recording_step(loss_fn, reduce=None):
+        carries = step(loss_fn, reduce)
+        seen.append(net._score.reshape(1))
+        return carries
+
+    def recording_replay(grp, values, g):
+        out = replay(grp, values, g)
+        seen.append(out[0])
+        return out
+
+    net._train_step, net._replay = recording_step, recording_replay
+    return seen
+
+
+def _step_scores(seen):
+    return torch.cat([s.float().reshape(-1) for s in seen]).cpu().tolist() \
+        if seen else []
+
+
+def _same_training_state(label, a, b, scores_a=None, scores_b=None):
+    """Fail unless `a` and `b` hold bit-equal f32 masters, updater and
+    layer state, iteration counts and (when given) step scores."""
+    import numpy as np
+    bad = []
+    if not np.array_equal(a.params(), b.params()):
+        bad.append(f"parameters (max diff "
+                   f"{_max_err(a.params(), b.params()):.3e})")
+    for key, _ in a._keyed_layers():
+        for k, st in a._updater_state[key].items():
+            for n, t in st.items():
+                if not torch.equal(t, b._updater_state[key][k][n]):
+                    bad.append(f"updater state {key}.{k}.{n}")
+        for n, t in a._slot(key).state().items():
+            if not torch.equal(t, b._slot(key).state()[n]):
+                bad.append(f"layer state {key}.{n}")
+    if a.conf.iteration_count != b.conf.iteration_count:
+        bad.append(f"iteration_count {a.conf.iteration_count} vs "
+                   f"{b.conf.iteration_count}")
+    if scores_a is not None and _step_scores(scores_a) != \
+            _step_scores(scores_b):
+        bad.append("step scores")
+    if bad:
+        raise SystemExit(f"{label}: not bit-equal: {bad[:6]}")
+    print(f"  {label}: bit-equal (parameters, updater and layer state, "
+          f"{a.conf.iteration_count} iterations"
+          + (f", {len(_step_scores(scores_a))} step scores"
+             if scores_a is not None else "") + ")")
+
+
+def _small_net(device, seed=7, updater="adam", lr=0.01, policy=None,
+               dropout=None, mse=False, data_type="float32"):
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                        OutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (NeuralNetConfiguration.Builder().seed(seed).updater(updater)
+         .learning_rate(lr).data_type(data_type))
+    if policy == "exponential":
+        b = b.learning_rate_decay_policy("exponential").lr_policy_decay_rate(
+            0.9)
+    elif policy == "schedule":
+        b = b.learning_rate_decay_policy("schedule").learning_rate_schedule(
+            {0: 0.05, 5: 0.02, 11: 0.005})
+    if dropout is not None:
+        b = b.dropout(dropout)
+    act, loss = ("identity", "mse") if mse else ("softmax", "mcxent")
+    conf = (b.list()
+            .layer(0, DenseLayer(n_out=32, activation="identity" if mse
+                                 else "relu"))
+            .layer(1, DenseLayer(n_out=16, activation="identity" if mse
+                                 else "tanh"))
+            .layer(2, OutputLayer(n_out=3, activation=act,
+                                  loss_function=loss))
+            .set_input_type(InputType.feed_forward(5)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _small_batches(n_batches, seed, rows=16):
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    r = np.random.default_rng(seed)
+    x = r.random((n_batches * rows, 5)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[np.argmax(x @ r.random((5, 3)), 1)]
+    return list(DataSet(x, y).batch_by(rows))
+
+
+def _poisoned(batches, call, poison):
+    from deeplearning4j_tpu_torch.common.resilience import FaultInjector
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        DataSetValidator, ListDataSetIterator, ValidatingDataSetIterator)
+    inj = FaultInjector(seed=0)
+    inj.plan("data.batch", on_call=call, corrupt=poison)
+    v = DataSetValidator(policy="count", check_finite=False,
+                         fault_injector=inj)
+    return ValidatingDataSetIterator(ListDataSetIterator(batches), v)
+
+
+def _lenet_f32_card_vs_cpu():
+    """Phase 26(c)'s f32 LeNet, fused groups card vs CPU (phase 15's
+    reasons: cuDNN and the CPU sum the windows and the products in other
+    orders), on phase 15's batch, pinned at 1e-5: a group of 3 (phase 15's
+    three steps) and a group of 8 on the parameters and every inner step's
+    score; the group of 8 bit-equal to 8 single steps on the card. Measured:
+    8 fresh batches, beside the CPU against itself from one weight moved by
+    1e-7, which a 2x2 max-pool window with two near-equal inputs turns into
+    another pick and a ~0.5% change of the conv kernels' gradients (1.191e-4
+    after 8 steps). Under cuDNN's deterministic algorithms the card read
+    2.235e-8 throughout on an H100; under its timed search (in the same
+    process the f32 algorithms may differ from run to run) 8 steps read
+    8.0e-6 to 1.349e-5 on phase 15's batch and 1.191e-4 on the fresh ones,
+    so all of it runs under the deterministic algorithms."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    out = {}
+    rng = np.random.default_rng(15)
+    x, y = rng.random((64, 784), dtype=np.float32), _one_hot(rng, 64, 10)
+    for k in (3, FUSED_K):
+        nets = {(dev, kk): lenet(device=dev, data_type="float32")
+                .fused_steps(kk) for dev in ("cuda", "cpu")
+                for kk in ((1, k) if k == FUSED_K else (k,))}
+        seen = {key: _record_steps(n) for key, n in nets.items()}
+        for n in nets.values():
+            n.fit(ListDataSetIterator([DataSet(x, y)] * k))
+        if nets["cuda", k].fused_counts["graph_replays"] != 1:
+            raise SystemExit(f"f32 LeNet: {nets['cuda', k].fused_counts}")
+        params = _max_err(nets["cuda", k].params(), nets["cpu", k].params())
+        if k == 3:
+            out["lenet_f32_group3_params"] = params
+            _check("f32 LeNet, a fused group of 3 (phase 15's steps): card "
+                   "vs CPU parameters", params, 1e-5)
+            continue
+        out["lenet_f32_group8_scores"] = _max_err(
+            _step_scores(seen["cuda", k]), _step_scores(seen["cpu", k]))
+        _check("f32 LeNet, a fused group of 8: card vs CPU, every step's "
+               "score", out["lenet_f32_group8_scores"], 1e-5)
+        out["lenet_f32_group8_params"] = params
+        _check("f32 LeNet, a fused group of 8: card vs CPU parameters",
+               params, 1e-5)
+        _same_training_state("f32 LeNet, a fused group of 8 vs 8 single "
+                             "steps on the card", nets["cuda", 1],
+                             nets["cuda", k], seen["cuda", 1],
+                             seen["cuda", k])
+    rng = np.random.default_rng(26)
+    xs = rng.random((FUSED_K * 64, 784), dtype=np.float32)
+    batches = list(DataSet(xs, _one_hot(rng, FUSED_K * 64, 10)).batch_by(64))
+    nets = {dev: lenet(device=dev, data_type="float32").fused_steps(FUSED_K)
+            for dev in ("cuda", "cpu")}
+    moved = nets["cpu"].params()
+    moved[0] += 1e-7
+    nets["moved"] = lenet(device="cpu", data_type="float32").fused_steps(
+        FUSED_K)
+    nets["moved"].set_params(moved)
+    for n in nets.values():
+        n.fit(ListDataSetIterator(batches))
+    out["lenet_f32_fresh_batches"] = {
+        "card_vs_cpu": _max_err(nets["cuda"].params(), nets["cpu"].params()),
+        "cpu_vs_cpu_moved_1e-7": _max_err(nets["moved"].params(),
+                                          nets["cpu"].params())}
+    print(f"  f32 LeNet fused8, 8 fresh batches of 64 (measured): card vs "
+          f"CPU {out['lenet_f32_fresh_batches']['card_vs_cpu']:.3e}; the CPU "
+          f"against itself from one weight moved by 1e-7 "
+          f"{out['lenet_f32_fresh_batches']['cpu_vs_cpu_moved_1e-7']:.3e}")
+    return out
+
+
+def fused_pins():
+    """Phase 26(c): fused8 == fused1 on small nets on the card (lr
+    schedules over two groups, dropout, a first group from a fresh net, a
+    TBPTT group at t0 != 0), and f32 LeNet fused8 card vs CPU."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.char_rnn import char_rnn
+    print("phase 26(c): fused steps == single steps on small nets on the "
+          "card")
+    out = {}
+    cases = {"lr exponential, two groups": dict(policy="exponential"),
+             "lr schedule map, two groups": dict(policy="schedule",
+                                                 updater="nesterovs"),
+             "dropout 0.7": dict(dropout=0.7, updater="sgd", lr=0.1)}
+    for label, kw in cases.items():
+        batches = _small_batches(2 * FUSED_K, seed=len(label))
+        a, b = (_small_net("cuda", **kw) for _ in range(2))
+        b.fused_steps(FUSED_K)
+        sa, sb = _record_steps(a), _record_steps(b)
+        for n in (a, b):
+            n.fit(ListDataSetIterator(batches))
+        if b.fused_counts["graph_replays"] != 2:
+            raise SystemExit(f"{label}: {b.fused_counts}")
+        _same_training_state(label, a, b, sa, sb)
+    # the first group from a fresh net, alone
+    batches = _small_batches(FUSED_K, seed=3)
+    a, b = _small_net("cuda", dropout=0.8), _small_net("cuda", dropout=0.8)
+    b.fused_steps(FUSED_K)
+    sa, sb = _record_steps(a), _record_steps(b)
+    for n in (a, b):
+        n.fit(ListDataSetIterator(batches))
+    _same_training_state("first group from a fresh net (dropout 0.8)", a, b,
+                         sa, sb)
+    # TBPTT: T=20, L=4, K=2: groups at t0 = 0 and 8 (one capture), the tail
+    # segment at 16 single-step; two fits
+    r = np.random.default_rng(26)
+    x = np.eye(11, dtype=np.float32)[r.integers(0, 11, (4, 20))]
+    y = np.eye(11, dtype=np.float32)[r.integers(0, 11, (4, 20))]
+    kw = dict(vocab_size=11, hidden=16, tbptt_length=4)
+    a, b = char_rnn(**kw), char_rnn(**kw).fused_steps(2)
+    sa, sb = _record_steps(a), _record_steps(b)
+    for _ in range(2):
+        for n in (a, b):
+            n.fit(DataSet(x, y))
+    c = b.fused_counts
+    if (c["captures"], c["graph_replays"]) != (1, 4):
+        raise SystemExit(f"TBPTT t0 != 0: {c}")
+    _same_training_state("TBPTT groups at t0 = 0 and 8 (one capture), tail "
+                         "single-step", a, b, sa, sb)
+    out["tbptt_counts"] = dict(c)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out.update(_lenet_f32_card_vs_cpu())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def _trace_fit(fit):
+    """(device ms, kernels, wall ms) of one call of `fit`, traced."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_time_total
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    return {"device_ms": busy_ms, "kernels": sum(e.count for e in kernels),
+            "wall_ms": wall_ms, "busy_share": busy_ms / wall_ms}
+
+
+def fused_lenet():
+    """Phase 26(a): BASELINE config 1 as bench.py:178-224 runs it. Returns
+    its readings."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    print(f"phase 26(a): LeNet bf16, batch {LENET_B}, {LENET_BATCHES} "
+          f"batches a fit from a ListDataSetIterator: fused_steps"
+          f"({FUSED_K}) against fused1, {LENET_SEGMENTS} interleaved "
+          f"segments an arm")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(261)
+    x = torch.rand((LENET_B, 784), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 10, (LENET_B,), generator=gen, device="cuda"), 10).float()
+    ds = DataSet(x, y)
+    nets = {"fused1": lenet(data_type="bfloat16"),
+            "fused8": lenet(data_type="bfloat16").fused_steps(FUSED_K)}
+    seen = {k: _record_steps(n) for k, n in nets.items()}
+    out = {k: {"images_per_s": [], "peak_gib": None} for k in nets}
+
+    def segment(name):
+        net = nets[name]
+        before = net.fused_counts["graph_replays"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator([ds] * LENET_BATCHES))
+        float(net._score)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[name]["peak_over_held_gib"] = max(
+            out[name].get("peak_over_held_gib", 0.0),
+            (torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+        replays = net.fused_counts["graph_replays"] - before
+        want = LENET_BATCHES // FUSED_K if name == "fused8" else 0
+        if replays != want:
+            raise SystemExit(f"{name}: {replays} graph replays a fit, want "
+                             f"{want}: {net.fused_counts}")
+        return LENET_B * LENET_BATCHES / dt, dt
+
+    t0 = time.perf_counter()
+    for name in nets:                 # warm-up: cuDNN's search, the capture
+        out[name]["first_fit_s"] = segment(name)[1]
+    for i in range(LENET_SEGMENTS):
+        order = list(nets) if i % 2 == 0 else list(nets)[::-1]
+        for name in order:
+            ips, _ = segment(name)
+            out[name]["images_per_s"].append(ips)
+            out[name]["peak_gib"] = max(
+                out[name]["peak_gib"] or 0.0,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+    for name in nets:
+        v = sorted(out[name]["images_per_s"])
+        out[name]["median_images_per_s"] = v[len(v) // 2]
+        print(f"  {name}: first fit {out[name]['first_fit_s']:.2f} s; "
+              f"images/s {[round(a) for a in out[name]['images_per_s']]}, "
+              f"median {out[name]['median_images_per_s']:.0f}; peak "
+              f"{out[name]['peak_gib']:.3f} GiB, "
+              f"{out[name]['peak_over_held_gib']:.3f} over what was held")
+    out["fused8_over_fused1"] = (out["fused8"]["median_images_per_s"]
+                                 / out["fused1"]["median_images_per_s"])
+    _same_training_state(f"LeNet bf16 fused8 vs fused1 after "
+                         f"{LENET_SEGMENTS + 1} fits", nets["fused1"],
+                         nets["fused8"], seen["fused1"], seen["fused8"])
+    losses = _step_scores(seen["fused8"])
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"LeNet losses not finite: {losses[:8]}")
+    out["fused_counts"] = dict(nets["fused8"].fused_counts)
+    out["first_last_loss"] = [losses[0], losses[-1]]
+    # one group (8 steps) against one eager step, traced
+    out["trace_group"] = _trace_fit(lambda: nets["fused8"].fit(
+        ListDataSetIterator([ds] * FUSED_K)))
+    out["trace_step"] = _trace_fit(lambda: nets["fused1"].fit(
+        ListDataSetIterator([ds])))
+    for k, name, steps in (("trace_group", "fused8", FUSED_K),
+                           ("trace_step", "fused1", 1)):
+        t = out[k]
+        step_ms = LENET_B * 1e3 / out[name]["median_images_per_s"]
+        out[name]["busy_share_timed"] = t["device_ms"] / steps / step_ms
+        print(f"  {k}: {t['kernels']} kernels, {t['device_ms']:.3f} ms of "
+              f"device time in {t['wall_ms']:.3f} ms traced, busy "
+              f"{t['busy_share']:.1%}; {out[name]['busy_share_timed']:.1%} "
+              f"of a median timed step ({step_ms:.3f} ms)")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def fused_char_rnn():
+    """Phase 26(b): BASELINE config 3 as bench.py:342-416 runs it. Returns
+    its readings."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.char_rnn import char_rnn
+    segments = CHAR_T // CHAR_TBPTT
+    print(f"phase 26(b): char-RNN bf16 V={CHAR_V}, 2x200 GravesLSTM, "
+          f"B={CHAR_B}, T={CHAR_T}, tbptt {CHAR_TBPTT} ({segments} "
+          f"segments): fused_steps({FUSED_K}) against fused1, {CHAR_FITS} "
+          f"timed fits an arm in blocks of {CHAR_BLOCK}, interleaved")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(262)
+    onehot = lambda: torch.nn.functional.one_hot(torch.randint(  # noqa: E731
+        0, CHAR_V, (CHAR_B, CHAR_T), generator=gen, device="cuda"),
+        CHAR_V).float()
+    ds = DataSet(onehot(), onehot())
+    nets = {"fused1": char_rnn(data_type="bfloat16"),
+            "fused8": char_rnn(data_type="bfloat16").fused_steps(FUSED_K)}
+    seen = {k: _record_steps(n) for k, n in nets.items()}
+    out = {k: {"block_chars_per_s": []} for k in nets}
+    t0 = time.perf_counter()
+    for name, net in nets.items():    # warm-up; fused8 captures here
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        out[name]["first_fit_s"] = time.perf_counter() - t1
+    for i in range(CHAR_FITS // CHAR_BLOCK):
+        order = list(nets) if i % 2 == 0 else list(nets)[::-1]
+        for name in order:
+            net = nets[name]
+            before = net.fused_counts["graph_replays"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            for _ in range(CHAR_BLOCK):
+                net.fit(ds)
+            float(net._score)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            out[name]["peak_over_held_gib"] = max(
+                out[name].get("peak_over_held_gib", 0.0),
+                (torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+            replays = net.fused_counts["graph_replays"] - before
+            want = CHAR_BLOCK if name == "fused8" else 0
+            if replays != want:
+                raise SystemExit(f"char-RNN {name}: {replays} replays in "
+                                 f"{CHAR_BLOCK} fits, want {want}")
+            out[name]["block_chars_per_s"].append(
+                CHAR_B * CHAR_T * CHAR_BLOCK / dt)
+            out[name]["peak_gib"] = max(
+                out[name].get("peak_gib", 0.0),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+    for name in nets:
+        v = out[name]["block_chars_per_s"]
+        out[name]["chars_per_s"] = len(v) / sum(1.0 / c for c in v)
+        out[name]["ms_per_fit"] = CHAR_B * CHAR_T * 1e3 / out[name][
+            "chars_per_s"]
+        print(f"  {name}: first fit {out[name]['first_fit_s']:.2f} s; "
+              f"chars/s by block {[round(c) for c in v]}, over the "
+              f"{CHAR_FITS} fits {out[name]['chars_per_s']:.0f} "
+              f"({out[name]['ms_per_fit']:.2f} ms a fit); peak "
+              f"{out[name]['peak_gib']:.3f} GiB, "
+              f"{out[name]['peak_over_held_gib']:.3f} over what was held")
+    out["fused8_over_fused1"] = (out["fused8"]["chars_per_s"]
+                                 / out["fused1"]["chars_per_s"])
+    _same_training_state(f"char-RNN bf16 fused8 vs fused1 after "
+                         f"{CHAR_FITS + 1} fits", nets["fused1"],
+                         nets["fused8"], seen["fused1"], seen["fused8"])
+    losses = _step_scores(seen["fused8"])
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"char-RNN losses not finite: {losses[:8]}")
+    out["fused_counts"] = dict(nets["fused8"].fused_counts)
+    out["first_last_loss"] = [losses[0], losses[-1]]
+    out["trace_fused8_fit"] = _trace_fit(lambda: nets["fused8"].fit(ds))
+    out["trace_fused1_fit"] = _trace_fit(lambda: nets["fused1"].fit(ds))
+    for k, name in (("trace_fused8_fit", "fused8"),
+                    ("trace_fused1_fit", "fused1")):
+        t = out[k]
+        out[name]["busy_share_timed"] = (t["device_ms"]
+                                         / out[name]["ms_per_fit"])
+        print(f"  {k}: {t['kernels']} kernels, {t['device_ms']:.3f} ms of "
+              f"device time in {t['wall_ms']:.3f} ms traced, busy "
+              f"{t['busy_share']:.1%}; {out[name]['busy_share_timed']:.1%} "
+              f"of the timed fit's {out[name]['ms_per_fit']:.2f} ms")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def fused_health():
+    """Phase 26(d): the watchdog on the card. Returns its readings."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common.health import (
+        TrainingDivergedError, TrainingHealthPolicy)
+    from deeplearning4j_tpu_torch.common.resilience import FaultInjector
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    print("phase 26(d): the training-health watchdog on the card")
+    out = {}
+    # a NaN batch at inner step 3 of a group of 8
+    batches = _small_batches(2 * FUSED_K, seed=264)
+    pols = [TrainingHealthPolicy(max_consecutive_bad=5) for _ in range(2)]
+    a = _small_net("cuda", seed=11).training_health(pols[0])
+    b = _small_net("cuda", seed=11).fused_steps(FUSED_K).training_health(
+        pols[1])
+    for n in (a, b):
+        n.fit(_poisoned(batches, 3, "nan"))
+    if pols[0].counts != pols[1].counts or pols[1].counts["skips"] != 1:
+        raise SystemExit(f"NaN skip counts {pols[0].counts} vs "
+                         f"{pols[1].counts}")
+    if b.fused_counts["graph_replays"] != 2:
+        raise SystemExit(f"NaN skip: {b.fused_counts}")
+    _same_training_state("NaN at inner step 3 of 8: fused8 vs the "
+                         "sequential run that skips it", a, b)
+    out["nan_skip_counts"] = dict(pols[1].counts)
+    # a finite divergence rolls back mid-group through the checkpoints
+    tmp = tempfile.mkdtemp(prefix="dl4j_phase26_", dir=os.getcwd()
+                           if os.access(os.getcwd(), os.W_OK) else None)
+    try:
+        batches = _small_batches(8, seed=265)
+        pol = TrainingHealthPolicy(grad_norm_limit=50.0,
+                                   max_consecutive_bad=4)
+        net = _small_net("cuda", seed=4, mse=True).fused_steps(
+            FUSED_K).training_health(pol, checkpoint_dir=f"{tmp}/fit",
+                                     checkpoint_every=4)
+        net.fit(_poisoned(batches, 5, 200.0))
+        rb = [e for e in pol.events if e["kind"] == "rollback"]
+        ref = _small_net("cuda", seed=4, mse=True)
+        ref.fit(ListDataSetIterator(batches[:4] + batches[6:]))
+        replayed = net.fused_counts["single_steps"].get("rollback_replay")
+        if (pol.counts["rollbacks"], rb[0]["restoredRound"] if rb else None,
+                net.conf.iteration_count, replayed) != (1, 4, 6, 2):
+            raise SystemExit(f"fit-loop rollback: {pol.counts} {rb} "
+                             f"{net.conf.iteration_count}")
+        _same_training_state("divergence at inner step 1 of a group of 4: "
+                             "restored round 4, the 2 batches left "
+                             "replayed, == the run without batches 4-5",
+                             net, ref)
+        out["fit_rollback"] = {"restored_round": rb[0]["restoredRound"],
+                               "iteration_count": net.conf.iteration_count,
+                               "counts": dict(pol.counts),
+                               "fused_counts": dict(net.fused_counts)}
+        # N consecutive bad steps abort, naming the rounds
+        pol = TrainingHealthPolicy(max_consecutive_bad=2)
+        net = _small_net("cuda", seed=6).fused_steps(FUSED_K) \
+            .training_health(pol)
+        net.fit(ListDataSetIterator(_small_batches(2, seed=266)))
+        bad = DataSet(torch.full((16, 5), float("nan")),
+                      torch.eye(3)[torch.zeros(16, dtype=torch.long)])
+        try:
+            net.fit(ListDataSetIterator([bad] * FUSED_K))
+        except TrainingDivergedError as e:
+            out["abort_message"] = str(e)
+        else:
+            raise SystemExit("consecutive NaN steps did not abort")
+        if "offending rounds [2, 3]" not in out["abort_message"]:
+            raise SystemExit(f"abort message: {out['abort_message']}")
+        print(f"  abort: {out['abort_message']}")
+        # ParallelWrapper on one rank, both modes: the reference's
+        # test_training_health.py:308 contract (restored round 5,
+        # iteration_count 7 in all-reduce mode) and bit-equality with the
+        # run that never saw the poisoned batch (k = 2: its round)
+        out["wrapper"] = {}
+        for k in (1, 2):
+            batches = _small_batches(8, seed=267)
+            inj = FaultInjector(seed=0)
+            inj.plan("wrapper.batch", on_call=5, corrupt=200.0)
+            pol = TrainingHealthPolicy(grad_norm_limit=50.0,
+                                       max_consecutive_bad=4)
+            net = _small_net("cuda", seed=5, mse=True)
+            (ParallelWrapper.Builder(net).averaging_frequency(k)
+             .checkpointing(f"{tmp}/pw{k}").fault_injector(inj)
+             .health_policy(pol).build().fit(ListDataSetIterator(batches)))
+            ref = _small_net("cuda", seed=5, mse=True)
+            kept = (batches[:5] + batches[6:] if k == 1
+                    else batches[:4] + batches[6:])
+            (ParallelWrapper.Builder(ref).averaging_frequency(k).build()
+             .fit(ListDataSetIterator(kept)))
+            rb = [e for e in pol.events if e["kind"] == "rollback"]
+            want = (5, 7) if k == 1 else (2, 6)
+            got = (rb[0]["restoredRound"] if rb else None,
+                   net.conf.iteration_count)
+            if got != want or pol.counts["rollbacks"] != 1:
+                raise SystemExit(f"wrapper k={k}: {got} want {want}, "
+                                 f"{pol.counts}")
+            _same_training_state(f"ParallelWrapper k={k}: restored round "
+                                 f"{got[0]}, iteration_count {got[1]}, == "
+                                 f"the run without the poisoned round",
+                                 net, ref)
+            out["wrapper"][f"k{k}"] = {"restored_round": got[0],
+                                       "iteration_count": got[1]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def fused_phase(fa):
+    """Phase 26. Returns its readings."""
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    out = {"pins": fused_pins(), "health": fused_health(),
+           "lenet": fused_lenet(), "char_rnn": fused_char_rnn()}
+    torch.cuda.empty_cache()
+    if any(fa.launches.values()):
+        raise SystemExit(f"the fused path launched flash kernels: "
+                         f"{fa.launches}")
+    out["flash_launches"] = dict(fa.launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 26 launched no kernel of the port: {fa.launches}; "
           f"{out['phase_s']:.1f} s")
     return out
 

@@ -22,7 +22,11 @@ and the stdlib halves they use (`obs`, `common.resilience`); the
 TransformerLM's continuous-batching decode server (`serving.
 ContinuousDecodeServer`, its serving programs in `models.zoo.transformer`,
 and the block pool, admission control, KV artifacts and load generator it
-uses). ROADMAP.md queues the rest.
+uses); the recurrent path and the char-RNN; the embeddings; data-parallel
+and parameter-server training (`parallel`); fused steps, K optimizer steps
+as one CUDA graph replay (`nn.fused`), the training-health watchdog
+(`common.health`) and the checkpoints of replicated training state its
+rollback restores (`util.sharded_checkpoint`). ROADMAP.md queues the rest.
 """
 from .common.device import resolve_device
 

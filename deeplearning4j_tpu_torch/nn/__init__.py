@@ -1,3 +1,3 @@
 """Networks: port of deeplearning4j_tpu/nn/ (configuration DSL, layers,
-updaters and the two containers, `MultiLayerNetwork` and
-`ComputationGraph`)."""
+updaters, the two containers, `MultiLayerNetwork` and `ComputationGraph`,
+and their fused steps, `fused`)."""

@@ -20,9 +20,13 @@ name.
 layer vertex carries its state by vertex name; a TBPTT segment slices the
 sequence inputs, labels and masks and passes static ones whole.
 
+`fused_steps(K)` and `training_health` are `multilayer.Network`'s: a fused
+group stacks the multi-input feature dicts and multi-output label lists
+leaf by leaf, over an iterator of DataSets or MultiDataSets (or any object
+with has_next()/next()), and fuses K full TBPTT segments of a sequence.
+
 Not ported yet (NotImplementedError, naming the ROADMAP.md item):
-`remat_segments=True` (to come on `torch.utils.checkpoint`),
-`fused_steps`, `training_health`, listeners.
+`remat_segments=True` (to come on `torch.utils.checkpoint`), listeners.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 
 from ...common.device import card_numerics, to_port, to_public
 from ...datasets.dataset import DataSet, MultiDataSet
-from ...datasets.iterators import DataSetIterator, next_processed
+from ...datasets.iterators import DataSetIterator
 from ..conf.computation_graph_configuration import ComputationGraphConfiguration
 from ..conf.layers.recurrent import BaseRecurrentLayer
 from ..multilayer import Network, _host, mean_score, not_ported
@@ -218,9 +222,7 @@ class ComputationGraph(Network):
             if hasattr(data, "reset"):
                 data.reset()
             if hasattr(data, "has_next"):
-                while data.has_next():
-                    self._step(self._batch(self._dataset(
-                        next_processed(data))))
+                self._fit_stream(data)
             else:
                 for ds in data:
                     self._step(self._batch(self._dataset(ds)))

@@ -54,9 +54,18 @@ inference step `serving.InferenceServer` runs.
 Entry points run on the CUDA card unless the caller passes device="cpu";
 on the card float32 networks run with TF32 off (`card_numerics`).
 
+`fused_steps(K)` takes K optimizer steps a dispatch (`nn.fused`): on the
+card K steps are one CUDA graph replay, for the batch loop and for the
+TBPTT loop (K full segments a replay, the carries threaded through).
+`training_health` arms the watchdog (`common.health`): each step also
+computes its health scalars on the device and applies its update only when
+they are finite; the host classifies them and skips, rolls back to the
+newest checkpoint (`util.sharded_checkpoint`) or aborts. A step's learning
+rates come from a device buffer the host fills before it
+(`updater.updaters`), so a captured step reads each replay's rates.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): `fused_steps` (with it the fused TBPTT route), `training_health`,
-listeners, `pretrain`.
+item): listeners, `pretrain`.
 """
 from __future__ import annotations
 
@@ -67,11 +76,13 @@ import torch
 from torch import nn
 
 from .. import obs
+from ..common import health as H
 from ..common.device import card_numerics, resolve_device, to_port, to_public
 from ..datasets.dataset import DataSet
 from ..datasets.iterators import (AsyncDataSetIterator, DataSetIterator,
                                   ListDataSetIterator, next_processed,
                                   wrap_async_for_fit)
+from . import fused as F
 from .conf.layers.recurrent import BaseRecurrentLayer
 from .conf.neural_net_configuration import MultiLayerConfiguration
 from .updater import updaters as U
@@ -142,6 +153,21 @@ class Network(nn.Module):
         # the process group BatchNorm's training statistics span
         # (batch_stats_over); None: this rank's batch
         self._stats_group = None
+        self.listeners = []          # iteration listeners (item 16)
+        # the training-health watchdog (common.health.install)
+        self._health_policy = None
+        self._health_gen = 0
+        self._health_ckpt = None
+        self._health_ckpt_every = 10
+        self._step_score = self._step_health = None  # an armed step's
+        # fused steps (nn.fused.install) and what the fit loops did
+        self._fused_steps = 1
+        self._fused_cache = None
+        self._lr_leaves_cache = None
+        self._lr_single = None       # the single step's [1, P] lr buffer
+        self._lr_single_rows = None  # and the rates it holds
+        self.fused_counts = {"groups": 0, "graph_replays": 0, "captures": 0,
+                             "fused_steps": 0, "single_steps": {}}
 
     # -- what a subclass provides ------------------------------------------
     def _keyed_layers(self):
@@ -243,6 +269,9 @@ class Network(nn.Module):
         for _ in range(int(self.conf.global_conf.get("num_iterations", 1))):
             with obs.TRACER.span("train.dispatch", cat="train"):
                 self._train_step(lambda rng: self._loss(*batch, True, rng))
+            if (self._health_policy is not None
+                    and self._finish_armed() == H.ROLLBACK):
+                break           # counters and generator restored
 
     def _init_carries(self, batch_size):
         """Every recurrent layer's zero carry, by key, in the compute type
@@ -257,35 +286,334 @@ class Network(nn.Module):
         """Truncated BPTT over one device batch: one updater step per
         `tbptt_fwd_length` segment, iteration_count advanced per segment,
         the recurrent state carried across segments without its gradient
-        (each segment starts from detached carries)."""
+        (each segment starts from detached carries). With fused steps, K
+        full segments run as one group, the carries threaded through; the
+        short tail segment runs single-step; a rollback abandons the rest
+        of the sequence."""
         T, n = self._time_steps(batch)
         L = int(self.conf.tbptt_fwd_length)
         carries = self._init_carries(n)
-        for t0 in range(0, T, L):
+        t0 = 0
+        while t0 < T:
+            if self._fused_k() > 1:
+                g = min(F.group_size(self, self._fused_k()), (T - t0) // L)
+                if g > 1:
+                    carries, done = self._fit_tbptt_group(batch, carries,
+                                                          t0, g, L)
+                    if done:
+                        return      # rollback: abandon this sequence
+                    t0 += g * L
+                    continue
+                self._count_single("tbptt_tail")
             seg = self._segment(batch, t0, L)
             with obs.TRACER.span("train.dispatch", cat="train", tbptt=True):
-                carries = _detached(self._train_step(
-                    lambda rng: self._loss(*seg, True, rng, carries)))
+                new = self._train_step(
+                    lambda rng: self._loss(*seg, True, rng, carries))
+            if self._health_policy is not None:
+                new = H.gate_update(self._step_health["all_finite"], new,
+                                    carries)
+                if self._finish_armed() == H.ROLLBACK:
+                    return      # abandon the rest of this sequence
+            carries = _detached(new)
+            t0 += L
 
     def _fit_iterator(self, it, num_epochs):
         """fit over an iterator, with the reference's epoch semantics: a
         plain iterator the caller hands in may be mid-stream, so it is reset
         BEFORE wrapping (the fresh wrapper prefetches from position 0 and
         needs no reset in epoch 0); an AsyncDataSetIterator the caller built
-        resets every epoch."""
+        resets every epoch. With fused steps the staging queue holds a
+        whole group ahead."""
         wrapped_here = not isinstance(it, AsyncDataSetIterator)
         if wrapped_here:
             it.reset()
-        async_it = wrap_async_for_fit(it, self.compute_dtype,
-                                      device=self._device)
+        async_it = wrap_async_for_fit(
+            it, self.compute_dtype, queue_size=max(2, self._fused_steps + 1),
+            device=self._device)
         for epoch in range(num_epochs):
             if epoch > 0 or not wrapped_here or not async_it.has_next():
                 async_it.reset()
-            while async_it.has_next():
-                self._step(self._batch(self._dataset(
-                    next_processed(async_it))))
+            self._fit_stream(async_it)
             self.conf.epoch_count += 1
         return self
+
+    def _fit_stream(self, it):
+        """One pass over an iterator with has_next()/next(): single steps,
+        or with fused steps groups of K staged batches (a ragged tail and a
+        group of mixed shapes run single-step, the same stream)."""
+        def next_batch():
+            return self._batch(self._dataset(next_processed(it)))
+
+        while it.has_next():
+            k = (self._fused_k() if self.conf.backprop_type != "tbptt"
+                 else 1)
+            if k <= 1:
+                if self._fused_steps > 1 and self.conf.backprop_type \
+                        != "tbptt":
+                    self._count_single("num_iterations")
+                self._step(next_batch())
+                continue
+            g = F.group_size(self, k)
+            group = []
+            with obs.TRACER.span("train.stage", cat="train", k=g):
+                while len(group) < g and it.has_next():
+                    group.append(next_batch())
+            if len(group) == g and F.uniform_group(group):
+                self._fit_group(group)
+                continue
+            self._count_single("ragged_tail" if len(group) < g
+                               else "mixed_shapes", len(group))
+            for batch in group:
+                self._step(batch)
+
+    # ------------------------------------------------------------------
+    # The step body, the single step and the fused groups
+    # ------------------------------------------------------------------
+    def _fused_k(self):
+        """The fused depth for the current batch: 1 (the single step)
+        unless fused_steps(K > 1) is set and num_iterations == 1."""
+        k = self._fused_steps
+        if k <= 1 or int(self.conf.global_conf.get("num_iterations", 1)) != 1:
+            return 1
+        return k
+
+    def _count_single(self, why, n=1):
+        """Count single steps the fused loop took, by the reference's
+        reason (a ragged tail, mixed shapes, num_iterations != 1, the short
+        TBPTT tail, the replay after a rollback)."""
+        c = self.fused_counts["single_steps"]
+        c[why] = c.get(why, 0) + n
+
+    def _lr_leaves(self):
+        """(key, layer, param name) of every parameter, in a fixed order:
+        the columns of the learning-rate buffers."""
+        if self._lr_leaves_cache is None:
+            self._lr_leaves_cache = [
+                (key, layer, k) for key, layer in self._keyed_layers()
+                for k in self._slot(key).params]
+        return self._lr_leaves_cache
+
+    def _lr_rows(self, it0, k):
+        """The learning rates of iterations it0 .. it0 + k - 1, k rows of P
+        floats (the schedules run on the host)."""
+        return [[U.layer_lr(layer, name, it)
+                 for _, layer, name in self._lr_leaves()]
+                for it in range(it0, it0 + k)]
+
+    def _lr_buffer(self, k):
+        return torch.empty((k, len(self._lr_leaves())), dtype=self.param_dtype,
+                           device=self._device)
+
+    def _fill_lr(self, buf, rows, held):
+        """Copy `rows` into the device buffer `buf` unless it holds them
+        already (`held`): a constant rate costs no copy and no host tensor
+        after the first step. Returns the rows `buf` holds."""
+        if rows != held:
+            buf.copy_(torch.tensor(rows, dtype=self.param_dtype))
+        return rows
+
+    def _lr_views(self, row):
+        """{key: {param name: 0-d lr tensor}} over one buffer row."""
+        out = {key: {} for key, _ in self._keyed_layers()}
+        for j, (key, _, name) in enumerate(self._lr_leaves()):
+            out[key][name] = row[j]
+        return out
+
+    def _single_lr(self):
+        """The single step's learning rates: one row of a device buffer,
+        filled by the host when they changed."""
+        if self._lr_single is None:
+            self._lr_single = self._lr_buffer(1)
+        self._lr_single_rows = self._fill_lr(
+            self._lr_single, self._lr_rows(int(self.conf.iteration_count), 1),
+            self._lr_single_rows)
+        return self._lr_views(self._lr_single[0])
+
+    def _step_body(self, loss_fn, lrs, reduce=None):
+        """One optimizer step, as both the single step and each inner step
+        of a fused group run it: the loss `loss_fn(rng)` -> (score, new
+        layer state, new carries), its gradients, `reduce(grads, score)`
+        when given (a data-parallel all-reduce, before the updaters'
+        normalization and clipping), the updaters with the learning rates
+        `lrs`, the new layer state. Armed, the health scalars gate the
+        update on the device. Touches no host counter and reads nothing on
+        the host. Returns (score, new carries, health or None)."""
+        with card_numerics(self._device, self.compute_dtype):
+            score, new_state, new_carries = loss_fn(self._dropout_gen)
+            grads = self._grads(score)
+            score = score.detach()
+            if reduce is not None:
+                grads, score = reduce(grads, score)
+            health = ok = None
+            if self._health_policy is not None:
+                health = H.grad_health(grads, score)
+                ok = health["all_finite"]
+            minimize = self.conf.global_conf.get("minimize", True)
+            for key, layer in self._keyed_layers():
+                U.apply_layer(layer, dict(self._slot(key).params), grads[key],
+                              self._updater_state[key], None, minimize,
+                              lr=lrs[key], ok=ok, inplace=True)
+            self._store_state(new_state, ok)
+        return score, new_carries, health
+
+    def _finish_armed(self):
+        """The armed single step's epilogue: classify its health, act
+        (skip, roll back, abort), advance the counter and checkpoint when
+        due. Returns the action."""
+        with obs.TRACER.span("train.health", cat="train"):
+            action = H.finish_step(self, H.host_health(self._step_health),
+                                   self._step_score)
+        if action == H.ROLLBACK:
+            return action
+        self.conf.iteration_count += 1
+        for listener in self.listeners:
+            listener.iteration_done(self, self.conf.iteration_count - 1)
+        if action == H.OK:
+            with obs.TRACER.span("train.checkpoint", cat="train"):
+                H.fit_loop_checkpoint(self)
+        return action
+
+    def _held(self):
+        """The tensors a fused group reads and writes in place: parameters,
+        updater state, layer state."""
+        out = []
+        for key, _ in self._keyed_layers():
+            slot = self._slot(key)
+            out.extend(slot.params.values())
+            out.extend(t for st in self._updater_state[key].values()
+                       for t in st.values())
+            out.extend(slot.state().values())
+        return out
+
+    @contextlib.contextmanager
+    def _preserve(self):
+        """Put back every state a CUDA graph's warm-up step moves (the
+        parameters, updater and layer state, the dropout generator)."""
+        held = self._held()
+        saved = [t.detach().clone() for t in held]
+        rng = self._dropout_gen.get_state()
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for t, s in zip(held, saved):
+                    t.copy_(s)
+            self._dropout_gen.set_state(rng)
+
+    def _group(self, key, make_static, run):
+        """The fused group for `key`: built once (a CUDA graph on the card,
+        the body itself on the CPU), captured again if the network now
+        holds other tensors than those it was captured on."""
+        def build():
+            static = make_static()
+            if self._device.type != "cuda":
+                return _EagerGroup(run, static)
+            self.fused_counts["captures"] += 1
+            return F.CapturedGroup(run, static, self._held(),
+                                   self._dropout_gen, self._preserve)
+
+        grp = F.fused_program(self, key, build)
+        if self._device.type == "cuda" and not grp.valid(self._held()):
+            grp = self._fused_cache[key] = build()
+        return grp
+
+    def _replay(self, grp, values, g):
+        """Run one fused group of g steps; returns (scores [g], stacked
+        health or None, outputs)."""
+        with obs.TRACER.span("train.dispatch", cat="train", k=g):
+            out = grp.replay(values)
+        self.fused_counts["groups"] += 1
+        self.fused_counts["fused_steps"] += g
+        if self._device.type == "cuda":
+            self.fused_counts["graph_replays"] += 1
+        # the graph's outputs are overwritten by its next replay
+        return out[0].clone(), out[1], out[2:]
+
+    def _fit_group(self, group):
+        """One dispatch for len(group) staged device batches of one
+        signature; on a rollback mid-group the remaining batches replay
+        single-step from the restored state, as the sequential loop would."""
+        g = len(group)
+        armed = self._health_policy is not None
+
+        def make_static():
+            return {"batch": [F.tree_map(_static_like, group[0])
+                              for _ in range(g)],
+                    "lr": self._lr_buffer(g)}
+
+        def run(static):
+            scores, healths = [], []
+            for i in range(g):
+                batch = static["batch"][i]
+                score, _, health = self._step_body(
+                    lambda rng, b=batch: self._loss(*b, True, rng),
+                    self._lr_views(static["lr"][i]))
+                scores.append(score)
+                healths.append(health)
+            return (torch.stack(scores),
+                    H.stack_health(healths) if armed else None)
+
+        grp = self._group(("batch", g, F.batch_signature(group[0])),
+                          make_static, run)
+        grp.lr_rows = self._fill_lr(
+            grp.static["lr"], self._lr_rows(int(self.conf.iteration_count), g),
+            grp.lr_rows)
+        values = {"batch": group}
+        with obs.TRACER.span("train.fused_group", cat="train", k=g):
+            scores, health, _ = self._replay(grp, values, g)
+            with obs.TRACER.span("train.health", cat="train", k=g):
+                rb = H.finish_fused(self, scores, health, g)
+        if rb is not None:
+            self._count_single("rollback_replay", g - rb - 1)
+            for batch in group[rb + 1:]:
+                self._step(batch)
+
+    def _fit_tbptt_group(self, batch, carries, t0, g, L):
+        """One dispatch for g full TBPTT segments from t0: the group's
+        g * L time steps are copied into the static buffers (so one capture
+        serves every t0), the carries threaded from segment to segment.
+        Returns (carries, rolled back)."""
+        armed = self._health_policy is not None
+        span_batch = self._segment(batch, t0, g * L)
+
+        def make_static():
+            return {"seq": F.tree_map(_static_like, span_batch),
+                    "carries": F.tree_map(_static_like, carries),
+                    "lr": self._lr_buffer(g)}
+
+        def run(static):
+            c = static["carries"]
+            scores, healths = [], []
+            for i in range(g):
+                seg = self._segment(static["seq"], i * L, L)
+                score, new, health = self._step_body(
+                    lambda rng, s=seg, c=c: self._loss(*s, True, rng, c),
+                    self._lr_views(static["lr"][i]))
+                if armed:
+                    new = H.gate_update(health["all_finite"], new, c)
+                c = _detached(new)
+                scores.append(score)
+                healths.append(health)
+            F.tree_zip(lambda pair: pair[0].copy_(pair[1]),
+                       [static["carries"], c])
+            return (torch.stack(scores),
+                    H.stack_health(healths) if armed else None,
+                    static["carries"])
+
+        key = ("tbptt", g, L, F.batch_signature(span_batch),
+               F.batch_signature(tuple(_flat_carries(carries))))
+        grp = self._group(key, make_static, run)
+        grp.lr_rows = self._fill_lr(
+            grp.static["lr"], self._lr_rows(int(self.conf.iteration_count), g),
+            grp.lr_rows)
+        values = {"seq": span_batch, "carries": carries}
+        with obs.TRACER.span("train.fused_group", cat="train", k=g,
+                             tbptt=True):
+            scores, health, (out_carries,) = self._replay(grp, values, g)
+            carries = F.tree_map(torch.clone, out_carries)
+            with obs.TRACER.span("train.health", cat="train", k=g):
+                rb = H.finish_fused(self, scores, health, g)
+        return carries, rb is not None
 
     def _eval_batches(self, data):
         """The batches of `data` (a DataSet, an iterator, or a list of
@@ -373,33 +701,32 @@ class Network(nn.Module):
 
     def _train_step(self, loss_fn, reduce=None):
         """One optimizer step on the loss `loss_fn(rng)` -> (score, new
-        layer state, new carries). `reduce(grads, score) -> (grads,
-        score)`, when given, runs between the gradients and the updaters
-        (a data-parallel all-reduce: the updaters' gradient normalization
-        and clipping then see the global gradient). Returns the new
-        carries."""
-        with card_numerics(self._device, self.compute_dtype):
-            score, new_state, new_carries = loss_fn(self._dropout_gen)
-            grads = self._grads(score)
-            score = score.detach()
-            if reduce is not None:
-                grads, score = reduce(grads, score)
-            _, self._updater_state = self._apply_updates(
-                self._params, self._updater_state, grads,
-                self.conf.iteration_count)
-            self._store_state(new_state)
-        self._score = score
-        self.conf.iteration_count += 1
+        layer state, new carries), with the learning rates of
+        `iteration_count` (`_step_body`). `reduce(grads, score) -> (grads,
+        score)`, when given, runs between the gradients and the updaters.
+        Disarmed, it records the score and advances `iteration_count`;
+        armed (`training_health`), it leaves both to the caller's epilogue
+        and keeps the step's score and health in `_step_score` /
+        `_step_health`. Returns the new carries."""
+        score, new_carries, health = self._step_body(
+            loss_fn, self._single_lr(), reduce)
+        if self._health_policy is None:
+            self._score = score
+            self.conf.iteration_count += 1
+        else:
+            self._step_score, self._step_health = score, health
         return new_carries
 
     @torch.no_grad()
-    def _store_state(self, new_state):
+    def _store_state(self, new_state, ok=None):
+        """Write the layers' new state into their buffers; where `ok` (a
+        0-d bool tensor) is False, keep the old."""
         for key, st in new_state.items():
             slot = self._slot(key)
             for name, v in st.items():
                 buf = getattr(slot, name)
                 if v is not buf:
-                    buf.copy_(v)
+                    buf.copy_(v if ok is None else torch.where(ok, v, buf))
 
     def score(self, data=None, training=False):
         """The score (loss plus L1/L2 terms) of the last fit step, or of
@@ -560,13 +887,32 @@ class Network(nn.Module):
 
     rnnClearPreviousState = rnn_clear_previous_state
 
-    # -- not ported yet ------------------------------------------------
+    def training_health(self, policy=True, checkpoint_dir=None,
+                        checkpoint_every=10, keep_checkpoints=3):
+        """Arm the training-health watchdog: every step also computes its
+        gradient norms and an all-finite flag on the device and applies its
+        update only when they are finite; the fit loop classifies each step
+        through the policy (NaN/Inf skip, EMA z-score loss spike,
+        gradient-norm explosion) and responds: count and skip, roll back to
+        the newest checkpoint (with `checkpoint_dir`, a
+        ShardedCheckpointManager saving every `checkpoint_every` healthy
+        steps), or abort after N consecutive bad steps naming the offending
+        rounds. policy=True takes TrainingHealthPolicy's defaults;
+        None/False disarms. Returns self."""
+        H.install(self, policy, checkpoint_dir, checkpoint_every,
+                  keep_checkpoints)
+        return self
+
     def fused_steps(self, k=8):
-        raise not_ported("fused_steps", 17)
+        """Take K optimizer steps a dispatch: the fit loops stage K batches
+        and run them as one group, one CUDA graph replay on the card (K
+        full TBPTT segments of a sequence, the carries threaded through).
+        Bit-identical to K single steps; a ragged tail, mixed batch shapes
+        and num_iterations != 1 run single-step; a health checkpoint seam
+        clips groups at its boundaries. Returns self."""
+        return F.install(self, k)
 
-    def training_health(self, *args, **kwargs):
-        raise not_ported("training_health", 17)
-
+    # -- not ported yet ------------------------------------------------
     def set_listeners(self, *listeners):
         raise not_ported("listeners", 16)
 
@@ -575,6 +921,38 @@ def _detached(carries):
     """Carries (key -> name -> tensor) cut from the autograd graph."""
     return {key: {n: t.detach() for n, t in c.items()}
             for key, c in carries.items()}
+
+
+def _flat_carries(carries):
+    return [t for c in carries.values() for t in c.values()]
+
+
+def _static_like(t):
+    """A static buffer for `t` in a fused group: its shape and dtype, dense,
+    channels_last when `t` is (the layout picks cuDNN's algorithms, so the
+    group sees the single step's)."""
+    if t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last) \
+            and not t.is_contiguous():
+        return torch.empty_like(t, memory_format=torch.channels_last)
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+class _EagerGroup:
+    """A fused group off the card: the same static buffers and body as a
+    captured one, the body run directly."""
+
+    def __init__(self, run, static):
+        self.run, self.static = run, static
+        self.lr_rows = None      # the rates static["lr"] holds
+
+    def valid(self, held):
+        return True
+
+    def replay(self, values):
+        for name, v in values.items():
+            F.tree_zip(lambda pair: pair[0].copy_(pair[1]),
+                       [self.static[name], v])
+        return self.run(self.static)
 
 
 def _to_numpy(t):

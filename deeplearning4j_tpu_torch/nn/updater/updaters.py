@@ -11,7 +11,11 @@ are never rounded to a narrow type (on bf16 tensors `torch.add(g, v,
 alpha=0.9)` would run with 0.8984375).
 
 `schedule_lr` runs on the host: the iteration count is a Python int, so a
-step reads no scalar back from the card.
+step reads no scalar back from the card. A training step hands the updaters
+its learning rates as 0-d tensors read from a device buffer that the host
+fills before the step (`Network._train_step`; one row per inner step of a
+fused group), so a step captured in a CUDA graph reads each replay's rates
+and the fused and the single step run the same arithmetic.
 """
 from __future__ import annotations
 
@@ -234,38 +238,62 @@ def _wide(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def layer_lr(layer, name, iteration):
+    """The learning rate of `layer`'s parameter `name` at `iteration`: its
+    (bias) base rate under the layer's schedule."""
+    base_lr = layer.learning_rate or 0.1
+    if name in ("b", "beta") and layer.bias_learning_rate is not None:
+        base_lr = layer.bias_learning_rate
+    return schedule_lr(
+        base_lr, layer.lr_policy or "none", iteration,
+        decay_rate=layer.lr_policy_decay_rate or 0.0,
+        steps=layer.lr_policy_steps or 1.0,
+        power=layer.lr_policy_power or 1.0,
+        schedule_map=layer.lr_schedule,
+        max_iterations=layer.lr_policy_max_iterations)
+
+
 @torch.no_grad()
-def apply_layer(layer, params, grads, ustate, iteration, minimize=True):
+def apply_layer(layer, params, grads, ustate, iteration, minimize=True, *,
+                lr=None, ok=None, inplace=False):
     """One layer's update (the reference's per-layer body of
     `make_apply_fn`): gradient normalization, the learning rate at
     `iteration`, the updater. Updates `params` (a dict of tensors) in place
     and returns the layer's new updater state, stored in each old state's
-    type."""
+    type.
+
+    `lr`, when given, maps each parameter name to its learning rate (a 0-d
+    tensor, in place of the host's `schedule_lr` at `iteration`). `ok`, a
+    0-d bool tensor, gates the update (the training-health watchdog): where
+    it is False the parameters and the state keep their old values
+    (`torch.where`, no read on the host). `inplace=True` writes the new
+    state into the old state's tensors and returns `ustate` itself."""
     if not params:
-        return {}
+        return {} if not inplace else ustate
     grads = normalize_gradients(grads, layer.gradient_normalization,
                                 layer.gradient_normalization_threshold or 1.0)
     _, apply_fn = get(layer.updater or "sgd")
     hp = layer.updater_hp()
     new_state = {}
     for k, p in params.items():
-        base_lr = layer.learning_rate or 0.1
-        if k in ("b", "beta") and layer.bias_learning_rate is not None:
-            base_lr = layer.bias_learning_rate
-        lr = schedule_lr(
-            base_lr, layer.lr_policy or "none", iteration,
-            decay_rate=layer.lr_policy_decay_rate or 0.0,
-            steps=layer.lr_policy_steps or 1.0,
-            power=layer.lr_policy_power or 1.0,
-            schedule_map=layer.lr_schedule,
-            max_iterations=layer.lr_policy_max_iterations)
+        rate = (layer_lr(layer, k, iteration) if lr is None else lr[k])
         old = ustate[k]
         upd, s_k = apply_fn({n: _wide(s) for n, s in old.items()},
-                            _wide(grads[k]), lr, hp)
+                            _wide(grads[k]), rate, hp)
         wide = _wide(p)
-        p.copy_(wide - upd if minimize else wide + upd)
-        new_state[k] = {n: s.to(old[n].dtype) for n, s in s_k.items()}
-    return new_state
+        new = wide - upd if minimize else wide + upd
+        if ok is not None:
+            new = torch.where(ok, new, wide)
+        p.copy_(new)
+        s_new = {n: s.to(old[n].dtype) for n, s in s_k.items()}
+        if ok is not None:
+            s_new = {n: torch.where(ok, s, old[n]) for n, s in s_new.items()}
+        if inplace:
+            for n, s in s_new.items():
+                old[n].copy_(s)
+        else:
+            new_state[k] = s_new
+    return ustate if inplace else new_state
 
 
 # ---------------------------------------------------------------------------

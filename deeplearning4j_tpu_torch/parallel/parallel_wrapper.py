@@ -31,6 +31,19 @@ Counters: `iteration_count` advances by 1 a batch (by k a round), and
 "wrapper.round" before each round and "wrapper.batch" on each batch's
 features (`common.resilience`, `datasets.iterators.inject_features`).
 
+`.health_policy()` arms the training-health watchdog on the network
+(`common.health`). In all-reduce mode the health scalars are those of the
+reduced gradient and score, so every rank gates alike; in k-step mode each
+rank gates each local step on its own gradient, and the round's health is
+the group's: the skipped steps summed (`bad_steps` of `steps`), the
+largest gradient norms, the mean of the finite step scores (a partial
+round counts its skips and applies the average). A divergence rolls back
+through the round checkpoints (`.checkpointing()`, or a seam the master
+installs as `_ext_rollback`); a skipped or diverged round is never
+checkpointed. `.checkpointing()` also gives crash-resume: re-running the
+same fit on a fresh network restores the newest round and skips the rounds
+it covers (`util.sharded_checkpoint.RoundCheckpointer`).
+
 The process group is the caller's: start the ranks with torch.distributed
 (torchrun, or `init_process_group` on each; `parallel.distributed.
 initialize` picks NCCL where each rank has its own card, gloo otherwise).
@@ -41,21 +54,23 @@ place of n. On one rank without a group the wrapper is plain `fit`, bit for
 bit, in both modes.
 
 Not ported yet (NotImplementedError naming the ROADMAP.md queue 1 item):
-`.checkpointing()`, `.tensor_parallel(True)`, `.sharded_updater_state(True)`,
-`lower_step` and `lower_kstep` (item 20); `.health_policy()` (item 17).
+`.tensor_parallel(True)`, `.sharded_updater_state(True)`, `lower_step` and
+`lower_kstep` (item 20).
 """
 from __future__ import annotations
 
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs
+from ..common import health as H
 from ..datasets.dataset import DataSet, MultiDataSet
 from ..datasets.iterators import ListDataSetIterator, next_processed
 from ..util.sharded_checkpoint import RoundCheckpointer
-from .sharding import (all_reduce_mean, make_mesh, not_ported, put_sharded,
-                       replicate)
+from .sharding import (all_reduce_mean, all_reduce_op, all_reduce_sum,
+                       make_mesh, not_ported, put_sharded, replicate)
 
 
 class ParallelWrapper:
@@ -67,12 +82,23 @@ class ParallelWrapper:
             self._prefetch = 2
             self._avg_updaters = True
             self._mesh = None
+            self._checkpoint = None
             self._fault_injector = None
+            self._health_policy = None
 
         def checkpointing(self, directory, every_n_rounds=1, keep_last=3,
                           resume=True):
-            raise not_ported("ParallelWrapper.checkpointing (round "
-                             "checkpoints and crash-resume)", 20)
+            """Save the network's whole training state every
+            `every_n_rounds` averaging rounds (all-reduce mode: a batch;
+            k-step mode: a k-group) under `directory`; with `resume` (the
+            default) a fit on a fresh network restores the newest round and
+            skips the rounds it covers, so re-running a crashed command
+            resumes mid-epoch. Use a fresh directory for a new run."""
+            self._checkpoint = {"directory": str(directory),
+                                "every": max(1, int(every_n_rounds)),
+                                "keep_last": max(1, int(keep_last)),
+                                "resume": bool(resume)}
+            return self
 
         def fault_injector(self, inj):
             """A `common.resilience.FaultInjector`: site "wrapper.round"
@@ -81,8 +107,12 @@ class ParallelWrapper:
             self._fault_injector = inj; return self
 
         def health_policy(self, policy):
-            raise not_ported("ParallelWrapper.health_policy (the "
-                             "training-health watchdog)", 17)
+            """Arm the training-health watchdog (a TrainingHealthPolicy,
+            or True for its defaults): non-finite steps are skipped on the
+            device, a divergence rolls back to the last checkpointed round
+            (with `.checkpointing(...)`, or a master's seam), N consecutive
+            bad rounds abort naming them."""
+            self._health_policy = policy; return self
 
         def workers(self, n):
             self._workers = int(n); return self
@@ -126,7 +156,9 @@ class ParallelWrapper:
         def build(self):
             return ParallelWrapper(self.model, self._workers, self._avg_freq,
                                    self._avg_updaters, mesh=self._mesh,
-                                   fault_injector=self._fault_injector)
+                                   checkpoint=self._checkpoint,
+                                   fault_injector=self._fault_injector,
+                                   health_policy=self._health_policy)
 
     def __init__(self, model, workers=None, averaging_frequency=1,
                  average_updaters=True, tensor_parallel=False, mesh=None,
@@ -136,11 +168,6 @@ class ParallelWrapper:
             raise not_ported("ParallelWrapper tensor parallelism", 20)
         if sharded_updater_state:
             raise not_ported("ParallelWrapper's sharded updater state", 20)
-        if checkpoint is not None:
-            raise not_ported("ParallelWrapper checkpointing", 20)
-        if health_policy is not None:
-            raise not_ported("ParallelWrapper's training-health watchdog",
-                             17)
         self.model = model
         model._ensure_init()
         if mesh is None:
@@ -156,8 +183,21 @@ class ParallelWrapper:
         self.averaging_frequency = int(averaging_frequency)
         self.average_updaters = bool(average_updaters)
         self.fault_injector = fault_injector
-        # the round counter (monotonic across fit() calls and epochs)
-        self._gate = RoundCheckpointer(None, owner="parallel wrapper")
+        self.checkpoint = checkpoint
+        # the round counter (monotonic across fit() calls and epochs) and
+        # the checkpoint / crash-resume gate
+        cp = checkpoint or {}
+        self._gate = RoundCheckpointer(cp.get("directory"),
+                                       every=cp.get("every", 1),
+                                       keep_last=cp.get("keep_last", 3),
+                                       resume=cp.get("resume", True),
+                                       owner="parallel wrapper")
+        # the watchdog lives on the network; the wrapper supplies the
+        # rollback seam: its own round checkpoints, or (manager,
+        # on_restored) installed by a TrainingMaster
+        if health_policy is not None:
+            H.install(model, health_policy)
+        self._ext_rollback = None
         self._sharded = False
 
     # ------------------------------------------------------------------
@@ -182,6 +222,35 @@ class ParallelWrapper:
 
     def _round_done(self):
         self._gate.round_done(self.model)
+
+    def _handle_health(self, health, round_index):
+        """Classify one round's health (a dict of device scalars) and act;
+        a rollback goes through the round-checkpoint seam. Returns the
+        action taken (an abort raises)."""
+        return H.apply_policy(self.model._health_policy,
+                              H.host_health(health), round_index=round_index,
+                              rollback=self._health_rollback)
+
+    def _health_rollback(self):
+        """Restore the last checkpointed round: the wrapper's own
+        `.checkpointing(...)` manager, or the seam a TrainingMaster
+        installed (`_ext_rollback = (manager, on_restored)`). The restore
+        rewinds the parameters, updater and layer state, the generator and
+        the counters on every rank (each reads the same file). Returns the
+        restored round, or False when no checkpoint exists."""
+        if self._ext_rollback is not None:
+            mgr, on_restored = self._ext_rollback
+        else:
+            mgr = self._gate.manager()
+            on_restored = lambda s: setattr(self._gate, "round", int(s))  # noqa: E731
+        if mgr is None or mgr.latest_step() is None:
+            return False
+        last = mgr.latest_step()
+        mgr.restore(self.model, last)
+        self._sharded = False
+        self._ensure_sharded()
+        on_restored(last)
+        return last
 
     def _inject_batch(self, ds):
         """Payload-corruption seam: site "wrapper.batch" (see
@@ -251,6 +320,17 @@ class ParallelWrapper:
                 net._train_step(lambda rng: net._loss(*batch, True, rng),
                                 reduce=self._reduce)
             net._last_batch_size = _num_rows(ds)
+            if net._health_policy is not None:
+                # the reduced gradient's health: alike on every rank
+                action = self._handle_health(net._step_health,
+                                             self._gate.round)
+                if action == H.ROLLBACK:
+                    continue    # counters and generator rewound
+                if action != H.SKIP:
+                    net._score = net._step_score
+                net.conf.iteration_count += 1
+                if action != H.OK:
+                    continue    # a skipped or diverged round is never saved
             self._round_done()
 
     # -- mode 2: k local steps, then averaging -------------------------
@@ -261,14 +341,14 @@ class ParallelWrapper:
             pending.append(self._inject_batch(next_processed(it)))
             if len(pending) == k:
                 if self._round_starts():
-                    self._run_kstep(pending)
-                    self._round_done()
+                    if self._run_kstep(pending) == H.OK:
+                        self._round_done()
                 pending = []
         if pending:
             # ragged tail: the batches that remain, no duplicated steps
             if self._round_starts():
-                self._run_kstep(pending)
-                self._round_done()
+                if self._run_kstep(pending) == H.OK:
+                    self._round_done()
 
     @staticmethod
     def _pad_to(arr, b):
@@ -281,33 +361,84 @@ class ParallelWrapper:
         return np.asarray(arr)[idx]
 
     def _run_kstep(self, batches):
+        """One round of k local steps, then the average over the group.
+        Returns the health action (OK when disarmed)."""
         net = self.model
         k = len(batches)
         B = max(_num_rows(b) for b in batches)
-        scores = []
+        armed = net._health_policy is not None
+        scores, healths = [], []
         with obs.TRACER.span("train.dispatch", cat="train", local_steps=k,
                              data_parallel=self.mesh.size):
             for ds in batches:
                 batch = self._device_batch(
                     _map_arrays(ds, lambda a: self._pad_to(a, B)))
                 net._train_step(lambda rng, b=batch: net._loss(*b, True, rng))
-                scores.append(net._score)
-            score = torch.stack(scores).mean()
+                scores.append(net._step_score if armed else net._score)
+                healths.append(net._step_health)
+            scores = torch.stack(scores)
+            if armed:
+                score, health = self._round_health(scores,
+                                                   H.stack_health(healths))
+            else:
+                score = scores.mean()
             if self.mesh.size > 1:
                 # the reference's pmean over "data": parameters, layer
                 # state, (optionally) updater state and the score
                 tensors = (_params(net) + _state(net)
                            + (_updater_leaves(net) if self.average_updaters
                               else []))
-                means = all_reduce_mean(tensors + [score.reshape(1)],
-                                        self.mesh)
+                means = all_reduce_mean(
+                    tensors + ([] if armed else [score.reshape(1)]),
+                    self.mesh)
                 with torch.no_grad():
                     for t, m in zip(tensors, means):
                         t.copy_(m)
-                score = means[-1].reshape(())
-        net._score = score
+                if not armed:
+                    score = means[-1].reshape(())
+        action = H.OK
+        if armed:
+            action = self._handle_health(health, self._gate.round)
+            if action == H.ROLLBACK:
+                return action   # counters and generator rewound
+            net.conf.iteration_count += k
+        if action != H.SKIP:
+            net._score = score
         net._last_batch_size = B
-        # iteration_count advanced by k in the k local steps
+        return action
+
+    def _round_health(self, scores, hs):
+        """A k-step round's score and health over the group: each rank
+        skipped its own non-finite local steps, so the round's score is the
+        mean of the finite step scores, its norms the largest, and
+        `bad_steps` of `steps` counts the skipped ones (the policy counts a
+        partial round's skips and keeps the average)."""
+        fin = hs["all_finite"]
+        k = int(fin.shape[0])
+        sums = torch.stack([fin.float().sum(),
+                            torch.where(fin, scores.float(),
+                                        torch.zeros_like(scores.float()))
+                            .sum(),
+                            (~fin).float().sum()])
+        maxes = torch.stack([hs["grad_norm"].max()]
+                            + [v.max() for v in
+                               hs["layer_grad_norms"].values()])
+        all_ok = fin.all().float().reshape(1)
+        if self.mesh.size > 1:
+            sums = all_reduce_sum(sums, self.mesh.group)
+            maxes = all_reduce_op(maxes, self.mesh.group, dist.ReduceOp.MAX)
+            all_ok = all_reduce_op(all_ok, self.mesh.group,
+                                   dist.ReduceOp.MIN)
+        n_ok, s_sum, bad = sums[0], sums[1], sums[2]
+        score = torch.where(n_ok > 0, s_sum / torch.clamp(n_ok, min=1.0),
+                            torch.full_like(s_sum, float("nan")))
+        keys = list(hs["layer_grad_norms"])
+        return score, {"score": score, "grad_norm": maxes[0],
+                       "layer_grad_norms": {key: maxes[1 + i]
+                                            for i, key in enumerate(keys)},
+                       "all_finite": all_ok[0] > 0,
+                       "bad_steps": bad,
+                       "steps": k * self.mesh.size}
 
 
 def _params(net):

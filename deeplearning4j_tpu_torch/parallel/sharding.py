@@ -166,13 +166,19 @@ def _collective(flat, mesh, fn):
     return flat
 
 
-def all_reduce_sum(t, group):
-    """The sum of `t` over the ranks of `group`, as a new tensor on t's
-    device (through the host for a CUDA tensor on a gloo group)."""
+def all_reduce_op(t, group, op):
+    """`t` reduced by `op` (a dist.ReduceOp) over the ranks of `group`, as
+    a new tensor on t's device (through the host for a CUDA tensor on a
+    gloo group)."""
     via_host = t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
     buf = t.detach().cpu() if via_host else t.detach().clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
+
+
+def all_reduce_sum(t, group):
+    """The sum of `t` over the ranks of `group` (`all_reduce_op`)."""
+    return all_reduce_op(t, group, dist.ReduceOp.SUM)
 
 
 def all_reduce_mean(tensors, mesh):

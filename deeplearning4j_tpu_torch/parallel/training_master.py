@@ -21,9 +21,11 @@ SparkDl4jMultiLayer facade, SparkTrainingStats):
 
 `workers=None` means the process group's size (1 without one). Every rank
 runs the same master over the same data, and the wrapper gives each rank
-its rows. Not ported yet (NotImplementedError naming the ROADMAP.md queue
-1 item): `checkpoint_directory` (crash-resume, item 20) and
-`health_policy` (item 17).
+its rows. `checkpoint_directory` checkpoints every round
+(`util.sharded_checkpoint.RoundCheckpointer`; a re-run after a crash
+resumes from the last completed round), and `health_policy` arms the
+training-health watchdog on the network, its rollback seam the master's
+round checkpoints (installed as the wrapper's `_ext_rollback`).
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ import time
 from ..datasets.dataset import DataSet
 from ..datasets.iterators import ListDataSetIterator, next_processed
 from .parallel_wrapper import ParallelWrapper
-from .sharding import not_ported
 
 
 class TrainingMasterStats:
@@ -136,8 +137,11 @@ class ParameterAveragingTrainingMaster:
         trainingHook = training_hook
 
         def checkpoint_directory(self, d):
-            raise not_ported("TrainingMaster.checkpoint_directory "
-                             "(round checkpoints and crash-resume)", 20)
+            """Checkpoint the network's whole training state every
+            `checkpoint_frequency` averaging rounds under `d`; a re-run of
+            the same training on a fresh network resumes from the last
+            completed round, bit-comparable to an uninterrupted run."""
+            self._checkpoint_dir = str(d); return self
 
         checkpointDirectory = checkpoint_directory
 
@@ -160,8 +164,12 @@ class ParameterAveragingTrainingMaster:
             self._fault_injector = inj; return self
 
         def health_policy(self, policy):
-            raise not_ported("TrainingMaster.health_policy (the "
-                             "training-health watchdog)", 17)
+            """Arm the training-health watchdog (a TrainingHealthPolicy, or
+            True for its defaults) on the trained network: non-finite local
+            steps are skipped on the device, a divergence rolls back to the
+            master's last round checkpoint (with `.checkpoint_directory`),
+            N consecutive bad rounds abort naming them."""
+            self._health_policy = policy; return self
 
         def build(self):
             return ParameterAveragingTrainingMaster(
@@ -178,10 +186,6 @@ class ParameterAveragingTrainingMaster:
                  export_dir=None, training_hook=None, checkpoint_dir=None,
                  checkpoint_frequency=1, keep_checkpoints=3,
                  fault_injector=None, health_policy=None):
-        if checkpoint_dir is not None:
-            raise not_ported("TrainingMaster checkpointing", 20)
-        if health_policy is not None:
-            raise not_ported("TrainingMaster's training-health watchdog", 17)
         import torch.distributed as dist
         self.batch_size = int(batch_size_per_worker)
         self.num_workers = int(workers or (
@@ -200,10 +204,13 @@ class ParameterAveragingTrainingMaster:
         self.keep_checkpoints = max(1, int(keep_checkpoints))
         self.fault_injector = fault_injector
         self.health_policy = health_policy
-        # the round counter, monotonic across execute_training calls (the
-        # facade calls once per epoch)
+        # the round counter and checkpoint / resume gate, monotonic across
+        # execute_training calls (the facade calls once per epoch)
         from ..util.sharded_checkpoint import RoundCheckpointer
-        self._gate = RoundCheckpointer(None, owner="training master")
+        self._gate = RoundCheckpointer(checkpoint_dir,
+                                       every=self.checkpoint_frequency,
+                                       keep_last=self.keep_checkpoints,
+                                       owner="training master")
         self._pw = None
         # (data object, [paths], owned_tmpdir) — holds a strong reference to
         # the source and compares with `is`: an id() key could collide when
@@ -251,9 +258,17 @@ class ParameterAveragingTrainingMaster:
                  .mesh(mesh)
                  .averaging_frequency(self.averaging_frequency)
                  .average_updaters(self.average_updaters))
+            if self.health_policy is not None:
+                b = b.health_policy(self.health_policy)
             if self.fault_injector is not None:
                 b = b.fault_injector(self.fault_injector)
             self._pw = b.build()
+            if self.health_policy is not None:
+                # the watchdog's rollback seam is the master's round
+                # checkpoints; a restore rewinds the master's round counter
+                self._pw._ext_rollback = (
+                    self._gate.manager(),
+                    lambda s: setattr(self._gate, "round", int(s)))
         return self._pw
 
     # -- checkpoint / crash-resume (resilience layer) -------------------

@@ -1,2 +1,3 @@
 """Utilities: port of deeplearning4j_tpu/util/ (so far the model zips,
-`model_serializer`)."""
+`model_serializer`, and the training-state checkpoints of replicated
+state, `sharded_checkpoint`)."""

@@ -383,12 +383,18 @@ def test_entry_points_run_on_the_card_or_raise():
 
 def test_unported_paths_raise_with_their_roadmap_items():
     net = lenet(device="cpu")
-    for call, item in ((lambda: net.fused_steps(4), "item 17"),
-                       (lambda: net.training_health(), "item 17"),
-                       (lambda: net.set_listeners(object()), "item 16"),
+    for call, item in ((lambda: net.set_listeners(object()), "item 16"),
                        (lambda: net.pretrain(None), "item 18b")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # item 17 is ported: fused steps and the watchdog arm and train
+    assert net.fused_steps(4) is net and net._fused_steps == 4
+    assert net.training_health() is net
+    assert net._health_policy is not None
+    x, y = _batch(seed=17, n=8)
+    net.fit(x, y)
+    assert net.conf.iteration_count == 1
+    assert net._health_policy.counts["ok"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -494,22 +494,26 @@ def test_fault_sites_fire_as_the_reference(J, k):
     assert net2.conf.iteration_count == k
 
 
-def test_unported_paths_raise_with_their_items():
+def test_unported_paths_raise_with_their_items(tmp_path):
     net = port_net_plain()
     b = ParallelWrapper.Builder(net)
-    for call, item in ((lambda: b.checkpointing("/unused"), 20),
-                       (lambda: b.tensor_parallel(True), 20),
+    for call, item in ((lambda: b.tensor_parallel(True), 20),
                        (lambda: b.sharded_updater_state(True), 20),
-                       (lambda: b.health_policy(True), 17),
                        (lambda: b.build().lower_step(None), 20),
                        (lambda: b.build().lower_kstep([]), 20),
                        (lambda: make_mesh(n_model=2, device="cpu"), 20),
                        (lambda: sharding.shard_params(net, make_mesh(
-                           device="cpu"), tensor_parallel=True), 20),
-                       (lambda: RoundCheckpointer("/unused"), 20)):
+                           device="cpu"), tensor_parallel=True), 20)):
         with pytest.raises(NotImplementedError, match=f"item {item}$"):
             call()
     assert b.tensor_parallel(False) is b
+    # item 17 (the watchdog) and item 20a (replicated checkpoints) work
+    pw = (b.checkpointing(str(tmp_path / "ck")).health_policy(True)
+          .build())
+    assert net._health_policy is not None
+    assert pw._gate.manager().directory == str(tmp_path / "ck")
+    gate = RoundCheckpointer(str(tmp_path / "rc"))
+    assert gate.round_starts() and gate.manager().steps() == []
 
 
 def port_net_plain():

@@ -654,9 +654,17 @@ def test_char_rnn_runs_on_the_card_or_raises():
 
 
 def test_fused_tbptt_still_raises_with_its_item():
-    net = char_rnn(device="cpu", vocab_size=V, hidden=HID)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        net.fused_steps(4)
+    """Item 17 is ported: fused TBPTT takes the segments of a sequence as
+    one group, bit-identical to one step a segment."""
+    kw = dict(device="cpu", vocab_size=V, hidden=HID, tbptt_length=TBPTT)
+    a, b = char_rnn(**kw), char_rnn(**kw).fused_steps(4)
+    assert b._fused_steps == 4
+    x, y = _char_batches()[0]
+    for n in (a, b):
+        n.fit(x, y)
+    np.testing.assert_array_equal(a.params(), b.params())
+    assert a.conf.iteration_count == b.conf.iteration_count
+    assert b.fused_counts["groups"] >= 1
 
 
 # ---------------------------------------------------------------------------

@@ -402,16 +402,18 @@ def test_split_failure_recovery_semantics():
     assert not np.allclose(net.params(), p_after)
 
 
-def test_unported_master_paths_raise_with_their_items():
-    b = ParameterAveragingTrainingMaster.Builder(8)
-    with pytest.raises(NotImplementedError, match="item 20$"):
-        b.checkpoint_directory("/unused")
-    with pytest.raises(NotImplementedError, match="item 17$"):
-        b.health_policy(True)
-    with pytest.raises(NotImplementedError, match="item 20$"):
-        ParameterAveragingTrainingMaster(checkpoint_dir="/unused")
-    with pytest.raises(NotImplementedError, match="item 17$"):
-        ParameterAveragingTrainingMaster(health_policy=True)
+def test_unported_master_paths_raise_with_their_items(tmp_path):
+    # items 17 and 20a are ported: the checkpoint directory and the
+    # watchdog build, through the Builder and the constructor
+    b = (ParameterAveragingTrainingMaster.Builder(8)
+         .checkpoint_directory(str(tmp_path / "a")).health_policy(True))
+    assert b._checkpoint_dir == str(tmp_path / "a")
+    assert b._health_policy is True
+    tm = ParameterAveragingTrainingMaster(checkpoint_dir=str(tmp_path / "b"),
+                                          health_policy=True)
+    assert tm._gate.manager().directory == str(tmp_path / "b")
+    assert json.loads(tm.to_json())["checkpointDirectory"] == \
+        str(tmp_path / "b")
     with pytest.raises(RuntimeError, match="torch.distributed"):
         _master(workers=2).execute_training(_net(), _data())
 
