@@ -243,11 +243,58 @@ counters must read 0 after it.
      share); (b) config 3: the char-RNN bf16 at B=64, T=200, TBPTT 50, 20
      timed fits an arm in interleaved blocks of 5 (chars/s, peak memory; 1
      replay a fit), both arms bit-equal, one fit of each traced.
+Phase 27 drives the last of bench.py's configurations (`chip_spec_kv.py`
+runs it alone): ResNet-50 with segment remat (`nn/graph/computation_graph.py`,
+`torch.utils.checkpoint`), speculative decoding (`serving/speculate.py`, the
+verify programs) and durable KV state (preemption, migration, the prefix
+cache on disk; `serving/kvstate.py`, `make_block_extract_fn`). None of it
+reaches a kernel of the port: the counters are set to 0 first and must read
+0 after it, apart from 27(b)'s teaching steps, which run the flash training
+kernels and are counted apart.
+ 27. (a) BASELINE config 2 with remat as bench.py's resnet50_remat runs it:
+     first the pins, under cuDNN's deterministic algorithms: phase 16's f32
+     64x64 ResNet-50 at batch 2, remat against plain over 2 steps (scores
+     rtol 1e-5, parameters 2e-5, the reference's bounds); remat with
+     fused_steps(2) == 4 single remat steps bit for bit (2 graph replays);
+     the reference test's residual graph with input dropout 0.7, remat
+     fused2 == plain single steps bit for bit. Then bf16, batch 128,
+     224x224x3, Nesterov lr 0.1, one batch on the card: 2 steps of each
+     arm from the same weights under the deterministic algorithms, their
+     largest parameter difference held to 2^-8 of the largest parameter
+     change; the same under the timed search, measured beside two plain
+     nets' difference (a searched algorithm may not be deterministic);
+     then 4 interleaved segments
+     of 4 steps an arm by CUDA events (ms a step and images/s, median),
+     the peak memory over what was held before each step, one traced step
+     of each; (b) phase 22's model (bf16), first taught short cycles by
+     150 fit_batch steps of 16 x 128 tokens at lr 0.05 (bench.py:743-752
+     teaches at 0.3 in f32; bf16 diverges there), served a
+     closed-loop schedule of 64 cyclic prompts (bench.py:754-762's shape)
+     by Speculator(NGramDraft(n=3), k=4) and by the plain server, fixed
+     (16 slots) and paged (DS_PAGED): tokens/s, dispatches/token, accepted
+     tokens a slot-dispatch, TTFT and inter-token p50/p99, one verify
+     dispatch by CUDA events and traced, join == solo on 8 streams inside
+     the speculative server (pinned), the share of streams equal to the
+     plain server's and of paged equal to fixed (measured: bf16 gemm bits
+     change with M); a ModelDraft of the model itself, 4 slots, 8
+     requests; (c) durable KV: preemption against shed-only at full block
+     occupancy (tools/serve_ab.py's shape: a 40-block pool of 16 rows, 4
+     slots, batch requests of 9+312 tokens, 8 interactive 4-token requests
+     a segment with a 100 ms deadline, 3 segments an arm): interactive
+     goodput within the deadline, preempted / resumed / spill bytes, ms to
+     extract, copy and install a slot; each preempted batch stream equal
+     to the same request served alone by the same server, the pools clean;
+     migration between two DS_PAGED servers mid-stream (the stream equal to
+     the first server's solo stream, the fingerprints equal); the prefix
+     cache saved to a directory under build/ and restored by a new server
+     with prefix_cache_dir= (restored rows hit, streams equal to the saving
+     server's; bytes written, save and restore ms). Every artifact is bf16,
+     read and written without ml_dtypes.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
 ...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, an
 {"embeddings": ...} line, a {"parallel": ...} line, a {"fused": ...} line,
-one {"kernels": [...]} JSON line and, as the last line, {"ok": true,
-"device": {...}}. It imports nothing of JAX.
+a {"spec_kv": ...} line, one {"kernels": [...]} JSON line and, as the last
+line, {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 import json
 import math
@@ -754,6 +801,7 @@ def main():
     embeddings = embeddings_phase(fa)
     parallel = parallel_phase(fa, core["resnet50_bf16_full"])
     fused = fused_phase(fa)
+    spec_kv = spec_kv_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -786,6 +834,7 @@ def main():
     print(json.dumps({"embeddings": embeddings}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"fused": fused}))
+    print(json.dumps({"spec_kv": spec_kv}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4836,6 +4885,744 @@ def fused_phase(fa):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 26 launched no kernel of the port: {fa.launches}; "
           f"{out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: ResNet-50 with segment remat, speculation and durable KV state
+# ---------------------------------------------------------------------------
+REMAT_B, REMAT_SEGMENTS, REMAT_STEPS = 128, 4, 4
+SPEC_K, SPEC_REQUESTS, SPEC_NEW = 4, 64, (16, 140)
+SPEC_TEACH_STEPS, SPEC_TEACH_T, SPEC_TEACH_LR = 150, 128, 0.05
+# Phase 27(c) preemption, tools/serve_ab.py's shape at full width: two
+# batch requests (9-token prompt, 312 new: 320 rows, 20 blocks of 16)
+# reserve the 40-block pool whole, a third keeps it full; 8 interactive
+# requests of 4 tokens a segment, each with PREEMPT_SLO_MS to finish
+PREEMPT_BLOCKS, PREEMPT_NEW, PREEMPT_SLO_MS = 40, 312, 100.0
+PREEMPT_SEGMENTS, PREEMPT_INTERACTIVE = 3, 8
+
+
+def _remat_pins():
+    """Phase 27(a) pins: remat == plain on phase 16's 64x64 ResNet-50 at
+    batch 2 in f32 under cuDNN's deterministic algorithms (2 steps: scores
+    rtol 1e-5, parameters 2e-5, the reference's bounds), and remat with
+    fused_steps(2) == two single remat steps, bit for bit (a CUDA graph of
+    two steps whose backward recomputes the segments)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    kw = dict(height=64, width=64, num_classes=10, data_type="float32")
+    rng = np.random.default_rng(27)
+    batches = [DataSet(rng.random((2, 64, 64, 3), dtype=np.float32),
+                       _one_hot(rng, 2, 10)) for _ in range(4)]
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = [resnet50(device="cuda", remat=r, **kw) for r in (False, True)]
+        scores = [[], []]
+        for i, net in enumerate(nets):
+            for ds in batches[:2]:
+                net.fit(ds)
+                scores[i].append(float(net._score))
+        score_rel = max(abs(a - b) / abs(a) for a, b in zip(*scores))
+        param_err = _max_err(nets[0].params(), nets[1].params())
+        out["f32_two_steps"] = {"scores": scores, "score_rel": score_rel,
+                                "param_max_abs": param_err}
+        print(f"  f32 64x64 batch 2, 2 steps, remat vs plain: scores "
+              f"{scores[1]} vs {scores[0]} (rel {score_rel:.3e}, limit "
+              f"1e-5), parameters {param_err:.3e} (limit 2e-5)")
+        if score_rel > 1e-5 or param_err > 2e-5:
+            raise SystemExit("remat and plain ResNet-50 disagree")
+        single = resnet50(device="cuda", remat=True, **kw)
+        fused = resnet50(device="cuda", remat=True, **kw).fused_steps(2)
+        for net in (single, fused):
+            net.fit(ListDataSetIterator(batches))
+        same = bool(np.array_equal(single.params(), fused.params())
+                    and float(single._score) == float(fused._score))
+        out["fused2_equals_single"] = same
+        out["fused2_counts"] = dict(fused.fused_counts)
+        print(f"  remat, fused_steps(2) over 4 batches == 4 single remat "
+              f"steps, bit for bit: {same} ({fused.fused_counts})")
+        if not same or fused.fused_counts["graph_replays"] != 2:
+            raise SystemExit("remat fused group differs from single steps")
+        # the dropout keep masks under a captured recompute: the reference
+        # test's residual graph with input dropout, plain vs remat fused
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        conf = _dropout_residual_conf()
+        toy = [DataSet(rng.random((8, 8, 8, 2), dtype=np.float32),
+                       _one_hot(rng, 8, 3)) for _ in range(4)]
+        a = ComputationGraph(conf, device="cuda").init()
+        b = ComputationGraph(conf, remat_segments=True,
+                             device="cuda").init().fused_steps(2)
+        for net in (a, b):
+            net.fit(ListDataSetIterator(toy))
+        same = bool(np.array_equal(a.params(), b.params()))
+        out["dropout_remat_fused_equals_plain"] = same
+        print(f"  residual graph, dropout 0.7: remat fused2 == plain single "
+              f"steps, bit for bit: {same}")
+        if not same:
+            raise SystemExit("dropout under a captured remat differs")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def _dropout_residual_conf():
+    """tests/test_remat_segments.py's two-block residual graph, its
+    convolutions with input dropout 0.7."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import \
+        ElementWiseVertex
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
+                                                         BatchNormalization,
+                                                         ConvolutionLayer,
+                                                         GlobalPoolingLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    gb = (NeuralNetConfiguration.Builder().seed(7).updater("sgd")
+          .learning_rate(0.1).weight_init("relu").graph_builder()
+          .add_inputs("input"))
+    conv = lambda: ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                    convolution_mode="same", dropout=0.7)
+    gb.add_layer("c0", ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                        convolution_mode="same"), "input")
+    x = "c0"
+    for b in range(2):
+        gb.add_layer(f"b{b}_c1", conv(), x)
+        gb.add_layer(f"b{b}_bn", BatchNormalization(), f"b{b}_c1")
+        gb.add_layer(f"b{b}_r", ActivationLayer(activation="relu"),
+                     f"b{b}_bn")
+        gb.add_layer(f"b{b}_c2", conv(), f"b{b}_r")
+        gb.add_vertex(f"b{b}_add", ElementWiseVertex(op="add"), f"b{b}_c2",
+                      x)
+        gb.add_layer(f"b{b}_out", ActivationLayer(activation="relu"),
+                     f"b{b}_add")
+        x = f"b{b}_out"
+    gb.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), x)
+    gb.add_layer("fc", OutputLayer(n_out=3, activation="softmax",
+                                   loss_function="mcxent"), "pool")
+    return (gb.set_outputs("fc")
+            .set_input_types(InputType.convolutional(8, 8, 2)).build())
+
+
+def _timed_fit(net, ds):
+    """(ms by CUDA events, peak bytes over what was held before) of one
+    fit step."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    net.fit(ds)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), torch.cuda.max_memory_allocated() - held
+
+
+def remat_phase():
+    """Phase 27(a). Returns its readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    print("phase 27(a): ResNet-50 with segment remat (BASELINE config 2, "
+          "bench.py's resnet50_remat)")
+    out = {"pins": _remat_pins()}
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.rand((REMAT_B, 224, 224, 3), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 1000, (REMAT_B,), generator=gen, device="cuda"),
+        1000).float()
+    ds = DataSet(x, y)
+    # two steps from the same weights, twice. Under cuDNN's deterministic
+    # algorithms the remat arm's parameters are held to one bf16 rounding
+    # (2^-8) of the largest parameter change of the plain arm. Under the
+    # timed search (the speed runs' mode) the search may pick algorithms
+    # that are not deterministic, so two plain nets part too: measured,
+    # beside that plain-vs-plain control
+    det = torch.backends.cudnn.deterministic
+    two = {}
+    try:
+        for mode in ("deterministic", "timed_search"):
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            nets = {"plain": resnet50(data_type="bfloat16"),
+                    "remat": resnet50(data_type="bfloat16", remat=True)}
+            if mode == "timed_search":
+                nets["plain_again"] = resnet50(data_type="bfloat16")
+            start = nets["plain"].params()
+            for net in nets.values():
+                for _ in range(2):
+                    net.fit(ds)
+            after = {n: net.params() for n, net in nets.items()}
+            change = after["plain"] - start
+            norm = float(np.linalg.norm(change))
+            rel = lambda other: float(np.linalg.norm(
+                after[other] - after["plain"]) / norm)
+            two[mode] = {
+                "param_max_abs": _max_err(after["plain"], after["remat"]),
+                "limit": 2.0 ** -8 * float(np.abs(change).max()),
+                "rel_l2_of_change": rel("remat")}
+            if mode == "timed_search":
+                two[mode]["control_plain_vs_plain_rel_l2"] = rel(
+                    "plain_again")
+                arms = {"plain": nets["plain"], "remat": nets["remat"]}
+            del nets, start, after, change
+            print(f"  bf16 batch {REMAT_B}, 2 steps from the same weights, "
+                  f"{mode}: largest parameter difference remat vs plain "
+                  f"{two[mode]['param_max_abs']:.3e} (limit "
+                  f"{two[mode]['limit']:.3e} = 2^-8 x the largest parameter "
+                  f"change); relative L2 of the difference over the change "
+                  f"{two[mode]['rel_l2_of_change']:.3e}" + (
+                      f"; control, two plain nets: "
+                      f"{two[mode]['control_plain_vs_plain_rel_l2']:.3e}"
+                      if mode == "timed_search" else ""))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out["bf16_two_steps"] = two
+    if two["deterministic"]["param_max_abs"] > two["deterministic"]["limit"]:
+        raise SystemExit("remat and plain bf16 ResNet-50 drift apart under "
+                         "the deterministic algorithms")
+    ms = {n: [] for n in arms}
+    peak = {n: [] for n in arms}
+    losses = {n: [] for n in arms}
+    for _ in range(REMAT_SEGMENTS):
+        for name, net in arms.items():
+            for _ in range(REMAT_STEPS):
+                t, p = _timed_fit(net, ds)
+                ms[name].append(t)
+                peak[name].append(p)
+                losses[name].append(float(net._score))
+    for name, net in arms.items():
+        med = sorted(ms[name])[len(ms[name]) // 2]
+        out[name] = {
+            "ms_per_step_median": med, "ms_per_step": ms[name],
+            "images_per_s": REMAT_B / (med / 1e3),
+            "peak_over_held_bytes": max(peak[name]),
+            "losses_finite": bool(np.isfinite(losses[name]).all()),
+            "trace": _kernel_breakdown(lambda: net.fit(ds), iters=1, top=4)}
+        print(f"  {name}: {med:.2f} ms a step (median of "
+              f"{len(ms[name])}, interleaved), "
+              f"{out[name]['images_per_s']:.1f} images/s, peak "
+              f"{max(peak[name]) / 2**30:.2f} GiB over what was held; "
+              f"traced step: {out[name]['trace']}")
+        if not out[name]["losses_finite"]:
+            raise SystemExit(f"{name}: a loss is not finite")
+    out["remat_over_plain_ms"] = (out["remat"]["ms_per_step_median"]
+                                  / out["plain"]["ms_per_step_median"])
+    out["remat_over_plain_peak"] = (out["remat"]["peak_over_held_bytes"]
+                                    / out["plain"]["peak_over_held_bytes"])
+    del arms, ds, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+class _CyclicMix:
+    """bench.py's speculative workload (bench.py:754-762): a 2-4 token
+    pattern repeated, 6-15 prompt tokens, 16-139 new tokens."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def sample(self, rng):
+        pat = [rng.randrange(1, self.vocab)
+               for _ in range(rng.randrange(2, 5))]
+        return {"prompt": tuple((pat * 8)[:rng.randrange(6, 16)]),
+                "max_new": rng.randrange(*SPEC_NEW)}
+
+
+def _teach_cycles(lm, steps, t):
+    """bench.py:743-752: a few SGD steps on short cyclic sequences (the
+    flash kernels' training path). Returns (first, last) loss."""
+    import numpy as np
+    r = np.random.default_rng(0)
+    V = lm.aux.tok.shape[0]
+    losses = []
+    for _ in range(steps):
+        xs = []
+        for _ in range(16):
+            pat = r.integers(1, V, int(r.integers(2, 5))).tolist()
+            xs.append((pat * (t // len(pat) + 2))[:t + 1])
+        xs = np.asarray(xs)
+        losses.append(lm.fit_batch(xs[:, :-1], xs[:, 1:]))
+    torch.cuda.synchronize()
+    if not all(math.isfinite(l) for l in losses):
+        raise SystemExit(f"teaching diverged: {losses[-5:]}")
+    return losses[0], losses[-1]
+
+
+def _verify_ms(srv):
+    """Device ms of one verify dispatch of `srv` at its full slot width
+    (every slot computed, none active, so nothing is written) by CUDA
+    events, and its kernels from a trace."""
+    aux, blocks = srv.current_params()
+    S, K = srv.slots, srv._spec.k
+    idle = torch.zeros(S, dtype=torch.bool, device="cuda")
+    toks = torch.zeros(S, K, dtype=torch.int64, device="cuda")
+    if srv.paged:
+        btabs = torch.as_tensor(srv._btabs, device="cuda")
+        wto = torch.zeros(S, dtype=torch.int64, device="cuda")
+        step = lambda: srv._verify(aux, blocks, srv._cache, btabs, srv._pos,
+                                   toks, idle, wto)
+    else:
+        step = lambda: srv._verify(aux, blocks, srv._cache, srv._pos, toks,
+                                   idle)
+    return cuda_ms(step, iters=20, warmup=3), _kernel_breakdown(step)
+
+
+def _spec_readings(srv, sched):
+    """run_load readings of `srv` on `sched` with its speculation metrics,
+    and its streams keyed by schedule item."""
+    base = srv.metrics.snapshot()
+    res, streams = _serve_load(srv, sched)
+    snap = srv.metrics.snapshot()
+    res.update(
+        accepted_per_dispatch=snap.get("spec_accepted_per_dispatch_mean"),
+        acceptance_rate=snap.get("spec_acceptance_rate_mean"),
+        draft_dispatches=_delta(snap, base, "draft_dispatches"),
+        device_dispatches_per_token=(
+            (_delta(snap, base, "dispatches")
+             + _delta(snap, base, "draft_dispatches"))
+            / max(1, _delta(snap, base, "tokens_out"))))
+    return res, {id(item): toks for item, toks in streams}
+
+
+def _share_equal(a, b):
+    keys = [k for k in a if k in b]
+    return sum(a[k] == b[k] for k in keys) / len(keys) if keys else None
+
+
+def speculation_phase(fa):
+    """Phase 27(b). Returns its readings. The teaching steps run the flash
+    training kernels: their launches are recorded, then the counters are
+    set to 0 before the servers run."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving import (ClosedLoop,
+                                                  ContinuousDecodeServer,
+                                                  ModelDraft, NGramDraft,
+                                                  Speculator, build_schedule)
+    print(f"phase 27(b): speculative decoding at full width (phase 22's "
+          f"model, bf16), Speculator(NGramDraft(n=3), k={SPEC_K}) against "
+          f"the plain server on one schedule of cyclic prompts")
+    # bench.py teaches at lr 0.3 in f32; in bf16 at full width that
+    # diverged to NaN on the card, and 0.1 rose on the CPU: 0.05
+    lm = TransformerLM(**FULL, dtype=torch.bfloat16, device="cuda",
+                       learning_rate=SPEC_TEACH_LR)
+    out = {"teach_loss_first_last": _teach_cycles(lm, SPEC_TEACH_STEPS,
+                                                  SPEC_TEACH_T),
+           "teach_launches": dict(fa.launches)}
+    fa.reset_launches()
+    print(f"  taught {SPEC_TEACH_STEPS} fit_batch steps of 16 x "
+          f"{SPEC_TEACH_T} cyclic tokens (lr {SPEC_TEACH_LR}): loss "
+          f"{out['teach_loss_first_last']}")
+    mix = _CyclicMix(FULL["vocab_size"])
+    sched = build_schedule(ClosedLoop(DS_SLOTS), mix, SPEC_REQUESTS,
+                           seed=DS_SEED + 5)
+    layouts = {"fixed": dict(slots=DS_SLOTS), "paged": DS_PAGED}
+    spec_streams = {}
+    for layout, kw in layouts.items():
+        res = {}
+        streams = {}
+        for arm in ("speculative", "plain"):
+            spec = (Speculator(NGramDraft(n=3), k=SPEC_K)
+                    if arm == "speculative" else None)
+            srv = ContinuousDecodeServer(lm, prompt_buckets=DS_BUCKETS,
+                                         max_queue=SPEC_REQUESTS,
+                                         speculate=spec, **kw).start()
+            try:
+                _warm(srv)
+                res[arm], streams[arm] = _spec_readings(srv, sched)
+                if spec is not None:
+                    res[arm]["verify_ms"], res[arm]["verify_trace"] = \
+                        _verify_ms(srv)
+                    # join == solo inside the speculative server
+                    items = sched.items[:8]
+                    solo = [srv.generate(list(it["prompt"]), it["max_new"],
+                                         timeout=600) for it in items]
+                    res[arm]["join_equals_solo"] = all(
+                        s == streams[arm][id(it)]
+                        for s, it in zip(solo, items))
+                if srv.paged:
+                    res[arm]["pool_check"] = bool(srv._pool.check())
+                    res[arm]["blocks_in_use_after"] = \
+                        srv._pool.blocks_in_use
+            finally:
+                srv.stop()
+        sp, pl = res["speculative"], res["plain"]
+        sp["streams_equal_plain_share"] = _share_equal(
+            streams["speculative"], streams["plain"])
+        spec_streams[layout] = streams["speculative"]
+        out[layout] = res
+        print(f"  {layout}: speculative {sp['tokens_per_s']} tokens/s, "
+              f"{sp['dispatches_per_token']:.4f} dispatches/token, "
+              f"{sp['accepted_per_dispatch']:.3f} accepted a slot-dispatch "
+              f"(acceptance {sp['acceptance_rate']:.3f}), TTFT p50/p99 "
+              f"{sp['ttft_ms_p50']}/{sp['ttft_ms_p99']} ms, inter-token "
+              f"p50/p99 {sp['inter_token_ms_p50']}/"
+              f"{sp['inter_token_ms_p99']} ms; plain {pl['tokens_per_s']} "
+              f"tokens/s, {pl['dispatches_per_token']:.4f} dispatches/token,"
+              f" TTFT p50/p99 {pl['ttft_ms_p50']}/{pl['ttft_ms_p99']} ms, "
+              f"inter-token p50/p99 {pl['inter_token_ms_p50']}/"
+              f"{pl['inter_token_ms_p99']} ms")
+        print(f"  {layout}: verify dispatch {sp['verify_ms']:.3f} ms (CUDA "
+              f"events), traced {sp['verify_trace']}; join == solo "
+              f"{sp['join_equals_solo']}; streams equal to the plain "
+              f"server's (measured): {sp['streams_equal_plain_share']}")
+        if not sp["join_equals_solo"]:
+            raise SystemExit(f"{layout}: a speculative co-batched stream "
+                             f"differs from its solo run")
+        if sp["failed"] or pl["failed"]:
+            raise SystemExit(f"{layout}: requests failed")
+        for arm in res.values():
+            if layout == "paged" and (not arm["pool_check"]
+                                      or arm["blocks_in_use_after"]):
+                raise SystemExit(f"{layout}: the block pool leaked")
+    out["paged_equals_fixed_share"] = _share_equal(spec_streams["fixed"],
+                                                   spec_streams["paged"])
+    print(f"  speculative paged == speculative fixed (other slot counts, "
+          f"measured): {out['paged_equals_fixed_share']}")
+    # the model drafting for itself (a ModelDraft pays its own dispatches)
+    msched = build_schedule(ClosedLoop(4), mix, 8, seed=DS_SEED + 6)
+    srv = ContinuousDecodeServer(
+        lm, slots=4, prompt_buckets=(64,), max_queue=8,
+        speculate=Speculator(ModelDraft(lm), k=SPEC_K)).start()
+    try:
+        _warm(srv)
+        md, _ = _spec_readings(srv, msched)
+    finally:
+        srv.stop()
+    out["model_draft"] = md
+    print(f"  ModelDraft (the model drafting for itself), 4 slots, 8 "
+          f"requests: {md['tokens_per_s']} tokens/s, "
+          f"{md['accepted_per_dispatch']:.3f} accepted a slot-dispatch, "
+          f"{md['dispatches_per_token']:.4f} verify dispatches/token, "
+          f"{md['device_dispatches_per_token']:.3f} with the draft's")
+    if md["failed"]:
+        raise SystemExit("ModelDraft requests failed")
+    del lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_durable(srv, timing):
+    """Time the preempting server's extract (the gather), spill (gather,
+    copy to the host, artifact) and install, each ended by a
+    synchronize."""
+    extract, artifact, install = (srv._extract, srv._extract_artifact,
+                                  srv._install_panel)
+
+    def timed(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            timing[key].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+    srv._extract = timed(extract, "extract_ms")
+    srv._extract_artifact = timed(artifact, "spill_ms")
+    srv._install_panel = timed(install, "install_ms")
+
+
+def _preempt_ab(lm):
+    """Phase 27(c) preemption against shed-only (tools/serve_ab.py's
+    bench_preempt_ab at full width). Returns its readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (BrownoutPolicy,
+                                                  ContinuousDecodeServer)
+    V = FULL["vocab_size"]
+    timing = {"extract_ms": [], "spill_ms": [], "install_ms": []}
+
+    def mk(preempt):
+        srv = ContinuousDecodeServer(
+            lm, slots=4, prompt_buckets=(64,), max_queue=256, paged=True,
+            block_size=16, n_blocks=PREEMPT_BLOCKS, max_blocks_per_slot=80,
+            brownout=BrownoutPolicy(classes={"batch": (0.9, 1.01)}),
+            preempt=preempt).start()
+        # warm-up through the server's own thread, the preempt arm's
+        # extract and install included: a pool-filling batch pair and one
+        # interactive request
+        srv.generate([1, 2, 3, 4], 4, timeout=600)
+        warm = [srv.submit(list(range(1, 10)), PREEMPT_NEW, klass="batch")
+                for _ in range(2)]
+        time.sleep(0.05)
+        try:
+            srv.generate([5, 6, 7], 4, deadline_ms=10_000, timeout=600)
+        except Exception:           # noqa: BLE001 - the shed arm may miss
+            pass
+        for f in warm:
+            f.result(600)
+        return srv
+
+    servers = {"preempt": mk(True), "shed_only": mk(False)}
+    _timed_durable(servers["preempt"], timing)
+    for v in timing.values():
+        v.clear()
+    base = {n: s.metrics.snapshot() for n, s in servers.items()}
+    good = {n: [] for n in servers}
+    inter_ms = {n: [] for n in servers}
+    kept = []       # (prompt, stream) of the preempt arm's batch requests
+    for seg in range(PREEMPT_SEGMENTS):
+        for name, srv in servers.items():
+            rng = np.random.default_rng(300 + seg)
+            t0 = time.perf_counter()
+            batch = [(p, srv.submit(p, PREEMPT_NEW, klass="batch"))
+                     for p in (rng.integers(1, V, 9).tolist()
+                               for _ in range(3))]
+            time.sleep(0.05)            # let them admit and occupy
+            inter = []
+            for _ in range(PREEMPT_INTERACTIVE):
+                p = rng.integers(1, V, int(rng.integers(3, 8))).tolist()
+                t_sub = time.perf_counter()
+                try:
+                    f = srv.submit(p, 4, deadline_ms=PREEMPT_SLO_MS,
+                                   klass="interactive")
+                except Exception:       # noqa: BLE001 - shed: a miss
+                    f = None
+                inter.append((f, t_sub))
+                time.sleep(0.004)
+            tokens = 0
+            for f, t_sub in inter:
+                if f is None:
+                    continue
+                try:
+                    f.result(600)
+                except Exception:       # noqa: BLE001 - shed or evicted
+                    continue
+                ms = (time.perf_counter() - t_sub) * 1e3
+                inter_ms[name].append(ms)
+                tokens += 4 if ms <= PREEMPT_SLO_MS else 0
+            for p, f in batch:
+                s = f.result(600)
+                if name == "preempt":
+                    kept.append((p, s))
+            good[name].append(tokens / (time.perf_counter() - t0))
+    out = {}
+    for name, srv in servers.items():
+        snap = srv.metrics.snapshot()
+        out[name] = {
+            "interactive_goodput_tokens_per_s": good[name],
+            "interactive_goodput_median": sorted(good[name])[
+                len(good[name]) // 2],
+            "interactive_completed": len(inter_ms[name]),
+            "interactive_completion_ms_p50": _p(inter_ms[name], 50),
+            "interactive_completion_ms_p99": _p(inter_ms[name], 99),
+            "preempted": _delta(snap, base[name], "preempted"),
+            "resumed": _delta(snap, base[name], "resumed"),
+            "spill_bytes": _delta(snap, base[name], "spill_bytes"),
+            "shed_deadline": _delta(snap, base[name], "shed_deadline"),
+            "blocked_on_memory": _delta(snap, base[name],
+                                        "blocked_on_memory")}
+    pre = servers["preempt"]
+    # a preempted-and-resumed stream == the same request served alone by
+    # the same server (its programs and shapes)
+    solo = [pre.generate(p, PREEMPT_NEW, timeout=600) for p, _ in kept]
+    out["resumed_equal_solo"] = all(a == s for a, (_, s) in zip(solo, kept))
+    for srv in servers.values():
+        srv.stop(timeout=120)
+    out["pool_check"] = all(bool(s._pool.check()) for s in servers.values())
+    out["blocks_in_use_after"] = sum(s._pool.blocks_in_use
+                                     for s in servers.values())
+    n = len(timing["spill_ms"])
+    out["per_preemption_ms"] = {
+        "extract": _p(timing["extract_ms"][:n], 50),
+        "copy": _p([s - e for s, e in zip(timing["spill_ms"],
+                                          timing["extract_ms"])], 50),
+        "install": _p(timing["install_ms"], 50), "preemptions": n,
+        "installs": len(timing["install_ms"])}
+    p, s = out["preempt"], out["shed_only"]
+    print(f"  preemption ({PREEMPT_BLOCKS} blocks of 16, 4 slots; batch 9+"
+          f"{PREEMPT_NEW} tokens, interactive 4 tokens in "
+          f"{PREEMPT_SLO_MS:g} ms): interactive goodput (tokens/s in "
+          f"deadline, median of {PREEMPT_SEGMENTS}) preempt "
+          f"{p['interactive_goodput_median']:.1f} vs shed-only "
+          f"{s['interactive_goodput_median']:.1f}; completion p50/p99 "
+          f"{p['interactive_completion_ms_p50']}/"
+          f"{p['interactive_completion_ms_p99']} vs "
+          f"{s['interactive_completion_ms_p50']}/"
+          f"{s['interactive_completion_ms_p99']} ms; preempted "
+          f"{p['preempted']}, resumed {p['resumed']}, spill "
+          f"{p['spill_bytes']} bytes")
+    print(f"  per preemption (median ms, synchronized): "
+          f"{out['per_preemption_ms']}; resumed streams == solo "
+          f"{out['resumed_equal_solo']} ({len(kept)} batch streams); pool "
+          f"check {out['pool_check']}, blocks in use after "
+          f"{out['blocks_in_use_after']}")
+    if not out["resumed_equal_solo"]:
+        raise SystemExit("a preempted stream differs from its solo run")
+    if not out["pool_check"] or out["blocks_in_use_after"]:
+        raise SystemExit("the block pool leaked")
+    if not p["preempted"] or not p["resumed"]:
+        raise SystemExit("the preempt arm never preempted")
+    return out
+
+
+def _migration(lm):
+    """Phase 27(c) migration: two DS_PAGED servers on one card."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (ContinuousDecodeServer,
+                                                  RequestMigratedError)
+    rng = np.random.default_rng(27)
+    prompt = rng.integers(1, FULL["vocab_size"], 100).tolist()
+    n_new = 200
+    a = ContinuousDecodeServer(lm, prompt_buckets=DS_BUCKETS,
+                               **DS_PAGED).start()
+    b = ContinuousDecodeServer(lm, prompt_buckets=DS_BUCKETS,
+                               **DS_PAGED).start()
+    try:
+        for srv in (a, b):
+            _warm(srv)
+        ref = a.generate(prompt, n_new, timeout=600)
+        fut = a.submit(prompt, n_new)
+        t0 = time.monotonic()
+        while not any(r is not None and r.future is fut
+                      and r.pf_next is None and len(r.generated) >= 40
+                      for r in a._slot_req):
+            if time.monotonic() - t0 > 60:
+                raise SystemExit("the request never reached decode")
+            time.sleep(0.0005)
+        t0 = time.perf_counter()
+        art = a.migrate_out(fut)
+        out_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            fut.result(10)
+            raise SystemExit("the migrated request's source future resolved")
+        except RequestMigratedError:
+            pass
+        got = b.migrate_in(art).result(600)
+        tags = (a._version_tag(0), b._version_tag(0))
+    finally:
+        a.stop()
+        b.stop()
+    out = {"equal_solo": got == ref, "tags_equal": tags[0] == tags[1],
+           "tag": tags[0], "artifact_bytes": art.nbytes,
+           "artifact_dtype": str(art.panels[0][0].dtype),
+           "generated_at_export": len(art.generated),
+           "migrate_out_ms": out_ms}
+    print(f"  migration: {len(art.generated)} tokens decoded on A, "
+          f"artifact {art.nbytes} bytes ({out['artifact_dtype']}), "
+          f"migrate_out {out_ms:.2f} ms; stream on B == A's solo "
+          f"{out['equal_solo']}; fingerprints equal {out['tags_equal']} "
+          f"({tags[0]})")
+    if not out["equal_solo"] or not out["tags_equal"]:
+        raise SystemExit("the migrated stream or the fingerprints differ")
+    return out
+
+
+def _prefix_on_disk(lm):
+    """Phase 27(c) the prefix cache on disk: save, restore in a new
+    server, hit and equal streams."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import ContinuousDecodeServer
+    from deeplearning4j_tpu_torch.serving.kvstate import PrefixCacheArtifact
+
+    class Timed(ContinuousDecodeServer):
+        def restore_prefix_cache(self, path=None):
+            t0 = time.perf_counter()
+            n = super().restore_prefix_cache(path)
+            torch.cuda.synchronize()
+            self.restore_ms = (time.perf_counter() - t0) * 1e3
+            self.restored_blocks = n
+            return n
+
+    rng = np.random.default_rng(270)
+    V = FULL["vocab_size"]
+    systems = [rng.integers(1, V, 16 * int(rng.integers(16, 33))).tolist()
+               for _ in range(4)]
+    work = [(systems[i % 4] + rng.integers(1, V, 20).tolist(), 24)
+            for i in range(8)]
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    pdir = root / f"spec_kv_prefix_{os.getpid()}"
+    shutil.rmtree(pdir, ignore_errors=True)
+    try:
+        s1 = ContinuousDecodeServer(lm, prompt_buckets=DS_BUCKETS,
+                                    **DS_PAGED).start()
+        try:
+            _warm(s1)
+            first = [s1.generate(p, n, timeout=600) for p, n in work]
+        finally:
+            s1.stop()
+        t0 = time.perf_counter()
+        s1.save_prefix_cache(str(pdir))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        written = sum(f.stat().st_size for f in pdir.iterdir())
+        art = PrefixCacheArtifact.load(str(pdir))
+        s2 = Timed(lm, prompt_buckets=DS_BUCKETS, prefix_cache_dir=str(pdir),
+                   **DS_PAGED).start()
+        try:
+            _warm(s2)
+            again = [s2.generate(p, n, timeout=600) for p, n in work]
+            snap = s2.metrics.snapshot()
+        finally:
+            s2.stop()                   # saves the cache again, at stop()
+    finally:
+        shutil.rmtree(pdir, ignore_errors=True)
+    out = {"blocks_saved": len(art.entries), "bytes_written": written,
+           "artifact_dtype": str(art.entries[0][1][0][0].dtype),
+           "save_ms": save_ms, "restore_ms": s2.restore_ms,
+           "restored_blocks": s2.restored_blocks,
+           "prefix_restore_hits": snap.get("prefix_restore_hits", 0),
+           "streams_equal": again == first}
+    print(f"  prefix cache on disk: {out['blocks_saved']} blocks, "
+          f"{written} bytes ({out['artifact_dtype']}), save {save_ms:.1f} "
+          f"ms, restore {s2.restore_ms:.1f} ms ({s2.restored_blocks} "
+          f"blocks); restored blocks hit {out['prefix_restore_hits']} "
+          f"times; streams == the saving server's {out['streams_equal']}")
+    if not out["prefix_restore_hits"] or not out["streams_equal"]:
+        raise SystemExit("the restored prefix cache missed or changed "
+                         "streams")
+    return out
+
+
+def durable_kv_phase():
+    """Phase 27(c). Returns its readings."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import TransformerLM
+    print("phase 27(c): durable KV state at full width (phase 22's model, "
+          "bf16, paged): preemption, migration, the prefix cache on disk")
+    lm = TransformerLM(**FULL, dtype=torch.bfloat16, device="cuda")
+    out = {"preemption": _preempt_ab(lm), "migration": _migration(lm),
+           "prefix_cache": _prefix_on_disk(lm)}
+    del lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_kv_phase(fa):
+    """Phase 27. Returns its readings. The remat step, the serving
+    programs and the durable-KV verbs reach no kernel of the port: the
+    counters are set to 0 first and must read 0 after it, the teaching
+    steps of 27(b) excepted (counted apart)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    out = {"remat": remat_phase()}
+    launched = dict(fa.launches)
+    t_b = time.perf_counter()
+    out["speculation"] = speculation_phase(fa)
+    t_c = time.perf_counter()
+    out["durable_kv"] = durable_kv_phase()
+    out["sub_phase_s"] = {"a": t_b - t_phase, "b": t_c - t_b,
+                          "c": time.perf_counter() - t_c}
+    for k, v in fa.launches.items():
+        launched[k] = launched.get(k, 0) + v
+    if any(launched.values()):
+        raise SystemExit(f"phase 27 launched flash kernels: {launched}")
+    out["flash_launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 27 launched no kernel of the port (the teaching steps "
+          f"apart: {out['speculation']['teach_launches']}): {launched}; "
+          f"{out['phase_s']:.1f} s ({out['sub_phase_s']})")
     return out
 
 

@@ -87,8 +87,8 @@ def resnet50_conf(height=224, width=224, channels=3, num_classes=1000,
 def resnet50(device=None, remat=False, **kwargs):
     """An initialised ResNet-50 ComputationGraph, on the card unless
     `device` says otherwise; keyword arguments go to `resnet50_conf`.
-    remat=True (segment recompute at the residual adds) is not ported
-    yet and raises."""
+    remat=True recomputes the training forward in segments cut at the
+    residual adds (17 segments: 16 bottlenecks and the head)."""
     from ...nn.graph import ComputationGraph
     return ComputationGraph(resnet50_conf(**kwargs), remat_segments=remat,
                             device=device).init()

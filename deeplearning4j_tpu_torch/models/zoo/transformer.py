@@ -26,7 +26,8 @@ with no card and no device given they raise.
 The KV cache is updated in place (JAX returns a new one).
 
 The serving programs (fixed-slot and paged decode, prefill and install,
-chunked prefill, block copy, fused K-step windows) are plain functions on
+chunked prefill, block copy and extract, fused K-step windows, the K-wide
+speculative verify in both layouts) are plain functions on
 tensors, written with torch indexing as the reference writes them with
 XLA gather/scatter; no kernel of `ops/` runs in them. torch has no
 drop-mode scatter, so every serving cache carries one spare row past its
@@ -37,9 +38,10 @@ deterministic on CUDA; duplicate writes to the spare row race harmlessly.
 Nothing in a decode or window program waits on the host (argmax runs on
 the device), so a window can be captured as one CUDA graph.
 
-Not ported yet (ROADMAP.md queues it): `draft=` (speculative decoding)
-and its verify programs (`make_slot_verify_fn`, `make_paged_verify_fn`),
-and the durable-KV extract program (`make_block_extract_fn`).
+Speculative decoding (`generate(draft=)`, `generate_batch(draft=)`, the
+decode server's `speculate=`) is greedy only, as the reference's: a draft
+source (`serving.speculate`) proposes K-1 tokens and one K-wide verify
+call accepts the longest matching prefix plus one bonus token.
 """
 from __future__ import annotations
 
@@ -54,7 +56,6 @@ from ...common.device import resolve_device
 from ...ops.flash_attention import flash_attention
 from ...parallel.pipeline import sgd_momentum_update
 
-_NOT_PORTED = "is not ported yet: ROADMAP.md queue 1 item 3"
 _TORCH_DTYPE = {"float32": torch.float32, "float64": torch.float64,
                 "float16": torch.float16, "bfloat16": torch.bfloat16}
 
@@ -303,6 +304,13 @@ def gated_cache_rows(cache, idx, k_new, v_new):
     return cache
 
 
+def _with_spare_slot(cache):
+    """A [B, L, H, hd] cache as a fixed-slot serving cache [B + 1, ...]
+    (a zero spare slot appended)."""
+    return [{n: torch.cat([c[n], torch.zeros_like(c[n][:1])])
+             for n in ("k", "v")} for c in cache]
+
+
 def init_slot_kv_cache(n_layers, slots, max_len, d_model, n_heads,
                        dtype=torch.float32, device=None):
     """The fixed-slot serving cache: per layer {k, v: [slots + 1, max_len,
@@ -401,6 +409,57 @@ def make_slot_verify_block_fn(n_heads):
         return _mlp_residual(p, x + out @ p.attn.wo), cache
 
     return block_verify
+
+
+def _verify_model(block_verify, k, aux, blocks, cache, pos, toks, active,
+                  *args):
+    """The K-wide verify over the whole model: (nxt [S, K], n_acc [S],
+    logits [S, K, V] f32, cache, new pos). n_acc[s] is the length of the
+    longest prefix with nxt[s, i] == toks[s, i + 1]; pos advances by
+    n_acc + 1 on active slots."""
+    pcols = pos[:, None] + torch.arange(k, device=pos.device)[None, :]
+    x = _embed_at(aux, toks, pcols)
+    for p, c in zip(blocks, cache):
+        x, _ = block_verify(p, x, c, *args)
+    logits = logits_fn(aux, x).float()
+    nxt = logits.argmax(-1)
+    match = (nxt[:, :k - 1] == toks[:, 1:]).to(torch.int64)
+    n_acc = match.cumprod(1).sum(1)
+    return (nxt, n_acc, logits, cache,
+            pos + torch.where(active, n_acc + 1, 0).to(pos.dtype))
+
+
+def _verify_width(k):
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"speculative width k must be >= 1, got {k}")
+    return k
+
+
+def make_slot_verify_fn(n_heads, k):
+    """One SPECULATIVE iteration of fixed-slot decode, up to K tokens per
+    call:
+
+    verify(aux, blocks, cache, pos [S], toks [S, K], active [S])
+      -> (nxt [S, K], n_acc [S], logits [S, K, V] f32, cache, new pos)
+
+    toks[s, 0] is slot s's last accepted token, toks[s, 1:] its K-1 draft
+    tokens (any values: a bad draft costs acceptance, never correctness).
+    The K rows are written at pos[s]..pos[s]+K-1 before attention, and
+    nxt[s, i] is the greedy argmax after the stream prefix ..toks[s, i].
+    The caller consumes nxt[s, :n_acc[s] + 1], so the emitted stream is
+    this program's own argmax chain. Rejected-suffix rows are dead rows
+    the next call overwrites before any query attends to them. k=1 is
+    plain decode through the verify program."""
+    block_verify = make_slot_verify_block_fn(n_heads)
+    k = _verify_width(k)
+
+    @torch.no_grad()
+    def verify(aux, blocks, cache, pos, toks, active):
+        return _verify_model(block_verify, k, aux, blocks, cache, pos,
+                             toks, active, pos, active)
+
+    return verify
 
 
 def make_prefill_fn(n_heads, cache_len):
@@ -656,6 +715,56 @@ def make_paged_verify_block_fn(n_heads, block_size):
     return block_verify
 
 
+def make_paged_verify_fn(n_heads, k, block_size):
+    """`make_slot_verify_fn` through the block table:
+
+    verify(aux, blocks, cache, btabs [S, NB], pos [S], toks [S, K],
+           active [S], wto [S])
+      -> (nxt [S, K], n_acc [S], logits [S, K, V] f32, cache, new pos)
+
+    The K rows write at the table-mapped frontier rows under the paged
+    chunk program's [wfrom, wto) gate with wfrom = pos (every verify row
+    is new) and wto = the slot's reserved rows (`BlockPool.
+    writable_rows`): an overhang past the reservation goes to the spare
+    row instead of resolving through a zeroed table entry into another
+    stream's block. The caller's cap on consumed tokens keeps every
+    consumed query inside the reservation. A CoW-shared partial block
+    must be materialized before the first verify, as before a 1-wide
+    append."""
+    block_verify = make_paged_verify_block_fn(n_heads, block_size)
+    k = _verify_width(k)
+
+    @torch.no_grad()
+    def verify(aux, blocks, cache, btabs, pos, toks, active, wto):
+        return _verify_model(block_verify, k, aux, blocks, cache, pos,
+                             toks, active, btabs, pos, active, pos, wto)
+
+    return verify
+
+
+def make_block_extract_fn(block_size):
+    """Extract half of durable KV state (`serving/kvstate.py`), the
+    inverse of `make_paged_install_fn`: a pure gather of a block table's
+    rows out of the arena.
+
+    extract(cache, btab [NB]) -> [(k, v)] per layer, each [NB * bs, H, hd]
+
+    Row r is LOGICAL row r of the table's request. Rows at or past the
+    request's frontier are dead or resolve through zeroed table entries
+    into block 0: the caller keeps only [:pos]. The spare row is never
+    read."""
+    bs = int(block_size)
+
+    @torch.no_grad()
+    def extract(cache, btab):
+        flat = (btab[:, None] * bs
+                + torch.arange(bs, device=btab.device)[None, :]).reshape(-1)
+        return [(c["k"].index_select(0, flat), c["v"].index_select(0, flat))
+                for c in cache]
+
+    return extract
+
+
 def make_paged_chunk_block_fn(n_heads, block_size):
     """Chunked prefill's paged block: the K-wide paged block under its
     chunk-role name."""
@@ -880,6 +989,114 @@ class TransformerLM(nn.Module):
             x, _ = self._block_decode(p, x, c, pos)
         return logits_fn(self.aux, x)
 
+    def _spec_verify(self, k):
+        """The fixed-slot K-wide verify program, one per width k (shared by
+        generate(draft=) and the decode server's `speculate=`)."""
+        progs = self.__dict__.setdefault("_spec_verify_cache", {})
+        if int(k) not in progs:
+            progs[int(k)] = make_slot_verify_fn(self.n_heads, k)
+        return progs[int(k)]
+
+    @staticmethod
+    def _unwrap_draft(draft, k):
+        """A bare DraftSource or a Speculator bundle (it has .draft and
+        .k) for `draft=`."""
+        if hasattr(draft, "draft") and hasattr(draft, "k"):
+            return draft.draft, int(draft.k)
+        return draft, int(k)
+
+    def _spec_check(self, n_prompt, n_new, temperature):
+        if float(temperature) > 0.0:
+            raise ValueError("speculative decoding is greedy-only "
+                             "(acceptance is by exact argmax match); got "
+                             f"temperature={temperature}")
+        if n_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {n_new}")
+        self._check_cache_room(n_prompt, n_new)
+
+    def _spec_rounds(self, cache, pos, gens, n_new, draft, keys, k):
+        """Verify rounds until every row of `gens` (lists of generated
+        tokens, each starting with the prefilled first token) holds n_new:
+        per round the rows' drafts, one verify call over the slot cache
+        (a spare slot past the rows), one host copy of (n_acc, nxt)."""
+        B = len(gens)
+        verify = self._spec_verify(k)
+        dev = self.device
+        while any(len(g) < n_new for g in gens):
+            toks = np.zeros((B, k), np.int64)
+            active = np.zeros((B,), bool)
+            for i, g in enumerate(gens):
+                if len(g) >= n_new:
+                    continue
+                active[i] = True
+                # never draft past the remaining budget
+                dr = list(draft.propose(
+                    keys[i], min(k - 1, n_new - len(g) - 1)))[:k - 1]
+                toks[i, :1 + len(dr)] = [g[-1]] + dr
+            nxt, n_acc, _, _, pos = verify(
+                self.aux, self.blocks, cache, pos,
+                torch.from_numpy(toks).to(dev),
+                torch.from_numpy(active).to(dev))
+            host = torch.cat([n_acc[:, None], nxt], 1).cpu().numpy()
+            for i, g in enumerate(gens):
+                if not active[i]:
+                    continue
+                take = min(int(host[i, 0]) + 1, n_new - len(g))
+                acc = [int(t) for t in host[i, 1:1 + take]]
+                g.extend(acc)
+                if len(g) < n_new:
+                    draft.observe(keys[i], acc)
+
+    @torch.inference_mode()
+    def _spec_generate(self, toks, n_new, draft, k, temperature):
+        """generate(draft=): the prompt through the single-token KV-cache
+        step (the first token is generate(use_cache=True)'s), then verify
+        rounds."""
+        self._spec_check(len(toks), n_new, temperature)
+        draft, k = self._unwrap_draft(draft, k)
+        cache = init_kv_cache(len(self.blocks), 1, self.max_len,
+                              self.aux.tok.shape[1], self.n_heads,
+                              self.aux.tok.dtype, self.device)
+        logit = None
+        for pos, t in enumerate(toks):
+            logit = self._decode_step(
+                cache, pos, torch.tensor([t], device=self.device))[0]
+        gens = [[int(logit.float().argmax())]]
+        key = object()                      # this call's draft stream
+        draft.start(key, toks + gens[0])
+        try:
+            self._spec_rounds(_with_spare_slot(cache),
+                              torch.tensor([len(toks)], device=self.device),
+                              gens, n_new, draft, [key], k)
+        finally:
+            draft.stop(key)
+        return toks + gens[0]
+
+    @torch.inference_mode()
+    def _spec_generate_batch(self, prompts, n_new, draft, k, temperature):
+        """generate_batch(draft=): one parallel prefill, then verify rounds
+        over every row."""
+        prompts = self._tokens(prompts)
+        B, P = prompts.shape
+        self._spec_check(P, n_new, temperature)
+        draft, k = self._unwrap_draft(draft, k)
+        h, cache = prefill_forward(self.aux, self.blocks, prompts,
+                                   self.n_heads, self.max_len)
+        first = logits_fn(self.aux, h[:, -1]).float().argmax(-1).cpu()
+        prompts_np = prompts.cpu().numpy()
+        gens = [[int(first[i])] for i in range(B)]
+        keys = [object() for _ in range(B)]
+        for i in range(B):
+            draft.start(keys[i], prompts_np[i].tolist() + gens[i])
+        try:
+            self._spec_rounds(_with_spare_slot(cache),
+                              torch.full((B,), P, device=self.device),
+                              gens, n_new, draft, keys, k)
+        finally:
+            for key in keys:
+                draft.stop(key)
+        return np.concatenate([prompts_np, np.asarray(gens, np.int64)], 1)
+
     def _check_cache_room(self, n_prompt, n_new):
         if n_prompt + n_new > self.max_len:
             raise ValueError(
@@ -898,14 +1115,17 @@ class TransformerLM(nn.Module):
         every new token: the full causal forward, through the flash kernel
         when attention="flash". use_cache=True feeds the prompt, then each
         new token, through the single-token KV-cache decode step.
-        `draft` / `speculate_k` (speculative decoding) are the reference's
-        parameters; `draft` raises until it is ported."""
-        if draft is not None:
-            raise NotImplementedError(f"speculative decoding (draft=) "
-                                      f"{_NOT_PORTED}")
+
+        draft=<DraftSource or Speculator> (serving/speculate.py) turns on
+        SPECULATIVE greedy decode: `speculate_k`-wide verify calls accept
+        up to K tokens each; acceptance is by exact argmax match, so a bad
+        draft costs speed, never tokens."""
         toks = [int(t) for t in np.asarray(prompt).ravel()]
         if not toks:
             raise ValueError("prompt must contain at least one token")
+        if draft is not None:
+            return self._spec_generate(toks, int(max_new_tokens), draft,
+                                       speculate_k, temperature)
         rng = np.random.default_rng(seed)
         n_new = int(max_new_tokens)
 
@@ -946,10 +1166,12 @@ class TransformerLM(nn.Module):
         > 0 = sampled on the device from a torch.Generator seeded with
         `seed` (deterministic per seed; not the JAX package's draws).
         Returns a numpy array [B, P + max_new_tokens]. `draft` /
-        `speculate_k` as in `generate`."""
+        `speculate_k` as in `generate`: rows advance 1..K tokens per verify
+        call independently, finished rows go inactive."""
         if draft is not None:
-            raise NotImplementedError(f"speculative decoding (draft=) "
-                                      f"{_NOT_PORTED}")
+            return self._spec_generate_batch(prompts, int(max_new_tokens),
+                                             draft, speculate_k,
+                                             temperature)
         prompts = self._tokens(prompts)
         B, P = prompts.shape
         n_new = int(max_new_tokens)

@@ -216,13 +216,47 @@ class LayerConf:
         return hp
 
 
+class DropoutTape:
+    """The dropout keep masks of one recomputed segment (the
+    ComputationGraph's `remat_segments`): its first forward draws them from
+    `generator` in the plain path's order and keeps them; `rewind()` at the
+    start of each later run (the backward's recompute) replays them, so the
+    recompute sees the first forward's masks and the generator moves once.
+    No generator state is read or set, so it also runs inside a CUDA graph
+    capture."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self._masks = []
+        self._next = None       # None: drawing; an index: replaying
+        self._runs = 0
+
+    def rewind(self):
+        self._next = 0 if self._runs else None
+        self._runs += 1
+
+    def keep(self, shape, p, device):
+        if self._next is None:
+            m = torch.rand(shape, generator=self.generator,
+                           device=device) < p
+            self._masks.append(m)
+            return m
+        m = self._masks[self._next]
+        self._next += 1
+        return m
+
+
 def apply_input_dropout(conf: LayerConf, x, train, rng):
     """Inverted dropout on the layer *input* (DL4J util/Dropout.java). The
     dropout value is the probability of RETAINING an activation, as in
-    ND4J's DropOutInverted. `rng` is a torch.Generator on x's device."""
+    ND4J's DropOutInverted. `rng` is a torch.Generator on x's device, or a
+    `DropoutTape` over one."""
     p = conf.dropout or 0.0
     if not train or p <= 0.0 or p >= 1.0 or rng is None:
         return x
-    keep = torch.rand(x.shape, generator=rng, device=x.device) < p
+    if isinstance(rng, DropoutTape):
+        keep = rng.keep(x.shape, p, x.device)
+    else:
+        keep = torch.rand(x.shape, generator=rng, device=x.device) < p
     return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))

@@ -25,28 +25,43 @@ group stacks the multi-input feature dicts and multi-output label lists
 leaf by leaf, over an iterator of DataSets or MultiDataSets (or any object
 with has_next()/next()), and fuses K full TBPTT segments of a sequence.
 
+`remat_segments=True` recomputes the training forward in segments that
+end at the element-wise (residual-add) vertices, as the reference's
+`jax.checkpoint` segments do: each segment but the last runs under
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`, so only the
+segment boundaries' activations are kept for the backward. It wraps only
+the training loss's forward without masks or carries; inference and
+inspection keep every activation. BatchNorm's new running statistics are
+the first forward's outputs (the recompute's are discarded). Dropout draws
+from the network's one generator, whose state checkpoint does not keep and
+which cannot be read on the host inside a CUDA graph capture (a fused
+group): a segment's keep masks are drawn in its first forward, in the
+plain path's order, and its recompute reuses them (`_DropoutTape`).
+
 Not ported yet (NotImplementedError, naming the ROADMAP.md item):
-`remat_segments=True` (to come on `torch.utils.checkpoint`), listeners.
+listeners.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ...common.device import card_numerics, to_port, to_public
 from ...datasets.dataset import DataSet, MultiDataSet
 from ...datasets.iterators import DataSetIterator
 from ..conf.computation_graph_configuration import ComputationGraphConfiguration
+from ..conf.graph_vertices import ElementWiseVertex
+from ..conf.layers.base import DropoutTape
 from ..conf.layers.recurrent import BaseRecurrentLayer
-from ..multilayer import Network, _host, mean_score, not_ported
+from ..multilayer import Network, _host, mean_score
 
 
 class ComputationGraph(Network):
     def __init__(self, conf: ComputationGraphConfiguration,
                  remat_segments=False, device=None):
-        if remat_segments:
-            raise not_ported("remat_segments=True (segment recompute, to "
-                             "come on torch.utils.checkpoint)", 11)
         super().__init__(conf, device)
+        self._remat = bool(remat_segments)
+        self._remat_plan_cache = None
 
     def _layer_names(self):
         """Layer vertices in topological order (the flat-parameter order)."""
@@ -66,11 +81,18 @@ class ComputationGraph(Network):
     # Forward: per vertex in topological order
     # ------------------------------------------------------------------
     def _apply_graph(self, params, state, inputs, *, train, rng,
-                     fmasks=None, carries=None):
+                     fmasks=None, carries=None, allow_remat=False):
         """inputs: input name -> tensor (compute type); carries: layer
         name -> carry (TBPTT, `rnn_time_step`), or None for zero carries.
         Returns (activations incl. inputs, new state, masks, new carries;
-        None without `carries`)."""
+        None without `carries`). `allow_remat` (the training loss only)
+        takes the segment-recompute forward when the graph was built with
+        `remat_segments=True`."""
+        if (self._remat and allow_remat and train
+                and torch.is_grad_enabled() and carries is None
+                and not (fmasks and any(m is not None
+                                        for m in fmasks.values()))):
+            return self._apply_graph_remat(params, state, inputs, rng=rng)
         acts = dict(inputs)
         masks = {n: (fmasks.get(n) if fmasks else None) for n in inputs}
         new_state = dict(state)
@@ -79,31 +101,119 @@ class ComputationGraph(Network):
             spec = self.conf.vertices[name]
             in_acts = [acts[i] for i in spec.inputs]
             in_masks = [masks.get(i) for i in spec.inputs]
+            out, st, c = self._forward_vertex(
+                spec, params.get(name), in_acts, in_masks, train=train,
+                rng=rng, state_entry=state.get(name),
+                carry_entry=(carries.get(name) if carries is not None
+                             else None))
+            if st is not None:
+                new_state[name] = st
+            if c is not None:
+                new_carries[name] = c
             if spec.is_layer:
-                layer = spec.conf
-                x = in_acts[0]
-                if spec.preprocessor is not None:
-                    x = spec.preprocessor.pre_process(x)
-                if (isinstance(layer, BaseRecurrentLayer)
-                        and carries is not None):
-                    out, new_carries[name] = layer.forward_with_carry(
-                        params[name], x, carries[name], train=train, rng=rng,
-                        mask=in_masks[0])
-                elif layer.has_state():
-                    out, new_state[name] = layer.forward_with_state(
-                        params[name], x, state[name], train=train, rng=rng,
-                        mask=in_masks[0], group=self._stats_group)
-                else:
-                    out = layer.forward(params[name], x, train=train,
-                                        rng=rng, mask=in_masks[0])
-                masks[name] = (in_masks[0] if _keeps_time_axis(layer)
+                masks[name] = (in_masks[0] if _keeps_time_axis(spec.conf)
                                else None)
             else:
-                out = spec.conf.forward(in_acts, masks=in_masks, train=train,
-                                        rng=rng)
                 masks[name] = spec.conf.output_mask(in_masks)
             acts[name] = out
         return acts, new_state, masks, new_carries
+
+    def _forward_vertex(self, spec, p, in_acts, in_masks, *, train, rng,
+                        state_entry=None, carry_entry=None):
+        """One vertex's forward, shared by `_apply_graph` and the remat
+        segments so the two cannot drift. Returns (out, new state or None,
+        new carry or None)."""
+        if not spec.is_layer:
+            return (spec.conf.forward(in_acts, masks=in_masks, train=train,
+                                      rng=rng), None, None)
+        layer = spec.conf
+        x = in_acts[0]
+        if spec.preprocessor is not None:
+            x = spec.preprocessor.pre_process(x)
+        if isinstance(layer, BaseRecurrentLayer) and carry_entry is not None:
+            out, c = layer.forward_with_carry(p, x, carry_entry, train=train,
+                                              rng=rng, mask=in_masks[0])
+            return out, None, c
+        if layer.has_state():
+            out, st = layer.forward_with_state(p, x, state_entry,
+                                               train=train, rng=rng,
+                                               mask=in_masks[0],
+                                               group=self._stats_group)
+            return out, st, None
+        return (layer.forward(p, x, train=train, rng=rng, mask=in_masks[0]),
+                None, None)
+
+    def _remat_plan(self):
+        """The topological order cut after each element-wise (residual-add)
+        vertex: (segment id per vertex, number of segments)."""
+        if self._remat_plan_cache is None:
+            seg, s = {}, 0
+            for name in self.conf.topological_order:
+                seg[name] = s
+                spec = self.conf.vertices[name]
+                if (not spec.is_layer
+                        and isinstance(spec.conf, ElementWiseVertex)):
+                    s += 1
+            self._remat_plan_cache = (seg, s + 1)
+        return self._remat_plan_cache
+
+    def _apply_graph_remat(self, params, state, inputs, *, rng):
+        """The training forward with every segment but the last under a
+        non-reentrant checkpoint: only the activations a later segment or
+        an output head reads are kept; the interior is recomputed in the
+        backward. Returns what `_apply_graph` returns (masks all None, no
+        carries)."""
+        seg_of, n_seg = self._remat_plan()
+        order = self.conf.topological_order
+        segments = [[] for _ in range(n_seg)]
+        for name in order:
+            segments[seg_of[name]].append(name)
+        needed_later = set(self.conf.network_outputs)
+        for out in self.conf.network_outputs:
+            needed_later.update(self.conf.vertices[out].inputs)
+        for name in order:
+            for inp in self.conf.vertices[name].inputs:
+                if seg_of.get(inp, -1) != seg_of[name]:
+                    needed_later.add(inp)
+        acts = dict(inputs)
+        new_state = dict(state)
+        for si, names in enumerate(segments):
+            if not names:
+                continue
+            ext_in = sorted({i for n in names
+                             for i in self.conf.vertices[n].inputs
+                             if seg_of.get(i, -1) != si})
+            outs = [n for n in names if n in needed_later]
+            tape = DropoutTape(rng) if rng is not None else None
+
+            def seg_fn(ext, names=names, ext_in=ext_in, outs=outs,
+                       tape=tape):
+                if tape is not None:
+                    tape.rewind()
+                local = dict(zip(ext_in, ext))
+                st_new = {}
+                for name in names:
+                    spec = self.conf.vertices[name]
+                    in_acts = [local[i] for i in spec.inputs]
+                    out, st, _ = self._forward_vertex(
+                        spec, params.get(name), in_acts,
+                        [None] * len(in_acts), train=True, rng=tape,
+                        state_entry=state.get(name))
+                    if st is not None:
+                        st_new[name] = st
+                    local[name] = out
+                return [local[o] for o in outs], st_new
+
+            ext = [acts[i] for i in ext_in]
+            if si < n_seg - 1:
+                got, st_new = checkpoint(seg_fn, ext, use_reentrant=False,
+                                         preserve_rng_state=False)
+            else:
+                # the head's segment backs the loss directly
+                got, st_new = seg_fn(ext)
+            acts.update(zip(outs, got))
+            new_state.update(st_new)
+        return acts, new_state, {name: None for name in acts}, None
 
     def _inputs(self, features):
         if isinstance(features, dict):
@@ -153,7 +263,8 @@ class ComputationGraph(Network):
         params = self._cast_params(masters)
         acts, new_state, _, new_carries = self._apply_graph(
             params, self._states() if state is None else state, features,
-            train=train, rng=rng, fmasks=fmasks, carries=carries)
+            train=train, rng=rng, fmasks=fmasks, carries=carries,
+            allow_remat=True)
         total = 0.0
         for oi, out_name in enumerate(self.conf.network_outputs):
             spec = self.conf.vertices[out_name]

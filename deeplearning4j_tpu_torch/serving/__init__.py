@@ -4,8 +4,9 @@ the micro-batching server over a MultiLayerNetwork or ComputationGraph;
 TransformerLM with fixed-slot and paged KV caches, chunked prefill,
 deadline-aware admission, brownout and fused decode windows; the block
 pool, the KV artifacts, the load generator, their error types and
-`ServingMetrics`). Speculative decoding, durable KV state in the server,
-the fleet and the wire come with ROADMAP.md queue 1 items 3, 4 and 6."""
+`ServingMetrics`; speculative decoding's draft sources; durable KV state:
+preemption, migration and the prefix cache on disk). The fleet and the
+wire come with ROADMAP.md queue 1 item 6."""
 from .admission import (AdmissionController, BrownoutPolicy,
                         ServiceRateEstimator)
 from .metrics import ServingMetrics
@@ -22,6 +23,7 @@ from .loadgen import (CHAOS_ACTIONS, ChaosSchedule, ClosedLoop,
                       DecodeSizeMix, InferenceSizeMix, OnOffProcess,
                       PoissonProcess, Schedule, SharedPrefixMix,
                       build_chaos_schedule, build_schedule, run_load)
+from .speculate import DraftSource, ModelDraft, NGramDraft, Speculator
 
 __all__ = [
     "InferenceServer", "ContinuousDecodeServer", "ServingMetrics",
@@ -32,6 +34,7 @@ __all__ = [
     "KVStateVersionError", "RequestMigratedError",
     "ReplicaDeadError", "RequestDrainedError", "PoisonPillError",
     "AdmissionController", "BrownoutPolicy", "ServiceRateEstimator",
+    "Speculator", "DraftSource", "NGramDraft", "ModelDraft",
     "PoissonProcess", "OnOffProcess", "ClosedLoop",
     "DecodeSizeMix", "SharedPrefixMix", "InferenceSizeMix", "Schedule",
     "build_schedule", "run_load",

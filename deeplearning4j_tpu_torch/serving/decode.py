@@ -68,19 +68,43 @@ own graph, freed with the version; a reset of the device state frees
 them all. A capture that fails raises (the occupied requests fail, as on
 any terminal dispatch fault). On the CPU the window runs eagerly.
 
-Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: speculative decoding (`speculate=`, item 3); durable KV
-state (`preempt=`, `prefix_cache_dir=`, `migrate_out`, `migrate_in`,
-`save_prefix_cache`, `restore_prefix_cache`, `prefix_export`,
-`prefix_adopt`, item 4); the fleet verbs (`kill`, `drain`, item 6).
+Speculative decoding (`speculate=`, `serving/speculate.py`): each
+iteration drafts K-1 tokens per slot (n-gram lookup on the host, or a
+draft model) and one K-wide verify dispatch (`make_slot_verify_fn`, or
+`make_paged_verify_fn` through the block table) accepts 1..K of them per
+slot. The verify's argmax and acceptance counts come to the host in one
+copy per dispatch. The emitted stream is the verify program's own argmax
+chain; equality with the 1-wide step's stream rests on argmax parity
+across widths, which on the card is measured (PERF.md), not pinned.
+`fused_serve > 1` with `speculate=` is refused at the constructor.
+
+Durable KV state (`serving/kvstate.py` + `make_block_extract_fn`, paged
+only): a decode-phase slot's rows leave the arena as a host-side
+`RequestArtifact` and come back bit-identically. Preemption
+(`preempt=True` with a brownout policy) spills a lower-class slot when a
+higher class is blocked on blocks and parks it on a resume line served
+ahead of the queues; `migrate_out` / `migrate_in` move a live request
+between servers, tag-checked by the parameters' content fingerprint
+(`_param_fingerprint`, equal to the reference's for the same weights);
+`prefix_cache_dir=` saves the prefix cache at stop() and restores it at
+construction; `prefix_export` / `prefix_adopt` move a prefix chain
+between running servers. An extraction is one gather on the serve stream
+followed by one synchronous device-to-host copy, so the spilled rows are
+on the host before the freed blocks can be written again.
+
+Not ported yet, raising NotImplementedError that names the ROADMAP.md
+item: the fleet verbs (`kill`, `drain`, item 6).
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import hashlib
 import itertools
 import logging
+import os
 import queue
+import shutil
 import threading
 import time
 
@@ -92,10 +116,13 @@ from ..common.device import card_numerics
 from ..models.zoo import transformer as _T
 from .admission import DEFER, SHED, AdmissionController
 from .kvpool import BlockPool
+from .kvstate import (KVStateError, KVStateVersionError,
+                      PrefixCacheArtifact, RequestArtifact, artifact_kind)
 from .metrics import ServingMetrics
-from .server import (DeadlineExceededError, ServerClosedError,
-                     ServerOverloadedError, _fail_future, _RequestLoop,
-                     _resolve_future)
+from .server import (DeadlineExceededError, RequestMigratedError,
+                     ServerClosedError, ServerOverloadedError,
+                     _fail_future, _RequestLoop, _resolve_future)
+from .speculate import as_speculator
 
 log = logging.getLogger(__name__)
 
@@ -110,6 +137,60 @@ def _param_leaves(aux, blocks):
     return (list(aux.named_parameters(prefix="aux"))
             + [(name, t) for i, b in enumerate(blocks)
                for name, t in b.named_parameters(prefix=f"blocks.{i}")])
+
+
+def _dtype_name(dtype):
+    """A torch or numpy dtype's name: "float32", "bfloat16", ..."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _param_fingerprint(aux, blocks):
+    """Content fingerprint of one parameter version: sha256 over each
+    leaf's shape string, dtype name and bytes, in the reference's
+    `tree_leaves((aux, blocks))` order (every dict level in sorted key
+    order) and layouts, so the same weights give the same tag in both
+    packages. The durable version tag of `kvstate`; computed once per
+    version, never on the decode path (it copies every parameter to the
+    host)."""
+    def ordered(module):
+        named = [(tuple(n.split(".")), t)
+                 for n, t in module.named_parameters()]
+        return [t for _, t in sorted(named, key=lambda e: e[0])]
+
+    leaves = ordered(aux) + [t for b in blocks for t in ordered(b)]
+    h = hashlib.sha256()
+    for t in leaves:
+        t = t.detach().cpu().contiguous()
+        h.update(str(tuple(t.shape)).encode())
+        h.update(_dtype_name(t.dtype).encode())
+        words = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        h.update(words.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _host_panels(dev_panels, rows):
+    """Device panels [(k, v)] per layer -> host panels of their first
+    `rows` rows, in one synchronous device-to-host copy (never into
+    pageable memory asynchronously): when it returns, the rows are on the
+    host and the arena may be written again. bf16 stays a CPU torch
+    tensor (numpy has none; see kvstate), other dtypes become numpy."""
+    flat = torch.stack([a[:rows] for kv in dev_panels for a in kv]).cpu()
+    out = [a if a.dtype == torch.bfloat16 else a.numpy() for a in flat]
+    return [(out[i], out[i + 1]) for i in range(0, len(out), 2)]
+
+
+def _block_panels(host, i, bs):
+    """Block i's rows of host panels [(k, v)] per layer (copies)."""
+    cut = lambda a: a[i * bs:(i + 1) * bs].copy() if isinstance(
+        a, np.ndarray) else a[i * bs:(i + 1) * bs].clone()
+    return [(cut(k), cut(v)) for k, v in host]
+
+
+def _cat(parts):
+    """Concatenate host panel rows (numpy arrays or bf16 tensors)."""
+    if isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts)
+    return torch.cat(parts)
 
 
 class _Wake:
@@ -131,7 +212,8 @@ class _DecodeRequest:
                  "generated", "slot", "version", "req_id", "t_last_tok",
                  "t_first_tok", "alloc", "mem_blocked", "pf_next",
                  "pf_wfrom", "work_left", "work_counted", "predicted_done",
-                 "klass", "prio_overtook", "pf_quoted")
+                 "klass", "prio_overtook", "pf_quoted", "artifact",
+                 "migrated", "progress_base")
 
     def __init__(self, prompt, max_new, deadline, klass="default"):
         self.prompt = prompt
@@ -156,6 +238,9 @@ class _DecodeRequest:
         self.prio_overtook = False  # left the priority line past queued
         #                             work; counted at ADMIT
         self.pf_quoted = 1      # prefill units quoted at submit
+        self.artifact = None    # kvstate.RequestArtifact parked for resume
+        self.migrated = False   # arrived by migrate_in
+        self.progress_base = 0  # len(generated) at the last restore
 
 
 class _CapturedWindow:
@@ -197,9 +282,15 @@ class ContinuousDecodeServer(_RequestLoop):
 
     _thread_name = "continuous-decode"
     _default_stop_timeout = 60.0
+    # a preemption victim must decode this many tokens since its last
+    # (re)start before it may be spilled again (no spill/restore loop)
+    _PREEMPT_MIN_PROGRESS = 4
     # after this many consecutive priority overtakes, the primary queue's
     # head gets one turn: prefix-hit traffic never starves cold prompts
     _PRIO_BURST = 4
+    # the fleet prefix tier's artifact bytes serviced per iteration (at
+    # least one command always runs)
+    _PREFIX_IO_BUDGET = 4 << 20
 
     def __init__(self, lm, slots=4, prompt_buckets=(8, 16, 32),
                  max_queue=64, fault_injector=None, retry_policy=None,
@@ -212,13 +303,6 @@ class ContinuousDecodeServer(_RequestLoop):
                  default_deadline_ms=None, prefix_priority=True,
                  preempt=False, prefix_cache_dir=None, instance=None,
                  fused_serve=None):
-        if speculate is not None:
-            raise _not_ported("speculative decoding (speculate=)", 3)
-        if preempt:
-            raise _not_ported("preemption (preempt=True)", 4)
-        if prefix_cache_dir is not None:
-            raise _not_ported("the persistent prefix cache "
-                              "(prefix_cache_dir=)", 4)
         self._tracer = tracer if tracer is not None else obs.TRACER
         self._flight = flight_recorder
         self.lm = lm
@@ -286,6 +370,34 @@ class ContinuousDecodeServer(_RequestLoop):
                                  and self._chunk is not None)
         self._prio_q = collections.deque()       # prefix-hit fast line
         self._prio_streak = 0   # consecutive genuine overtakes
+        # durable KV state: preemption needs the paged pool (a block set
+        # to spill) and a brownout policy (the class ranking)
+        self._preempt_on = bool(preempt)
+        if self._preempt_on and not self._paged:
+            raise ValueError("preempt=True requires paged=True (only a "
+                             "block-table KV set can be spilled)")
+        if self._preempt_on and brownout is None:
+            raise ValueError("preempt=True requires a brownout= policy: "
+                             "BrownoutPolicy.may_preempt ranks request "
+                             "classes, and without a ranking nothing "
+                             "may ever be preempted")
+        self._prefix_dir = (None if prefix_cache_dir is None
+                            else str(prefix_cache_dir))
+        if self._prefix_dir is not None and not (
+                self._paged and self._prefix_cache):
+            raise ValueError("prefix_cache_dir requires paged=True with "
+                             "prefix_cache=True (there is no prefix "
+                             "cache to persist otherwise)")
+        self._resume_q = collections.deque()     # serve thread only:
+        #   spilled requests (artifact set) awaiting blocks and a slot
+        self._migrate_in_q = collections.deque()  # client -> serve thread
+        self._migrate_cmds = collections.deque()  # (future, reply)
+        self._prefix_cmds = collections.deque()   # fleet prefix tier:
+        #   ("export", key, max_bytes, reply) | ("adopt", art, None, reply)
+        self._prefix_io_budget = self._PREFIX_IO_BUDGET
+        self._tag_cache = {}    # version index -> parameter fingerprint
+        self._prefix_saved = True   # nothing to save before start()
+        self._gate_key = None   # the preempting gate's rescan guard
         self._work_lock = threading.Lock()
         self._work_tokens = 0   # work-unit backlog (queued + live)
         # admission hysteresis: an actual eviction/expiry tightens
@@ -293,6 +405,7 @@ class ContinuousDecodeServer(_RequestLoop):
         self._thrash_until = 0.0
 
         self._graphs = {}       # version -> _CapturedWindow (the card)
+        self._spec = None
         self._reset_device_state()
         # ONE decode program for the life of the server; parameters are
         # arguments, so a hot swap reuses it
@@ -309,10 +422,25 @@ class ContinuousDecodeServer(_RequestLoop):
         # rolling window of recent SLO outcomes (1 met / 0 missed): the
         # brownout policy's attainment signal
         self._slo_recent = collections.deque(maxlen=64)
+        # speculation: one K-wide verify program replaces the 1-token step
+        # (fixed layout: the model's own, shared with generate(draft=))
+        self._spec = as_speculator(speculate)
+        if self._spec is None:
+            self._verify = None
+        elif self._paged:
+            self._verify = _T.make_paged_verify_fn(
+                n_heads, self._spec.k, self._block_size)
+        else:
+            self._verify = lm._spec_verify(self._spec.k)
         self._fused = 1 if fused_serve is None else int(fused_serve)
         if self._fused < 1:
             raise ValueError(f"fused_serve must be >= 1, got "
                              f"{fused_serve}")
+        if self._fused > 1 and self._spec is not None:
+            raise ValueError(
+                "fused_serve > 1 does not compose with speculate= "
+                "(a fused window cannot take fresh drafts mid-scan); "
+                "configure one or the other")
         if self._fused > 1:
             self._window_step = (
                 _T.make_paged_fused_decode_fn(n_heads, self._block_size,
@@ -329,6 +457,9 @@ class ContinuousDecodeServer(_RequestLoop):
             self._paged_install = _T.make_paged_install_fn(
                 self._block_size)
             self._cow_copy = _T.make_block_copy_fn(self._block_size)
+            # durable KV: one pure gather of a table's rows, shared by
+            # preemption, migration and the prefix-cache save/export
+            self._extract = _T.make_block_extract_fn(self._block_size)
         else:
             self._make_prefill = lambda: _T.make_prefill_fn(
                 n_heads, self.max_len)
@@ -338,6 +469,11 @@ class ContinuousDecodeServer(_RequestLoop):
         if self._named_instance:
             self._req_ids = (f"{self.instance}-{n}"
                              for n in itertools.count())
+        if self._prefix_dir is not None and \
+                artifact_kind(self._prefix_dir) == "prefix_cache":
+            # warm start; a version mismatch raises KVStateVersionError
+            # out of the constructor, an absent snapshot is a cold start
+            self.restore_prefix_cache(self._prefix_dir)
 
     # -- client API ----------------------------------------------------
     def submit(self, prompt, max_new_tokens, deadline_ms=None,
@@ -531,10 +667,14 @@ class ContinuousDecodeServer(_RequestLoop):
         return req.future
 
     def _pending_depth(self):
-        return self._q.qsize() + len(self._prio_q)
+        """Enqueue-time depth: the queue and every parked line (priority,
+        resume, migrate-in staging)."""
+        return (self._q.qsize() + len(self._prio_q)
+                + len(self._resume_q) + len(self._migrate_in_q))
 
     def _shed_if_lines_full(self):
-        """The primary queue and the priority line share `max_queue`."""
+        """The primary queue and every parked line share `max_queue` (the
+        check behind submit, the priority line and migrate_in)."""
         if 0 < self._q.maxsize <= self._pending_depth():
             self.metrics.count("shed_queue_full")
             self.metrics.record_queue_depth(self._pending_depth())
@@ -554,10 +694,7 @@ class ContinuousDecodeServer(_RequestLoop):
         self._shed_if_lines_full()
         self._prio_q.append(req)
         if not any(r is not None for r in self._slot_req):
-            try:
-                self._q.put_nowait(_Wake())
-            except queue.Full:
-                pass
+            self._wake_loop()
         self.metrics.record_queue_depth(self._pending_depth())
         tr = self._tracer
         if tr.enabled:
@@ -623,23 +760,583 @@ class ContinuousDecodeServer(_RequestLoop):
     def drain(self, migrate=None, timeout=60.0):
         raise _not_ported("drain (the fleet's hand-off verb)", 6)
 
+    # -- durable KV state ------------------------------------------------
+    def start(self):
+        # a (re)started server has live state the next clean stop persists
+        self._prefix_saved = self._prefix_dir is None
+        return super().start()
+
+    def stop(self, drain=True, timeout=None):
+        """Stop the loop, then, with `prefix_cache_dir=` and the loop
+        really exited, save the prefix cache on the caller's thread. A
+        join timeout skips the save; a retried stop() performs it. A
+        failed save is logged, not raised."""
+        super().stop(drain=drain, timeout=timeout)
+        t = self._thread
+        if (self._prefix_dir is not None and not self._prefix_saved
+                and not self._running
+                and (t is None or not t.is_alive())):
+            self._prefix_saved = True
+            try:
+                self.save_prefix_cache(self._prefix_dir)
+            except Exception:   # noqa: BLE001 - teardown must finish
+                log.exception("prefix-cache save failed at stop()")
+
+    def _version_tag(self, vidx):
+        """The parameter fingerprint of version `vidx`, computed once."""
+        tag = self._tag_cache.get(vidx)
+        if tag is None:
+            with self._swap_lock:
+                ver = self._versions[vidx]
+            if ver is None:
+                raise KVStateError(f"param version {vidx} already "
+                                   f"drained; nothing to fingerprint")
+            tag = self._tag_cache[vidx] = _param_fingerprint(*ver)
+        return tag
+
+    def _gather_blocks(self, ids):
+        """Host panels of physical blocks `ids`, in order: one extract and
+        one copy per `max_blocks_per_slot` blocks."""
+        bs = self._block_size
+        out = []
+        for at in range(0, len(ids), self._nb_slot):
+            group = ids[at:at + self._nb_slot]
+            tab = np.zeros((self._nb_slot,), np.int64)
+            tab[:len(group)] = group
+            host = _host_panels(self._extract(self._cache, self._dev(tab)),
+                                len(group) * bs)
+            out.extend(_block_panels(host, i, bs)
+                       for i in range(len(group)))
+        return out
+
+    def _extract_artifact(self, slot):
+        """`slot`'s KV state as a host RequestArtifact (serve thread,
+        decode phase): one gather of its table's rows, then the rows
+        below the frontier to the host in one copy. Rows at or past the
+        frontier (rejected speculative suffixes, padding) are never
+        serialized."""
+        r = self._slot_req[slot]
+        pos = len(r.prompt) + len(r.generated) - 1
+        tab = np.zeros((self._nb_slot,), np.int64)
+        tab[:len(r.alloc.ids)] = r.alloc.ids
+        with self._tracer.span("decode.extract", cat="serve",
+                               track="server", trace_id=r.req_id,
+                               slot=slot, rows=pos):
+            panels = _host_panels(
+                self._extract(self._cache, self._dev(tab)), pos)
+        art = RequestArtifact(r.prompt, r.generated, r.max_new,
+                              self._version_tag(r.version),
+                              self._block_size, panels, klass=r.klass,
+                              trace={"trace_id": r.req_id,
+                                     "parent_span": f"req-{r.req_id}",
+                                     "origin": self.instance})
+        self.metrics.count("spill_bytes", art.nbytes)
+        return art
+
+    def _preempt_slot(self, slot):
+        """Pause `slot`'s request: spill it to the host, release its
+        blocks, park it on the resume line. Its future stays pending, its
+        remaining tokens stay in the backlog, plus one re-install unit."""
+        r = self._slot_req[slot]
+        r.artifact = self._extract_artifact(slot)
+        self._free_slot(slot)           # blocks back to the pool
+        r.slot = None                   # r.version kept: the resume runs
+        #                                 under the rows' own parameters
+        with self._work_lock:
+            if r.work_counted:
+                r.work_left += 1
+                self._work_tokens += 1
+        self._resume_q.append(r)
+        self.metrics.count("preempted")
+        tr = self._tracer
+        if tr.enabled:
+            tr.instant("decode.preempt", cat="serve",
+                       track=f"req-{r.req_id}", trace_id=r.req_id)
+
+    def _gate_signature(self):
+        """What the preempting gate's outcome depends on: pool occupancy,
+        decode progress and pending depth (the same signature, the same
+        outcome: the gate skips the rescan)."""
+        return (self._pool.blocks_free, self._pool.blocks_in_use,
+                self.metrics.count_value("tokens_out"),
+                self._pending_depth())
+
+    def _try_preempt_for(self, req):
+        """Free blocks for the memory-blocked `req` by preempting one
+        decode-phase slot whose class the policy ranks below its
+        (`may_preempt`) and which has decoded `_PREEMPT_MIN_PROGRESS`
+        tokens since its last (re)start: the most yielding class first,
+        then the slot holding most blocks. False when there is none."""
+        if not self._preempt_on or self._brownout is None:
+            return False
+        cands = []
+        for s, r in enumerate(self._slot_req):
+            if r is None or r.pf_next is not None or r.alloc is None:
+                continue
+            if len(r.generated) - r.progress_base \
+                    < self._PREEMPT_MIN_PROGRESS:
+                continue
+            if not self._brownout.may_preempt(r.klass, req.klass):
+                continue
+            rank = self._brownout.classes.get(
+                str(r.klass), self._brownout.default)[0]
+            cands.append((rank, -len(r.alloc.ids), s))
+        if not cands:
+            return False
+        self._preempt_slot(min(cands)[2])
+        return True
+
+    def _check_panel_fit(self, k0, n_layers, what):
+        """The structural fit of host panels against this server's cache
+        (the version tag is checked separately)."""
+        hd = self._d_model // self._n_heads
+        if (n_layers != self._n_layers
+                or tuple(k0.shape[1:]) != (self._n_heads, hd)
+                or _dtype_name(k0.dtype) != _dtype_name(self._cache_dtype)):
+            raise KVStateError(
+                f"{what} panel [{k0.shape[0]}, {k0.shape[1]}, "
+                f"{k0.shape[2]}] x {n_layers} layers "
+                f"({_dtype_name(k0.dtype)}) does not fit this server's "
+                f"cache ([rows, {self._n_heads}, {hd}] x {self._n_layers}, "
+                f"{_dtype_name(self._cache_dtype)})")
+
+    def _check_artifact(self, art):
+        """Structural fit of a RequestArtifact against this server."""
+        if art.block_size != self._block_size:
+            raise KVStateError(
+                f"artifact block_size {art.block_size} != server "
+                f"block_size {self._block_size}")
+        self._check_panel_fit(art.panels[0][0], len(art.panels), "artifact")
+        if len(art.prompt) + art.max_new > self.max_len:
+            raise KVStateError(
+                f"artifact needs {len(art.prompt)} + {art.max_new} "
+                f"rows; server max_len is {self.max_len}")
+
+    def _check_artifact_panels(self, art):
+        """The prefix-cache twin of `_check_artifact`."""
+        if art.block_size != self._block_size:
+            raise KVStateError(
+                f"prefix-cache snapshot block_size {art.block_size} != "
+                f"server block_size {self._block_size}")
+        panels = art.entries[0][1]
+        self._check_panel_fit(panels[0][0], len(panels), "prefix-cache")
+
+    def _wake_loop(self):
+        """Nudge an idle-blocked serve loop."""
+        try:
+            self._q.put_nowait(_Wake())
+        except queue.Full:
+            pass
+
     def migrate_out(self, future, timeout=30.0):
-        raise _not_ported("migrate_out (durable KV state)", 4)
+        """Export the live decode-phase request of `future` as a
+        RequestArtifact and drop it here: the serve thread extracts it
+        between iterations, releases its blocks and fails `future` with
+        RequestMigratedError. The importing server's `migrate_in` future
+        carries the stream on."""
+        if not self._paged:
+            raise ValueError("migrate_out requires paged=True")
+        if not self._running:
+            raise ServerClosedError("server is not running")
+        reply = cf.Future()
+        self._migrate_cmds.append((future, reply))
+        self._wake_loop()
+        return reply.result(timeout)
+
+    def _service_migrations(self):
+        while self._migrate_cmds:
+            fut, reply = self._migrate_cmds.popleft()
+            try:
+                art = self._migrate_out_now(fut)
+            except BaseException as e:  # noqa: BLE001 - reply carries it
+                reply.set_exception(e)
+            else:
+                reply.set_result(art)
+
+    def _service_prefix_ops(self):
+        """The serve thread's half of prefix_export / prefix_adopt, at
+        most `_PREFIX_IO_BUDGET` artifact bytes an iteration (at least one
+        command)."""
+        spent = 0
+        while self._prefix_cmds and (
+                spent == 0 or spent < self._prefix_io_budget):
+            verb, arg, max_bytes, reply = self._prefix_cmds.popleft()
+            try:
+                if verb == "export":
+                    out = self._prefix_export_now(arg, max_bytes)
+                    spent += out.nbytes if out is not None else 0
+                else:
+                    spent += arg.nbytes
+                    out = self._prefix_adopt_now(arg)
+            except BaseException as e:  # noqa: BLE001 - reply carries it
+                if not reply.done():
+                    reply.set_exception(e)
+            else:
+                if not reply.done():
+                    reply.set_result(out)
+
+    def _mark_migrate_out(self, r):
+        tr = self._tracer
+        if tr.enabled:
+            tr.instant("serve.migrate_out", cat="serve",
+                       track=f"req-{r.req_id}", trace_id=r.req_id,
+                       origin=self.instance)
+
+    def _migrate_out_now(self, fut):
+        for s, r in enumerate(self._slot_req):
+            if r is None or r.future is not fut:
+                continue
+            if r.pf_next is not None:
+                raise KVStateError(
+                    "request is still in chunked prefill; only "
+                    "decode-phase requests are migratable")
+            art = self._extract_artifact(s)
+            _fail_future(r.future, RequestMigratedError(
+                "request exported to another server"))
+            self._free_slot(s)
+            self._gc_versions()
+            self.metrics.count("migrated_out")
+            self._mark_migrate_out(r)
+            return art
+        for r in list(self._resume_q):
+            if r.future is fut and r.artifact is not None:
+                self._resume_q.remove(r)
+                art = r.artifact
+                r.artifact = None
+                _fail_future(r.future, RequestMigratedError(
+                    "request exported to another server"))
+                self.metrics.count("migrated_out")
+                self._mark_migrate_out(r)
+                return art
+        raise KVStateError(
+            "request not found in a decode slot (completed, failed, "
+            "still queued, or never admitted here)")
 
     def migrate_in(self, artifact, deadline_ms=None):
-        raise _not_ported("migrate_in (durable KV state)", 4)
+        """Adopt another server's RequestArtifact; the Future resolves to
+        the full token list (prompt and every generated token). The tag
+        must be this server's newest version's (KVStateVersionError),
+        checked here and again at admission; the request parks on the
+        resume line until blocks and a slot free up."""
+        if not self._paged:
+            raise ValueError("migrate_in requires paged=True")
+        if not self._running:
+            raise ServerClosedError("server is not running")
+        art = artifact
+        with self._swap_lock:
+            vidx = len(self._versions) - 1
+        art.require_tag(self._version_tag(vidx), what="migrated request")
+        self._check_artifact(art)
+        need = self._pool.blocks_needed(len(art.prompt) + art.max_new - 1)
+        if need > self._n_blocks or need > self._nb_slot:
+            self.metrics.count("shed_blocks")
+            raise ServerOverloadedError(
+                f"migrated request needs {need} KV blocks but the "
+                f"server holds {min(self._n_blocks, self._nb_slot)} "
+                f"(pool / per-slot table)")
+        self._shed_if_lines_full()
+        self.metrics.count("received")
+        now = time.monotonic()
+        if deadline_ms is not None:
+            dl = now + deadline_ms / 1e3
+        else:
+            dl = (now + self.default_deadline
+                  if self.default_deadline is not None else None)
+        req = _DecodeRequest(list(art.prompt), art.max_new, dl,
+                             klass=art.klass)
+        req.generated = list(art.generated)
+        ctx = art.trace or {}
+        # a named origin's string id continues its trace lane here; an
+        # unnamed origin's integer id could collide with ours
+        req.req_id = (ctx["trace_id"] if isinstance(ctx.get("trace_id"),
+                                                      str)
+                      else next(self._req_ids))
+        req.migrated = True
+        if art.remaining <= 0:
+            req.future.set_result(list(art.prompt) + req.generated)
+            return req.future
+        req.artifact = art
+        req.work_left = art.remaining + 1   # tokens + the re-install unit
+        with self._work_lock:
+            self._work_tokens += req.work_left
+            req.work_counted = True
+        req.future.add_done_callback(
+            lambda _f, r=req: self._retire_work(r))
+        self._migrate_in_q.append(req)
+        self._wake_loop()
+        tr = self._tracer
+        if tr.enabled:
+            kw = {"trace_id": req.req_id}
+            if ctx.get("origin") is not None:
+                kw["migrated_from"] = ctx["origin"]
+            tr.instant("serve.migrate_in", cat="serve",
+                       track=f"req-{req.req_id}", **kw)
+            tr.instant("serve.enqueue", cat="serve",
+                       track=f"req-{req.req_id}", trace_id=req.req_id)
+        if not self._running:
+            _fail_future(req.future, ServerClosedError(
+                "server stopped during migrate_in"))
+            raise ServerClosedError("server stopped during migrate_in")
+        return req.future
+
+    def _install_panel(self, ids, panels, length, shared_len):
+        """Install host panel rows [shared_len, length) through block
+        table `ids` with the prefill's install program: one host-to-device
+        copy of every layer's rows."""
+        tab = np.zeros((self._nb_slot,), np.int64)
+        tab[:len(ids)] = ids
+        flat = [a for kv in panels for a in kv]
+        host = (torch.stack(flat) if isinstance(flat[0], torch.Tensor)
+                else torch.from_numpy(np.stack(flat)))
+        dev = host.to(self.device)[:, None]                 # [2L, 1, R]
+        self._paged_install(self._cache,
+                            [(dev[i], dev[i + 1])
+                             for i in range(0, len(flat), 2)],
+                            self._dev(tab), int(length), int(shared_len))
+
+    def _count_restore_hits(self, alloc):
+        """Shared prefix blocks of this admission that a restored
+        snapshot brought back (`prefix_restore_hits`)."""
+        if not self._pool.restored:
+            return
+        hits = sum(1 for b in alloc.ids[:alloc.n_shared]
+                   if b in self._pool.restored)
+        if hits:
+            self.metrics.count("prefix_restore_hits", hits)
+
+    def _admit_restored(self, req, slot, alloc, vidx):
+        """Install a spilled or migrated request into `slot` from its
+        artifact: table, position and one install of the rows the prefix
+        match did not make resident. A partial shared tail block takes its
+        reserved CoW spare first (installing into the shared block would
+        overwrite the cached owner's rows); the artifact carries every row
+        of that block, so no device copy is needed."""
+        art = req.artifact
+        pos = art.pos
+        if alloc.cow is not None:
+            self._pool.cow(alloc)
+        resident = alloc.n_shared * self._block_size
+        self._btabs[slot, :] = 0
+        self._btabs[slot, :len(alloc.ids)] = alloc.ids
+        req.alloc = alloc
+        with self._tracer.span("decode.restore", cat="serve",
+                               track="server", trace_id=req.req_id,
+                               slot=slot, rows=pos, shared=resident):
+            self._install_panel(alloc.ids, art.panels, pos, resident)
+        # the rows are filled only now: only now may they be matched
+        self._pool.commit(alloc)
+        self._count_restore_hits(alloc)
+        self._spend_work(req)           # the install unit
+        self._pos[slot] = pos
+        self._tok[slot] = req.generated[-1]
+        req.pf_next = None
+        req.slot = slot
+        req.version = vidx
+        req.artifact = None
+        req.progress_base = len(req.generated)
+        req.t_last_tok = time.monotonic()
+        self._slot_req[slot] = req
+        if self._spec is not None:
+            self._spec.draft.start(slot, list(req.prompt) + req.generated)
+        self.metrics.count("migrated" if req.migrated else "resumed")
+
+    def _admit_resume(self, slot):
+        """Serve the resume line into `slot`, ahead of every queue. A head
+        that cannot get its blocks leaves admission open for queue work
+        and retries next iteration. True when the slot was filled."""
+        while self._resume_q:
+            req = self._resume_q[0]
+            if req.future.done():
+                self._resume_q.popleft()
+                continue
+            now = time.monotonic()
+            if req.deadline is not None and now > req.deadline:
+                self._resume_q.popleft()
+                if _fail_future(req.future, DeadlineExceededError(
+                        "deadline expired on the resume line")):
+                    self._deadline_miss(req, now)
+                continue
+            art = req.artifact
+            if req.version is not None:
+                vidx = req.version      # preempted here: its own version
+            else:
+                with self._swap_lock:   # migrated in: the newest
+                    vidx = len(self._versions) - 1
+                try:
+                    art.require_tag(self._version_tag(vidx),
+                                    what="migrated request")
+                except KVStateVersionError as e:
+                    self._resume_q.popleft()
+                    if _fail_future(req.future, e):
+                        self.metrics.count("failed")
+                    continue
+            alloc = self._pool.admit(
+                req.prompt, len(req.prompt) + req.max_new - 1,
+                will_append=True, tag=vidx)
+            if alloc is None:
+                if not req.mem_blocked:
+                    req.mem_blocked = True
+                    self.metrics.count("blocked_on_memory")
+                return False
+            self._resume_q.popleft()
+            try:
+                self._admit_restored(req, slot, alloc, vidx)
+            except BaseException as e:  # noqa: BLE001 - fail THIS request
+                self._pool.release(alloc)
+                _fail_future(req.future, e)
+                self.metrics.count("failed")
+                continue
+            return True
+        return False
+
+    def _prefix_path(self, path):
+        """The snapshot path of a save or restore, on a stopped server."""
+        if not (self._paged and self._prefix_cache):
+            raise ValueError("no paged prefix cache to save or restore")
+        if self._running or (self._thread is not None
+                             and self._thread.is_alive()):
+            raise KVStateError("the prefix cache is saved and restored on "
+                               "a stopped server (the serve thread owns "
+                               "the arena while running)")
+        path = path if path is not None else self._prefix_dir
+        if path is None:
+            raise ValueError("no path: pass one or construct with "
+                             "prefix_cache_dir=")
+        return path
 
     def save_prefix_cache(self, path=None):
-        raise _not_ported("save_prefix_cache (durable KV state)", 4)
+        """Save the pool's cached prefix blocks indexed under the newest
+        version as a PrefixCacheArtifact (a stopped server; stop() calls
+        it with `prefix_cache_dir=`). Returns the path, or None when there
+        is nothing to save; then a stale snapshot at the server's own
+        directory is removed (an explicitly passed foreign path never
+        is)."""
+        path = self._prefix_path(path)
+        with self._swap_lock:
+            vidx = len(self._versions) - 1
+        entries = self._pool.cached_entries(tag=vidx)
+        if not entries:
+            own = (self._prefix_dir is not None
+                   and os.path.abspath(path)
+                   == os.path.abspath(self._prefix_dir))
+            if own and artifact_kind(path) == "prefix_cache":
+                shutil.rmtree(path, ignore_errors=True)
+            return None
+        tag = self._version_tag(vidx)
+        panels = self._gather_blocks([bid for bid, _ in entries])
+        art = PrefixCacheArtifact(
+            tag, self._block_size,
+            [(prefix, p) for (_, prefix), p in zip(entries, panels)])
+        self.metrics.count("spill_bytes", art.nbytes)
+        out = art.save(path)
+        log.info("saved %d prefix-cache blocks (%d bytes) under tag %s "
+                 "at %s", len(entries), art.nbytes, tag, out)
+        return out
+
+    def _adopt_entries(self, art, vidx):
+        """Give each entry of a PrefixCacheArtifact a block (parent
+        first; a full pool adopts a prefix of the chain) and install the
+        rows, `max_blocks_per_slot` blocks an install. Returns the
+        adopted (block id, panels)."""
+        if art.entries:
+            self._check_artifact_panels(art)
+        adopted = []
+        for prefix, panels in art.entries:
+            bid = self._pool.adopt((vidx, prefix))
+            if bid is not None:
+                adopted.append((bid, panels))
+        bs = self._block_size
+        for at in range(0, len(adopted), self._nb_slot):
+            group = adopted[at:at + self._nb_slot]
+            rows = [tuple(_cat([p[li][j] for _, p in group])
+                          for j in (0, 1))
+                    for li in range(self._n_layers)]
+            self._install_panel([bid for bid, _ in group], rows,
+                                len(group) * bs, 0)
+        return adopted
 
     def restore_prefix_cache(self, path=None):
-        raise _not_ported("restore_prefix_cache (durable KV state)", 4)
+        """Adopt a saved PrefixCacheArtifact into the pool of a stopped
+        server (the constructor calls it). The tag is checked first
+        (KVStateVersionError, nothing adopted). Returns the number of
+        blocks restored."""
+        path = self._prefix_path(path)
+        art = PrefixCacheArtifact.load(path)
+        with self._swap_lock:
+            vidx = len(self._versions) - 1
+        art.require_tag(self._version_tag(vidx),
+                        what="prefix-cache snapshot")
+        adopted = self._adopt_entries(art, vidx)
+        if adopted:
+            log.info("restored %d prefix-cache blocks under tag %s",
+                     len(adopted), art.tag)
+        return len(adopted)
 
     def prefix_export(self, key, max_bytes=None, timeout=30.0):
-        raise _not_ported("prefix_export (durable KV state)", 4)
+        """Export the resident prefix chain covering `key` (leading
+        block-aligned prompt tokens) under the newest version's tag, on a
+        running server (the serve thread gathers between iterations); the
+        blocks stay resident. `max_bytes` truncates the chain parent
+        first. None when nothing covers `key`."""
+        if not (self._paged and self._prefix_cache):
+            raise ValueError("prefix_export requires paged=True with "
+                             "prefix_cache=True")
+        if not self._running:
+            raise ServerClosedError("server is not running")
+        reply = cf.Future()
+        self._prefix_cmds.append(("export", tuple(key), max_bytes, reply))
+        self._wake_loop()
+        return reply.result(timeout)
 
     def prefix_adopt(self, artifact, timeout=30.0):
-        raise _not_ported("prefix_adopt (durable KV state)", 4)
+        """Adopt a peer's exported prefix chain into the running pool;
+        the tag is checked first (KVStateVersionError, counted
+        `prefix_pull_refused`). Never evicts resident state. Returns the
+        number of blocks adopted (`prefix_pull_hits`,
+        `prefix_pull_bytes`)."""
+        if not (self._paged and self._prefix_cache):
+            raise ValueError("prefix_adopt requires paged=True with "
+                             "prefix_cache=True")
+        if not self._running:
+            raise ServerClosedError("server is not running")
+        reply = cf.Future()
+        self._prefix_cmds.append(("adopt", artifact, None, reply))
+        self._wake_loop()
+        return reply.result(timeout)
+
+    def _prefix_export_now(self, key, max_bytes):
+        with self._swap_lock:
+            vidx = len(self._versions) - 1
+        chain = self._pool.indexed_chain(key, tag=vidx)
+        if max_bytes is not None and chain:
+            # a fixed payload per block: truncate before extracting
+            per_block = (2 * self._n_layers * self._block_size
+                         * self._d_model
+                         * torch.finfo(self._cache_dtype).bits // 8)
+            chain = chain[:int(max_bytes) // per_block]
+        if not chain:
+            return None
+        panels = self._gather_blocks([bid for bid, _ in chain])
+        return PrefixCacheArtifact(
+            self._version_tag(vidx), self._block_size,
+            [(prefix, p) for (_, prefix), p in zip(chain, panels)])
+
+    def _prefix_adopt_now(self, art):
+        with self._swap_lock:
+            vidx = len(self._versions) - 1
+        try:
+            art.require_tag(self._version_tag(vidx),
+                            what="pulled prefix blocks")
+        except KVStateVersionError:
+            self.metrics.count("prefix_pull_refused")
+            raise
+        adopted = self._adopt_entries(art, vidx)
+        if adopted:
+            self.metrics.count("prefix_pull_hits", len(adopted))
+            self.metrics.count("prefix_pull_bytes",
+                               sum(int(a.nbytes) for _, p in adopted
+                                   for kv in p for a in kv))
+        return len(adopted)
 
     # -- scheduler internals -------------------------------------------
     def _complete(self, req, t_now):
@@ -690,6 +1387,9 @@ class ContinuousDecodeServer(_RequestLoop):
         # tok is HOST state uploaded per dispatch (like active/btabs)
         self._tok = np.zeros((self.slots,), np.int64)
         self._slot_req = [None] * self.slots     # host-side occupancy
+        if self._spec is not None:
+            for s in range(self.slots):
+                self._spec.draft.stop(s)
 
     def _dev(self, a):
         """A host array as a tensor on the server's device."""
@@ -787,6 +1487,9 @@ class ContinuousDecodeServer(_RequestLoop):
         req.slot = slot
         req.version = vidx
         self._slot_req[slot] = req
+        if self._spec is not None:
+            # the draft stream is keyed by slot: the context so far
+            self._spec.draft.start(slot, list(req.prompt) + req.generated)
 
     def _admit_chunked(self, req, slot, alloc, vidx):
         """Install `req` into `slot` in the PREFILL phase: table and
@@ -876,11 +1579,15 @@ class ContinuousDecodeServer(_RequestLoop):
         return r
 
     def _admit_pending(self, timeout=0.0):
-        """Fill free slots from the lines. `timeout` blocks on the FIRST
-        get only (the idle wait). Paged mode adds the MEMORY gate: a
-        request that cannot get its blocks parks at the head of the line
-        (`blocked_on_memory` counted once) and admission stops until
-        completions free blocks."""
+        """Fill free slots: the resume line first (paged), then the lines.
+        `timeout` blocks on the FIRST get only (the idle wait). Paged mode
+        adds the MEMORY gate: a request that cannot get its blocks parks
+        at the head of the line (`blocked_on_memory` counted once) and
+        admission stops until completions free blocks; with
+        `preempt=True` it first spills victims its class outranks, and the
+        gate scans on past it (a claimant behind a blocked lower-class
+        head must reach its preemption), re-parking the blocked requests
+        at the front in arrival order."""
         if not self._running and not self._drain_on_stop:
             # fail-fast stop: never admit queued requests into freed
             # slots; parked lines count as _busy() and fail here
@@ -889,10 +1596,17 @@ class ContinuousDecodeServer(_RequestLoop):
         free = [s for s in range(self.slots) if self._slot_req[s] is None]
         if self._static and len(free) < self.slots:
             return      # gang scheduling: wait for the whole batch
+        if self._preempt_on and self._gate_key is not None \
+                and self._gate_key == self._gate_signature():
+            return      # nothing the last fruitless scan read has moved
         wait = float(timeout)
         blocked = []
+        admitted = False
         try:
             for s in free:
+                if self._paged and self._admit_resume(s):
+                    admitted = True
+                    continue
                 req, alloc, version = None, None, None
                 while req is None:
                     req = self._next_request(wait)
@@ -915,15 +1629,21 @@ class ContinuousDecodeServer(_RequestLoop):
                             vidx = len(self._versions) - 1
                             aux, blocks = self._versions[vidx]
                         version = (vidx, aux, blocks)
+                        need = (req.prompt, len(req.prompt) + req.max_new - 1)
                         alloc = self._pool.admit(
-                            req.prompt, len(req.prompt) + req.max_new - 1,
-                            will_append=req.max_new > 1, tag=vidx)
+                            *need, will_append=req.max_new > 1, tag=vidx)
+                        while alloc is None and self._try_preempt_for(req):
+                            alloc = self._pool.admit(
+                                *need, will_append=req.max_new > 1,
+                                tag=vidx)
                         if alloc is None:
                             if not req.mem_blocked:
                                 req.mem_blocked = True
                                 self.metrics.count("blocked_on_memory")
                             blocked.append(req)
-                            return      # FIFO gate: stop admission
+                            if not self._preempt_on:
+                                return      # FIFO gate: stop admission
+                            req = None      # preempting gate: scan on
                 try:
                     self._admit(req, s, alloc, version=version)
                 except BaseException as e:  # noqa: BLE001 - fail THIS
@@ -932,12 +1652,19 @@ class ContinuousDecodeServer(_RequestLoop):
                     _fail_future(req.future, e)
                     self.metrics.count("failed")
                 else:
+                    admitted = True
+                    if alloc is not None:
+                        self._count_restore_hits(alloc)
                     if req.prio_overtook:
                         req.prio_overtook = False
                         self.metrics.count("admitted_prefix_priority")
         finally:
             if blocked:
                 self._mem_wait.extendleft(reversed(blocked))
+            if self._preempt_on:
+                # arm the rescan guard only after a fully blocked scan
+                self._gate_key = (self._gate_signature()
+                                  if blocked and not admitted else None)
 
     def _free_slot(self, slot):
         """Release `slot`'s host-side occupancy (paged: its blocks back to
@@ -949,6 +1676,8 @@ class ContinuousDecodeServer(_RequestLoop):
             self._pool.release(req.alloc)
             req.alloc = None
             self._btabs[slot, :] = 0
+        if self._spec is not None:
+            self._spec.draft.stop(slot)
 
     def _sweep_line(self, dq, msg, now, thrash=True):
         """The deadline sweep for every parked FIFO line: fail expired
@@ -980,6 +1709,8 @@ class ContinuousDecodeServer(_RequestLoop):
         self._sweep_line(self._defer_q,
                          "deadline expired while brownout-deferred",
                          now, thrash=False)
+        self._sweep_line(self._resume_q,
+                         "deadline expired on the resume line", now)
         evicted = False
         for s, r in enumerate(self._slot_req):
             if r is None or r.deadline is None or now <= r.deadline:
@@ -1013,8 +1744,10 @@ class ContinuousDecodeServer(_RequestLoop):
 
     def _fail_parked(self, exc):
         """Fail everything parked outside the submit queue (the memory,
-        priority and deferred lines)."""
-        for dq in (self._mem_wait, self._prio_q, self._defer_q):
+        priority, deferred, resume and migrate-in lines) and every pending
+        durable-KV command."""
+        for dq in (self._mem_wait, self._prio_q, self._defer_q,
+                   self._resume_q, self._migrate_in_q):
             while dq:
                 try:
                     r = dq.popleft()
@@ -1022,6 +1755,14 @@ class ContinuousDecodeServer(_RequestLoop):
                     break
                 if _fail_future(r.future, exc):
                     self.metrics.count("failed")
+        for dq in (self._migrate_cmds, self._prefix_cmds):
+            while dq:
+                try:
+                    reply = dq.popleft()[-1]
+                except IndexError:
+                    break
+                if not reply.done():
+                    reply.set_exception(exc)
 
     def _fail_queued(self, exc):
         self._fail_parked(exc)
@@ -1126,6 +1867,8 @@ class ContinuousDecodeServer(_RequestLoop):
                     done_any = True
                     continue
                 self._tok[s] = first
+                if self._spec is not None:
+                    self._spec.draft.start(s, list(r.prompt) + r.generated)
         if done_any:
             self._gc_versions()
 
@@ -1289,6 +2032,8 @@ class ContinuousDecodeServer(_RequestLoop):
             self._observe_rate(0, time.monotonic() - t_iter_start, 0)
             self._after_iteration()
             return True
+        if self._spec is not None:
+            return self._spec_iteration(dec, t_iter_start)
         if self._fused > 1 and self._fused_window_ok(dec):
             return self._fused_iteration(dec, t_iter_start, n_occ)
         tr = self._tracer
@@ -1357,6 +2102,102 @@ class ContinuousDecodeServer(_RequestLoop):
         self._after_iteration()
         return True
 
+    def _spec_iteration(self, live, t_iter_start):
+        """One SPECULATIVE iteration over the decoding slots `live`: per
+        live version, each slot's draft (K-1 tokens, zero-padded: padding
+        costs acceptance, never correctness), ONE K-wide verify dispatch,
+        the argmax and acceptance counts to the host in one copy, and each
+        slot advanced by its accepted count plus the bonus token, capped
+        at its budget. Paged: the table and each slot's reserved row bound
+        `wto` ride in like tok/active, and a pending CoW materializes
+        first (the K-wide write starts inside a still-shared block)."""
+        tr = self._tracer
+        t_iter0 = time.monotonic_ns() if tr.enabled else None
+        n_accepted = 0
+        K = self._spec.k
+        draft = self._spec.draft
+        d0 = getattr(draft, "dispatch_count", 0)
+        if self._paged:
+            self._materialize_cow(live)
+            self.metrics.record_pool(self._pool.blocks_in_use,
+                                     self._pool.capacity)
+        done_any = False
+        for v in sorted({r.version for _, r in live}):
+            live_v = [(s, r) for s, r in live if r.version == v]
+            active = np.zeros((self.slots,), bool)
+            toks = np.zeros((self.slots, K), np.int64)
+            wto = np.zeros((self.slots,), np.int64)
+            n_dr = {}
+            for s, r in live_v:
+                active[s] = True
+                if self._paged:
+                    wto[s] = self._pool.writable_rows(r.alloc)
+                # never draft past the remaining budget
+                n_want = r.max_new - len(r.generated)
+                dr = list(draft.propose(
+                    s, min(K - 1, n_want - 1)))[:K - 1]
+                n_dr[s] = len(dr)
+                toks[s, :1 + len(dr)] = [r.generated[-1]] + dr
+            aux, blocks = self._versions[v]
+
+            def dispatch():
+                if self._injector is not None:
+                    self._injector.fire("serve.batch")
+                if self._paged:
+                    return self._verify(
+                        aux, blocks, self._cache, self._dev(self._btabs),
+                        self._pos, self._dev(toks), self._dev(active),
+                        self._dev(wto))
+                return self._verify(aux, blocks, self._cache, self._pos,
+                                    self._dev(toks), self._dev(active))
+
+            with tr.span("decode.verify", cat="serve", track="server",
+                         version=v, k=K):
+                nxt, n_acc, _, _, self._pos = self._call(dispatch)
+            self.metrics.count("dispatches")
+            host = torch.cat([n_acc[:, None], nxt], 1).cpu().numpy()
+            t_now = time.monotonic()
+            for s, r in live_v:
+                want = r.max_new - len(r.generated)
+                take = min(int(host[s, 0]) + 1, want)
+                acc = [int(t) for t in host[s, 1:1 + take]]
+                r.generated.extend(acc)
+                # `take` tokens land at once: the per-token stream rate
+                if take and r.t_last_tok is not None:
+                    self.metrics.record_inter_token(
+                        (t_now - r.t_last_tok) * 1e3 / take)
+                r.t_last_tok = t_now
+                n_accepted += take
+                self.metrics.count("tokens_out", take)
+                self._spend_work(r, take)
+                # drafted: real draft tokens, not padding; matched capped
+                self.metrics.record_speculation(
+                    take, n_dr[s], min(int(host[s, 0]), take, n_dr[s]))
+                if len(r.generated) >= r.max_new:
+                    self._complete(r, t_now)
+                    self._free_slot(s)
+                    done_any = True
+                else:
+                    draft.observe(s, acc)
+        dd = getattr(draft, "dispatch_count", 0) - d0
+        if dd:
+            # a ModelDraft's own dispatches (an NGramDraft has none)
+            self.metrics.count("draft_dispatches", dd)
+        if t_iter0 is not None:
+            tr.emit("decode.iteration", t_iter0,
+                    time.monotonic_ns() - t_iter0, cat="serve",
+                    track="server",
+                    args={"slot_occupancy": len(live) / self.slots,
+                          "accepted": n_accepted,
+                          "draft_dispatches": dd})
+        self.metrics.count("decode_iterations")
+        self._observe_rate(n_accepted, time.monotonic() - t_iter_start,
+                           len(live))
+        if done_any:
+            self._gc_versions()
+        self._after_iteration()
+        return True
+
     def _after_iteration(self):
         self.metrics.count("batches")       # decode iterations
         if self._reporter is not None and \
@@ -1369,6 +2210,10 @@ class ContinuousDecodeServer(_RequestLoop):
         (indices stay stable: only versions below the newest go)."""
         with self._swap_lock:
             in_use = {r.version for r in self._slot_req if r is not None}
+            # a preempted request's version stays while it parks (a
+            # migrated-in one has none: it binds the newest at admission)
+            in_use.update(r.version for r in self._resume_q
+                          if r.version is not None)
             newest = len(self._versions) - 1
             for v in range(newest):
                 if v not in in_use and self._versions[v] is not None:
@@ -1378,13 +2223,22 @@ class ContinuousDecodeServer(_RequestLoop):
     def _busy(self):
         return any(r is not None for r in self._slot_req) \
             or bool(self._mem_wait) or bool(self._prio_q) \
-            or bool(self._defer_q)
+            or bool(self._defer_q) or bool(self._resume_q) \
+            or bool(self._migrate_in_q) or bool(self._migrate_cmds) \
+            or bool(self._prefix_cmds)
 
     def _loop_once(self):
         with torch.no_grad(), card_numerics(self.device, self._cache_dtype):
             self._schedule_once()
 
     def _schedule_once(self):
+        if self._paged:
+            # migrate-in staging joins the serve thread's resume line;
+            # then the export and prefix commands, before the sweep
+            while self._migrate_in_q:
+                self._resume_q.append(self._migrate_in_q.popleft())
+            self._service_migrations()
+            self._service_prefix_ops()
         # evict deadline-expired slots FIRST so the admit below can refill
         # them in the same iteration
         self._evict_expired()

@@ -3,7 +3,12 @@ request's KV block set, three production scenarios.
 
 The port's copy of deeplearning4j_tpu/serving/kvstate.py (stdlib and numpy), held
 against it by tests/test_torch_serving_stdlib.py; the text below is the
-reference's.
+reference's. One difference: numpy has no bfloat16 of its own (the
+reference's comes from `ml_dtypes`, which the port never imports), so a
+bf16 panel is a CPU `torch.bfloat16` tensor here. It is written as its
+raw 2-byte words under the dtype name "bfloat16", byte for byte what the
+reference writes, and read back as int16 words viewed as bfloat16. Every
+other dtype stays a numpy array.
 
 A slot's KV state — its blocks in the arena, its position, its block
 table — has always been trapped in the server process: blocks die with
@@ -109,6 +114,36 @@ def _panels_nbytes(panels):
     return sum(int(a.nbytes) for kv in panels for a in kv)
 
 
+def _host_array(a):
+    """One panel array in the port's host form: a numpy array, or a CPU
+    torch.bfloat16 tensor for bf16 (from a torch tensor, or from a numpy
+    array whose dtype is named "bfloat16", as `ml_dtypes` makes them)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return a.contiguous()
+        return a.numpy()
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        words = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(words).view(torch.bfloat16)
+    return a
+
+
+def _dtype_name(a):
+    """The dtype name the manifest records ("float32", "bfloat16", ...)."""
+    return str(a.dtype).rsplit(".", 1)[-1]
+
+
+def _raw_bytes(a):
+    """The array's bytes in C order (a bf16 tensor's 2-byte words)."""
+    if isinstance(a, np.ndarray):
+        return a.tobytes()
+    import torch
+    return a.view(torch.int16).numpy().tobytes()
+
+
 def _check_panels(panels):
     """Normalize one panel set: per layer a (k, v) pair of equal-shape
     [rows, H, hd] float arrays, UNIFORM across layers — a later layer
@@ -117,8 +152,8 @@ def _check_panels(panels):
     out = []
     for kv in panels:
         k, v = kv
-        k = np.asarray(k)
-        v = np.asarray(v)
+        k = _host_array(k)
+        v = _host_array(v)
         if k.shape != v.shape or k.dtype != v.dtype or k.ndim != 3:
             raise KVStateError(
                 f"malformed KV panel: k {k.shape}/{k.dtype} vs "
@@ -145,15 +180,16 @@ def _serialize_arrays(arrays):
     multi-GB prefix-cache save must never transiently double its
     footprint) — same bytes either way, so the wire and disk
     serializers structurally cannot drift."""
-    norm = [np.ascontiguousarray(a) for a in arrays]
+    norm = [a if not isinstance(a, np.ndarray)
+            else np.ascontiguousarray(a) for a in arrays]
     descs, off = [], 0
     for a in norm:
-        descs.append({"dtype": str(a.dtype),
+        descs.append({"dtype": _dtype_name(a),
                       "shape": list(a.shape),
                       "offset": off,
                       "nbytes": int(a.nbytes)})
         off += int(a.nbytes)
-    return descs, (a.tobytes() for a in norm)
+    return descs, (_raw_bytes(a) for a in norm)
 
 
 def _deserialize_arrays(manifest, raw):
@@ -167,11 +203,16 @@ def _deserialize_arrays(manifest, raw):
     arrays = []
     try:
         for d in manifest["arrays"]:
-            a = np.frombuffer(raw, dtype=np.dtype(d["dtype"]),
+            bf16 = d["dtype"] == "bfloat16"
+            a = np.frombuffer(raw, dtype=(np.int16 if bf16
+                                          else np.dtype(d["dtype"])),
                               count=int(np.prod(d["shape"],
                                                 dtype=np.int64))
                               if d["shape"] else 1,
                               offset=d["offset"]).reshape(d["shape"])
+            if bf16:
+                import torch
+                a = torch.from_numpy(a.copy()).view(torch.bfloat16)
             arrays.append(a)
     except (ValueError, TypeError) as e:
         raise KVStateError(f"corrupt artifact payload: {e}") from e

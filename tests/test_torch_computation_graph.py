@@ -290,8 +290,6 @@ def test_resnet50_parameters_at_full_depth(J):
     assert got == want
     assert all(p.dtype == torch.float32 for p in net.parameters())
     assert sum(int(np.prod(s)) for *_, s in want) == net.num_params()
-    with pytest.raises(NotImplementedError, match="remat_segments"):
-        TR.resnet50(device="cpu", remat=True)
 
 
 # ---------------------------------------------------------------------------

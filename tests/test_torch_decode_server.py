@@ -11,9 +11,9 @@ Two parts:
     without speculation, tests/test_overload.py without
     `test_chunked_composes_with_speculate`, and tests/test_fused_serve.py.
     Their bodies are the reference's, run against the port's classes;
-    the speculative cases are replaced by checks that speculation and
-    the other deferred options raise NotImplementedError naming their
-    ROADMAP.md item.
+    the speculative ones are in tests/test_torch_speculative.py, and the
+    fleet verbs still raise NotImplementedError naming their ROADMAP.md
+    item.
 
 Tests marked `gpu` run on the card and skip without one.
 """
@@ -143,23 +143,8 @@ def test_streams_equal_jax_server(jax_streams, mode):
 # ---------------------------------------------------------------------------
 # deferred options
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("kw, item", [
-    (dict(speculate=object()), 3),
-    (dict(paged=True, preempt=True), 4),
-    (dict(paged=True, prefix_cache_dir="x"), 4),
-])
-def test_deferred_options_raise_naming_their_item(kw, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
-        ContinuousDecodeServer(_lm(), prompt_buckets=(8,), **kw)
-
-
-@pytest.mark.parametrize("verb, args, item", [
-    ("kill", (), 6), ("drain", (), 6), ("migrate_out", (None,), 4),
-    ("migrate_in", (None,), 4), ("save_prefix_cache", (), 4),
-    ("restore_prefix_cache", (), 4), ("prefix_export", ("k",), 4),
-    ("prefix_adopt", (None,), 4),
-])
+@pytest.mark.parametrize("verb, args, item", [("kill", (), 6),
+                                              ("drain", (), 6)])
 def test_deferred_verbs_raise_naming_their_item(verb, args, item):
     srv = ContinuousDecodeServer(_lm(), prompt_buckets=(8,), paged=True)
     with pytest.raises(NotImplementedError,
@@ -168,11 +153,12 @@ def test_deferred_verbs_raise_naming_their_item(verb, args, item):
 
 
 def test_fused_with_speculate_names_the_deferred_item():
-    """The reference refuses fused_serve with speculate= (a ValueError);
-    the port refuses speculate= itself, naming its item."""
-    with pytest.raises(NotImplementedError, match="item 3"):
+    """The reference's pin (tests/test_fused_serve.py): fused_serve > 1
+    with speculate= is refused at the constructor with a ValueError."""
+    from deeplearning4j_tpu_torch.serving import NGramDraft, Speculator
+    with pytest.raises(ValueError, match="does not compose"):
         ContinuousDecodeServer(_lm(), prompt_buckets=(8,), fused_serve=4,
-                               speculate=object())
+                               speculate=Speculator(NGramDraft(n=2), k=4))
 
 
 def test_swap_rejects_another_architecture():

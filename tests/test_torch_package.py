@@ -1,7 +1,9 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
 `chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py`,
-`chip_embeddings.py`, `chip_parallel.py` and `chip_fused.py` import neither
-JAX nor anything of the JAX package `deeplearning4j_tpu`, and importing the
+`chip_embeddings.py`, `chip_parallel.py`, `chip_fused.py` and
+`chip_spec_kv.py` import neither JAX, nor `ml_dtypes` (the card's machine
+has neither), nor anything of the JAX package `deeplearning4j_tpu`, and
+importing the
 port (its `models` package with the embeddings included, and the whole
 `parallel` package) builds no kernel, builds or loads no native library,
 starts no thread, opens no process group and needs no card. The names the port does
@@ -55,6 +57,7 @@ import deeplearning4j_tpu_torch.serving.decode
 import deeplearning4j_tpu_torch.serving.kvpool
 import deeplearning4j_tpu_torch.serving.admission
 import deeplearning4j_tpu_torch.serving.kvstate
+import deeplearning4j_tpu_torch.serving.speculate
 import deeplearning4j_tpu_torch.serving.loadgen
 import deeplearning4j_tpu_torch.datasets
 import deeplearning4j_tpu_torch.datasets.iterators
@@ -76,7 +79,8 @@ import deeplearning4j_tpu_torch.text
 from deeplearning4j_tpu_torch.common import native_ops
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
+                                       "deeplearning4j_tpu"))
 assert not leaked, leaked
 # no prefetch thread, server thread or kernel starts at import
 import threading
@@ -101,7 +105,7 @@ def test_port_imports_without_jax_in_a_fresh_process():
     assert out.stdout.strip() == "ok"
 
 
-_NAMES = r"(jax|jaxlib|deeplearning4j_tpu)\b(?!_torch)"
+_NAMES = r"(jax|jaxlib|ml_dtypes|deeplearning4j_tpu)\b(?!_torch)"
 _FORBIDDEN = re.compile(
     rf"^\s*(import|from)\s+{_NAMES}|import_module\(\s*['\"]{_NAMES}"
     rf"|__import__\(\s*['\"]{_NAMES}", re.M)
@@ -111,7 +115,7 @@ _FORBIDDEN = re.compile(
     [p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
        "chip_recurrent.py", "chip_embeddings.py", "chip_parallel.py",
-       "chip_fused.py"]))
+       "chip_fused.py", "chip_spec_kv.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
@@ -121,7 +125,8 @@ def test_forbidden_pattern_catches_what_it_should():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
                  "from deeplearning4j_tpu.ops import flash_attention",
                  "import deeplearning4j_tpu", "  from jaxlib import y",
-                 "importlib.import_module('jax')"):
+                 "importlib.import_module('jax')", "import ml_dtypes",
+                 "from ml_dtypes import bfloat16"):
         assert _FORBIDDEN.search(line), line
     for line in ("from deeplearning4j_tpu_torch.ops import flash_attention",
                  "import deeplearning4j_tpu_torch", "# no jax here",

@@ -171,16 +171,6 @@ def test_same_seed_same_weights_and_flash_equals_dense():
 def test_unported_paths_and_limits_raise():
     lm = TransformerLM(V, d_model=DM, n_heads=NH, n_layers=1,
                        max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        lm.generate([1], 2, draft=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        lm.generate_batch([[1]], 2, draft=object())
-    # a reference call with speculate_k reaches the same raise, not a
-    # TypeError
-    with pytest.raises(NotImplementedError, match="item 3"):
-        lm.generate([1], 2, draft=object(), speculate_k=4)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        lm.generate_batch([[1]], 2, draft=object(), speculate_k=4)
     with pytest.raises(ValueError, match="max_len"):
         lm.generate([1] * 10, 7, use_cache=True)
     with pytest.raises(ValueError, match="max_len"):
