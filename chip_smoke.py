@@ -802,6 +802,7 @@ def main():
     parallel = parallel_phase(fa, core["resnet50_bf16_full"])
     fused = fused_phase(fa)
     spec_kv = spec_kv_phase(fa)
+    fleet = fleet_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -835,6 +836,7 @@ def main():
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"fused": fused}))
     print(json.dumps({"spec_kv": spec_kv}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5623,6 +5625,696 @@ def spec_kv_phase(fa):
     print(f"  phase 27 launched no kernel of the port (the teaching steps "
           f"apart: {out['speculation']['teach_launches']}): {launched}; "
           f"{out['phase_s']:.1f} s ({out['sub_phase_s']})")
+    return out
+
+
+
+# Phase 28: the fleet and the wire on phase 22's model. Each replica is one
+# paged server of one configuration; chunked prefill (8 rows) gives the drain
+# a prefilling phase to hand off, and the prefix cache is off so that no
+# stream depends on what another request left resident.
+FLEET_SERVER = dict(paged=True, slots=16, block_size=16, n_blocks=2048,
+                    max_blocks_per_slot=16, prompt_buckets=(16, 64),
+                    chunked_prefill=8, prefix_cache=False)
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_LOAD, FLEET_SEED = 3, 96, 0.6, 28
+FLEET_PROCS = 2
+FLEET_HB_INTERVAL_S, FLEET_HB_TIMEOUT_S = 0.1, 5.0
+FLEET_PUBLISH_TIMEOUT_S = 180.0
+
+
+def _fleet_wait(pred, timeout, what):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise SystemExit(f"phase 28: never happened: {what}")
+        time.sleep(0.0005)
+
+
+def _fleet_factory(lm, made=None):
+    """factory(name) of the in-process fleet: one FLEET_SERVER replica."""
+    from deeplearning4j_tpu_torch.serving import (ContinuousDecodeServer,
+                                                  ServingMetrics)
+
+    def make(name):
+        srv = ContinuousDecodeServer(lm, metrics=ServingMetrics(name=name),
+                                     instance=name, **FLEET_SERVER)
+        if made is not None:
+            made[name] = srv
+        return srv
+    return make
+
+
+def _fleet_counts(servers):
+    """(dispatches, tokens_out) summed over `servers` (local or remote)."""
+    d = t = 0
+    for srv in servers:
+        snap = srv.metrics.kind_snapshot()
+        d += (snap.get("dispatches") or {}).get("value") or 0
+        t += (snap.get("tokens_out") or {}).get("value") or 0
+    return d, t
+
+
+def _fleet_run(target, sched, servers):
+    """run_load of `sched` through `target` (a FleetManager or a splitter):
+    tokens/s, dispatches per token over `servers`, every future and its
+    outcome keyed by schedule item."""
+    from deeplearning4j_tpu_torch.serving import run_load
+    futs = []
+    d0, t0 = _fleet_counts(servers)
+    res = run_load(target, sched, submit=_recording_submit(futs),
+                   metrics=getattr(target, "metrics", None),
+                   result_timeout=600)
+    d1, t1 = _fleet_counts(servers)
+    out = {"completed": res["completed"], "failed": res["failed"],
+           "shed_at_submit": res["shed_at_submit"],
+           "tokens_out": t1 - t0, "tokens_per_s": res["tokens_per_sec"],
+           "duration_s": res["duration_s"],
+           "latency_ms_p50": res["latency_ms"]["p50"],
+           "latency_ms_p99": res["latency_ms"]["p99"],
+           "dispatches": d1 - d0,
+           "dispatches_per_token": (d1 - d0) / max(1, t1 - t0),
+           "offered_rps": res["schedule"]["offered_rps"]}
+    return out, futs
+
+
+def _fleet_streams(futs):
+    return {id(item): f.result(0) for item, f in futs
+            if f.done() and not f.exception(0)}
+
+
+def _fleet_inprocess(lm):
+    """Phase 28(a). Returns (readings, manager, schedule, no-fault
+    streams); the manager keeps running for (b) and (c)."""
+    from deeplearning4j_tpu_torch.common.resilience import FaultInjector
+    from deeplearning4j_tpu_torch.serving import (ContinuousDecodeServer,
+                                                  FleetManager,
+                                                  PoissonProcess,
+                                                  RoundRobinSplitter,
+                                                  build_schedule)
+    out = {}
+    vocab = FULL["vocab_size"]
+    probe = ContinuousDecodeServer(lm, **FLEET_SERVER).start()
+    try:
+        _warm(probe)
+        step_ms, step_trace = _step_ms(probe)
+    finally:
+        probe.stop()
+    mean_new = sum(SPEC_NEW) / 2 - 0.5
+    capacity = FLEET_REPLICAS * FLEET_SERVER["slots"] / (step_ms / 1e3) \
+        / mean_new
+    rate = FLEET_LOAD * capacity
+    sched = build_schedule(PoissonProcess(rate), _CyclicMix(vocab),
+                           FLEET_REQUESTS, seed=FLEET_SEED)
+    out.update(step_ms=step_ms, step_trace=step_trace,
+               capacity_rps=capacity, rate_rps=rate)
+    print(f"  capacity from one replica's decode iteration "
+          f"({step_ms:.3f} ms, 16 slots): {capacity:.1f} requests/s for "
+          f"{FLEET_REPLICAS} replicas; offered {rate:.1f} requests/s "
+          f"(Poisson, {FLEET_REQUESTS} requests, 6-15 prompt tokens, "
+          f"16-139 new)")
+
+    # zero added dispatches: one request at a time, the fleet's
+    # round-robin router against the bare splitter, counters per replica
+    seq_prompts = [list(sched.items[i]["prompt"]) for i in range(6)]
+    made = {}
+    with FleetManager(_fleet_factory(lm, made), n_replicas=FLEET_REPLICAS,
+                      policy="round_robin", warmup=_warm) as rr:
+        base = {n: _fleet_counts([made[n]]) for n in rr.replicas}
+        seq_fleet = []
+        for p in seq_prompts:
+            seq_fleet.append(rr.generate(p, 48, timeout=600))
+            rr.fleet_snapshot()
+            rr.control_tick()
+        per_fleet = [tuple(a - b for a, b in zip(_fleet_counts([made[n]]),
+                                                 base[n]))
+                     for n in rr.replicas]
+    bare = [ContinuousDecodeServer(lm, **FLEET_SERVER).start()
+            for _ in range(FLEET_REPLICAS)]
+    try:
+        for srv in bare:
+            _warm(srv)
+        base = [_fleet_counts([s]) for s in bare]
+        split = RoundRobinSplitter(bare)
+        seq_bare = [split.submit(p, 48).result(600) for p in seq_prompts]
+        per_bare = [tuple(a - b for a, b in zip(_fleet_counts([s]), b0))
+                    for s, b0 in zip(bare, base)]
+        # the Poisson A/B arm: the same schedule through the bare servers
+        bare_run, bare_futs = _fleet_run(split, sched, bare)
+    finally:
+        for srv in bare:
+            srv.stop()
+    out["sequential_ab"] = {"fleet": per_fleet, "bare": per_bare,
+                            "streams_equal": seq_fleet == seq_bare}
+    print(f"  one request at a time, round robin: fleet (dispatches, "
+          f"tokens) per replica {per_fleet}, bare {per_bare}; streams "
+          f"equal {seq_fleet == seq_bare}")
+    if per_fleet != per_bare or seq_fleet != seq_bare:
+        raise SystemExit("phase 28(a): the fleet changed the dispatches or "
+                         "the streams of a sequential schedule")
+
+    # the least-backlog fleet on the Poisson schedule, then again with a
+    # replica killed mid-run
+    inj = FaultInjector()
+    mgr = FleetManager(_fleet_factory(lm, made), n_replicas=FLEET_REPLICAS,
+                       fault_injector=inj, warmup=_warm).start()
+    names0 = list(mgr.replicas)
+    fleet_run, fleet_futs = _fleet_run(mgr, sched, [made[n] for n in
+                                                    names0])
+    nofault = _fleet_streams(fleet_futs)
+    bare_streams = _fleet_streams(bare_futs)
+    same = sum(nofault.get(k) == v for k, v in bare_streams.items())
+    out["fleet"], out["bare"] = fleet_run, bare_run
+    out["fleet_over_bare_tokens_per_s"] = (fleet_run["tokens_per_s"]
+                                           / bare_run["tokens_per_s"])
+    out["streams_equal_fleet_vs_bare"] = [same, len(bare_streams)]
+    print(f"  Poisson A/B: fleet (least backlog) {fleet_run['tokens_per_s']}"
+          f" tokens/s, {fleet_run['dispatches_per_token']:.4f} dispatches/"
+          f"token, p99 {fleet_run['latency_ms_p99']} ms; bare round robin "
+          f"{bare_run['tokens_per_s']} tokens/s, "
+          f"{bare_run['dispatches_per_token']:.4f} dispatches/token, p99 "
+          f"{bare_run['latency_ms_p99']} ms; streams equal {same}/"
+          f"{len(bare_streams)}")
+    if fleet_run["failed"] or bare_run["failed"] or same != FLEET_REQUESTS:
+        raise SystemExit("phase 28(a): a request failed or a fleet stream "
+                         "differs from the bare servers'")
+
+    m = mgr.metrics
+    before = {k: m.count_value(k) for k in ("received", "completed",
+                                            "failed")}
+    futs = []
+    from deeplearning4j_tpu_torch.serving import run_load
+    done = threading.Event()
+    box = {}
+
+    def load():
+        try:
+            box["res"] = run_load(mgr, sched, submit=_recording_submit(futs),
+                                  result_timeout=600)
+        except BaseException as e:   # noqa: BLE001 - reported below
+            box["err"] = e
+        finally:
+            done.set()
+
+    # the sever lands on the first replica once it has decoded 256 tokens
+    # of this run
+    victim = mgr.replicas[0]
+    mark = made[victim].metrics.count_value("tokens_out") + 256
+    t = threading.Thread(target=load, name="fleet-load")
+    t.start()
+    _fleet_wait(lambda: made[victim].metrics.count_value("tokens_out")
+                >= mark, 120, "the victim decoding mid-run")
+    with mgr._lock:
+        aboard = [r.outer for r in mgr._live.values()
+                  if r.replica == victim]
+    inj.plan("fleet.replica", on_call=inj.calls("fleet.replica"),
+             sever=True, exc=None)
+    tick = mgr.control_tick()
+    t.join(600)
+    if "err" in box or not done.is_set():
+        raise SystemExit(f"phase 28(a): the crash run did not finish: "
+                         f"{box.get('err')!r}")
+    after = {k: m.count_value(k) for k in before}
+    delta = {k: after[k] - before[k] for k in before}
+    unresolved = sum(not f.done() for _, f in futs)
+    crash = _fleet_streams(futs)
+    differ = [k for k, v in crash.items() if nofault.get(k) != v]
+    # the requests aboard the killed replica, replayed: each against its
+    # prompt alone on a quiet replica of the same configuration
+    by_fut = {f: item for item, f in futs}
+    quiet = ContinuousDecodeServer(lm, **FLEET_SERVER).start()
+    try:
+        _warm(quiet)
+        replayed_equal = [
+            quiet.generate(list(by_fut[f]["prompt"]),
+                           by_fut[f]["max_new"], timeout=600)
+            == f.result(0) for f in aboard if f in by_fut]
+    finally:
+        quiet.stop()
+    new_names = sorted(set(mgr.replicas) - set(names0))
+    snap = mgr.fleet_snapshot()
+    out["crash"] = {
+        "victim": victim, "aboard": len(aboard), "tick": {
+            k: tick[k] for k in ("backfilled", "n_replicas", "replicas")},
+        "admitted": delta["received"], "completed": delta["completed"],
+        "failed": delta["failed"], "unresolved": unresolved,
+        "streams_differing_from_no_fault": len(differ),
+        "replayed_equal_quiet": [sum(replayed_equal), len(replayed_equal)],
+        "failover_resubmitted": snap["fleet_failover_resubmitted"],
+        "replica_dead": snap["fleet_replica_dead"],
+        "backfilled_as": new_names, "tokens_per_s":
+            box["res"]["tokens_per_sec"]}
+    print(f"  crash: fleet.replica severed {victim} mid-run with "
+          f"{len(aboard)} requests aboard; admitted {delta['received']} = "
+          f"completed {delta['completed']} + failed {delta['failed']}, "
+          f"{unresolved} unresolved; {len(differ)} streams differ from the "
+          f"no-fault run; replayed == quiet replica "
+          f"{sum(replayed_equal)}/{len(replayed_equal)}; backfilled "
+          f"{tick['backfilled']} as {new_names}")
+    if (unresolved or delta["received"] != delta["completed"]
+            + delta["failed"] or delta["failed"] or differ
+            or not aboard or not all(replayed_equal)
+            or tick["backfilled"] != 1
+            or tick["n_replicas"] != FLEET_REPLICAS
+            or len(new_names) != 1 or new_names[0] in names0
+            or victim in mgr.replicas):
+        raise SystemExit(f"phase 28(a): the crash broke a guarantee: "
+                         f"{out['crash']}")
+    return out, mgr, made, sched, nofault
+
+
+
+def _fleet_drain(lm, mgr, made):
+    """Phase 28(b): scale_down one replica while it holds decode-phase,
+    prefilling and queued requests. Returns its readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import ContinuousDecodeServer
+    rng = np.random.default_rng(FLEET_SEED + 1)
+    vocab = FULL["vocab_size"]
+    names = list(mgr.replicas)
+    victim = names[-1]
+    short = [rng.integers(1, vocab, int(rng.integers(6, 16))).tolist()
+             for _ in range(12 * len(names))]
+    long = [rng.integers(1, vocab, int(rng.integers(48, 65))).tolist()
+            for _ in range(8 * len(names))]
+    seen = {}
+    srv = made[victim]
+    drain_now = srv._drain_now
+
+    def recording_drain_now(migrate):
+        # the serve thread's hand-off: the victim's state as it leaves
+        live = [r for r in srv._slot_req if r is not None]
+        seen["decoding"] = sum(r.pf_next is None for r in live)
+        seen["prefilling"] = sum(r.pf_next is not None for r in live)
+        seen["queued"] = (sum(not r.future.done()
+                              for r in list(srv._q.queue))
+                          + len(srv._mem_wait))
+        t0 = time.perf_counter()
+        migrated, replayed = drain_now(migrate)
+        seen["extract_ms"] = (time.perf_counter() - t0) * 1e3
+        seen["artifact_bytes"] = sum(a.nbytes for _, a in migrated)
+        seen["migrated"], seen["replayed"] = len(migrated), len(replayed)
+        return migrated, replayed
+
+    srv._drain_now = recording_drain_now
+    futs = [(p, 139, mgr.submit(p, 139)) for p in short]
+    _fleet_wait(lambda: sum(r is not None and r.pf_next is None
+                            and len(r.generated) >= 8
+                            for r in srv._slot_req) >= 8, 120,
+                "eight decode-phase requests on the victim")
+    futs += [(p, 64, mgr.submit(p, 64)) for p in long]
+    _fleet_wait(lambda: any(r is not None and r.pf_next is not None
+                            for r in srv._slot_req), 120,
+                "a prefilling request on the victim")
+    t0 = time.perf_counter()
+    mgr.scale_down(victim)
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    got = [f.result(600) for _, _, f in futs]
+    ref_srv = ContinuousDecodeServer(lm, **FLEET_SERVER).start()
+    try:
+        _warm(ref_srv)
+        refs = [f.result(600) for f in
+                [ref_srv.submit(p, n) for p, n, _ in futs]]
+    finally:
+        ref_srv.stop()
+    equal = sum(a == b for a, b in zip(got, refs))
+    migrated_in = sum(made[n].metrics.count_value("migrated")
+                      for n in mgr.replicas)
+    out = dict(seen, victim=victim, scale_down_ms=drain_ms,
+               ms_per_migrated=drain_ms / max(1, seen.get("migrated", 0)),
+               streams_equal=[equal, len(futs)], migrated_in=migrated_in,
+               replica_drained=mgr.fleet_snapshot()[
+                   "fleet_replica_drained"])
+    print(f"  drain: scale_down({victim}) with {seen.get('decoding')} "
+          f"decoding, {seen.get('prefilling')} prefilling and "
+          f"{seen.get('queued')} queued: {seen.get('migrated')} migrated "
+          f"({seen.get('artifact_bytes')} artifact bytes, extraction "
+          f"{seen.get('extract_ms', 0):.1f} ms on the serve thread), "
+          f"{seen.get('replayed')} replayed; scale_down {drain_ms:.1f} ms, "
+          f"{out['ms_per_migrated']:.2f} ms per migrated request; streams "
+          f"== a replica of the same configuration {equal}/{len(futs)}")
+    if (equal != len(futs) or not seen.get("migrated")
+            or not seen.get("prefilling") or not seen.get("queued")
+            or seen["replayed"] < seen["prefilling"] + seen["queued"]
+            or migrated_in < seen["migrated"]
+            or victim in mgr.replicas):
+        raise SystemExit(f"phase 28(b): the drain broke a guarantee: {out}")
+    return out
+
+
+def _fleet_canary(lm, mgr, made):
+    """Phase 28(c): a NaN rollout rolls back before any swap, a healthy
+    one rolls forward and a spawn inherits it."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving.decode import _param_fingerprint
+    names = list(mgr.replicas)
+    swaps = {n: made[n].metrics.count_value("swaps") for n in names}
+    bad = TransformerLM(**dict(FULL, seed=1), dtype=torch.bfloat16,
+                        device="cuda")
+    with torch.no_grad():
+        bad.blocks[-1].mlp.w2[3, 5] = float("nan")
+    t0 = time.perf_counter()
+    nan = mgr.rollout(bad)
+    nan_ms = (time.perf_counter() - t0) * 1e3
+    swaps_after = {n: made[n].metrics.count_value("swaps") for n in names}
+    del bad
+    new = TransformerLM(**dict(FULL, seed=1), dtype=torch.bfloat16,
+                        device="cuda")
+    want = _param_fingerprint(new.aux, new.blocks)
+
+    def traffic():
+        for f in [mgr.submit([5, 6, 7, 8, 9, 10], 16) for _ in range(8)]:
+            f.result(600)
+
+    t0 = time.perf_counter()
+    good = mgr.rollout(new, watch_ticks=1, traffic=traffic)
+    good_ms = (time.perf_counter() - t0) * 1e3
+    tags = {n: _param_fingerprint(*made[n].current_params())
+            for n in mgr.replicas}
+    spawned = mgr.scale_up()
+    spawned_tag = _param_fingerprint(*made[spawned].current_params())
+    out = {"nan": {"status": nan["status"], "reason": nan.get("reason"),
+                   "ms": nan_ms, "swaps_before": swaps,
+                   "swaps_after": swaps_after},
+           "healthy": {"status": good["status"], "ms": good_ms,
+                       "fingerprint": want,
+                       "replicas_on_new": sum(t == want
+                                              for t in tags.values()),
+                       "spawned": spawned,
+                       "spawn_inherits": spawned_tag == want}}
+    print(f"  canary: NaN weights {nan['status']} ({nan.get('reason')}) in "
+          f"{nan_ms:.1f} ms, swaps per replica {swaps} -> {swaps_after}; "
+          f"healthy weights {good['status']} in {good_ms:.0f} ms, "
+          f"{out['healthy']['replicas_on_new']}/{len(tags)} replicas on "
+          f"fingerprint {want}, spawn {spawned} inherits "
+          f"{spawned_tag == want}")
+    if (nan["status"] != "rolled_back" or nan.get("reason") != "nan_screen"
+            or swaps_after != swaps or good["status"] != "rolled_forward"
+            or any(t != want for t in tags.values())
+            or spawned_tag != want):
+        raise SystemExit(f"phase 28(c): the canary broke a guarantee: {out}")
+    return out, new
+
+
+
+def fleet_replica_main(name, port_file, identity_file):
+    """Phase 28(d)'s replica process: phase 22's model (the same seed, so
+    the same weights as the smoke's) in one FLEET_SERVER server on cuda:0,
+    warmed, behind run_replica_server until STOP, KILL or DRAIN."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.serving import (ContinuousDecodeServer,
+                                                  ServingMetrics,
+                                                  run_replica_server)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm = TransformerLM(**FULL, dtype=torch.bfloat16, device="cuda:0")
+    srv = ContinuousDecodeServer(lm, metrics=ServingMetrics(name=name),
+                                 instance=name, **FLEET_SERVER).start()
+    _warm(srv)
+    run_replica_server(srv, port_file=port_file,
+                       identity_file=identity_file)
+
+
+def _fleet_processes(tmp):
+    """Start FLEET_PROCS spawn children on cuda:0; returns ({name: port},
+    {name: process}). A child that exits before it publishes its port
+    fails the phase."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    names = [f"i{i}" for i in range(FLEET_PROCS)]
+    procs = {}
+    for n in names:
+        procs[n] = ctx.Process(target=fleet_replica_main,
+                               args=(n, os.path.join(tmp, f"{n}.port"),
+                                     os.path.join(tmp, f"{n}.json")))
+        procs[n].start()
+    ports = {}
+    t0 = time.monotonic()
+    while len(ports) < len(names):
+        for n in names:
+            pf = os.path.join(tmp, f"{n}.port")
+            if n not in ports and os.path.exists(pf):
+                ports[n] = int(open(pf).read())
+            elif n not in ports and not procs[n].is_alive():
+                raise SystemExit(f"phase 28(d): replica process {n} exited "
+                                 f"({procs[n].exitcode}) before publishing "
+                                 f"its port")
+        if time.monotonic() - t0 > FLEET_PUBLISH_TIMEOUT_S:
+            raise SystemExit("phase 28(d): the replica processes never "
+                             "published their ports")
+        time.sleep(0.05)
+    return ports, procs
+
+
+def _fleet_wire(lm, new, sched, inproc):
+    """Phase 28(d): two replica processes behind RemoteReplicas and a
+    journaled manager. Returns its readings."""
+    import signal
+    import tempfile
+
+    from deeplearning4j_tpu_torch.common.resilience import FaultInjector
+    from deeplearning4j_tpu_torch.parallel.ps_transport import pack_leaves
+    from deeplearning4j_tpu_torch.models.zoo.transformer import tree_leaves
+    from deeplearning4j_tpu_torch.serving import (ContinuousDecodeServer,
+                                                  FleetManager,
+                                                  RemoteReplica,
+                                                  StaleEpochError)
+    out = {"heartbeat_timeout_s": FLEET_HB_TIMEOUT_S,
+           "heartbeat_interval_s": FLEET_HB_INTERVAL_S}
+    tmp = tempfile.mkdtemp(prefix="fleet28-")
+    jpath = os.path.join(tmp, "fleet.journal")
+    inj = FaultInjector()
+    t0 = time.perf_counter()
+    ports, procs = _fleet_processes(tmp)
+    out["processes_up_s"] = time.perf_counter() - t0
+
+    def factory(name):
+        return RemoteReplica("127.0.0.1", ports[name], name=name,
+                             heartbeat_interval=FLEET_HB_INTERVAL_S,
+                             fault_injector=inj)
+
+    mgr = mgr2 = None
+    try:
+        mgr = FleetManager(factory, n_replicas=FLEET_PROCS, min_replicas=1,
+                           heartbeat_timeout=FLEET_HB_TIMEOUT_S,
+                           journal=jpath).start()
+        clients = lambda m: [m.replica(n) for n in m.replicas]
+        # tokens/s over the wire at (a)'s rate, on (a)'s schedule
+        run, futs = _fleet_run(mgr, sched, clients(mgr))
+        streams = _fleet_streams(futs)
+        same = sum(inproc.get(k) == v for k, v in streams.items())
+        out["wire"] = run
+        out["wire_streams_equal_inprocess"] = [same, len(streams)]
+        print(f"  wire: {FLEET_PROCS} replica processes, (a)'s schedule: "
+              f"{run['tokens_per_s']} tokens/s, "
+              f"{run['dispatches_per_token']:.4f} dispatches/token, p99 "
+              f"{run['latency_ms_p99']} ms; streams equal to the in-process "
+              f"fleet's {same}/{len(streams)}")
+        if run["failed"] or len(streams) != FLEET_REQUESTS:
+            raise SystemExit("phase 28(d): a request over the wire failed")
+
+        # a STREAM severed on arrival: the retried SUBMIT deduplicates
+        prompt = list(sched.items[0]["prompt"])
+        d0 = {n: _fleet_counts([mgr.replica(n)]) for n in mgr.replicas}
+        clean = mgr.generate(prompt, 64, timeout=600)
+        d1 = {n: _fleet_counts([mgr.replica(n)]) for n in mgr.replicas}
+        recv = lambda: sum(
+            (mgr.replica(n).metrics.kind_snapshot().get("received")
+             or {}).get("value") or 0 for n in mgr.replicas)
+        r0 = recv()
+        inj.plan("serve.wire.stream", on_call=inj.calls("serve.wire.stream"),
+                 sever=True, exc=None)
+        retried = mgr.generate(prompt, 64, timeout=600)
+        d2 = {n: _fleet_counts([mgr.replica(n)]) for n in mgr.replicas}
+        clean_d = sum(d1[n][0] - d0[n][0] for n in d0)
+        retry_d = sum(d2[n][0] - d1[n][0] for n in d0)
+        snap = mgr.fleet_snapshot()
+        out["dedup"] = {"equal": retried == clean,
+                        "dispatches_clean": clean_d,
+                        "dispatches_severed": retry_d,
+                        "decoded": recv() - r0,
+                        "wire_retries": snap["fleet_wire_retries"],
+                        "wire_reconnects": snap["fleet_wire_reconnects"]}
+        print(f"  dedup: a severed STREAM -> {snap['fleet_wire_retries']} "
+              f"wire retry, {recv() - r0} decode, dispatches {retry_d} "
+              f"(the same request unsevered: {clean_d}), stream equal "
+              f"{retried == clean}")
+        if (retried != clean or retry_d != clean_d or recv() - r0 != 1
+                or snap["fleet_wire_retries"] != 1):
+            raise SystemExit(f"phase 28(d): the retried SUBMIT decoded "
+                             f"again or changed: {out['dedup']}")
+
+        # SIGKILL one process with requests aboard: reaped, failed over
+        victim, survivor = "i1", "i0"
+        prompts = [list(sched.items[i]["prompt"]) for i in range(8)]
+        refs = [mgr.replica(survivor).generate(p, 96, timeout=600)
+                for p in prompts]
+        kfuts = [mgr.submit(p, 96) for p in prompts]
+        _fleet_wait(lambda: any(
+            r.replica == victim for r in list(mgr._live.values())), 60,
+            "a request aboard the victim process")
+        pre = mgr.fleet_view().flat(survivor).get("completed") or 0
+
+        def victim_down():
+            try:
+                return not mgr.replica(victim).alive
+            except KeyError:        # the failover path already removed it
+                return True
+
+        t_kill = time.perf_counter()
+        os.kill(procs[victim].pid, signal.SIGKILL)
+        _fleet_wait(victim_down, 60, "the killed process read as dead")
+        t_dead = time.perf_counter()
+        tick = mgr.control_tick()
+        t_reaped = time.perf_counter()
+        got = [f.result(600) for f in kfuts]
+        procs[victim].join(30)
+        snap = mgr.fleet_snapshot()
+        out["sigkill"] = {
+            "kill_to_not_alive_ms": (t_dead - t_kill) * 1e3,
+            "kill_to_reaped_ms": (t_reaped - t_kill) * 1e3,
+            "state": tick["states"].get(victim),
+            "equal_survivor_solo": [sum(a == b for a, b in zip(got, refs)),
+                                    len(refs)],
+            "failover_resubmitted": snap["fleet_failover_resubmitted"]}
+        print(f"  SIGKILL {victim}: not alive after "
+              f"{out['sigkill']['kill_to_not_alive_ms']:.1f} ms, reaped by "
+              f"the tick at {out['sigkill']['kill_to_reaped_ms']:.1f} ms; "
+              f"{snap['fleet_failover_resubmitted']} failovers, streams == "
+              f"the survivor's own {out['sigkill']['equal_survivor_solo']}")
+        if (tick["states"].get(victim) != "dead" or got != refs
+                or not snap["fleet_failover_resubmitted"]):
+            raise SystemExit(f"phase 28(d): the SIGKILL broke a guarantee: "
+                             f"{out['sigkill']}")
+
+        # the manager dies without stop(); recover() re-adopts and fences
+        stale, mgr = mgr, None
+        j, stale._journal = stale._journal, None
+        j.close()
+        mgr2 = FleetManager.recover(
+            factory, jpath, redial=lambda name, ident: factory(name),
+            n_replicas=1, min_replicas=1,
+            heartbeat_timeout=FLEET_HB_TIMEOUT_S)
+        after = mgr2.fleet_view().flat(survivor).get("completed") or 0
+        fenced = None
+        try:
+            stale.replica(survivor).drain(timeout=30.0)
+        except StaleEpochError as e:
+            fenced = type(e).__name__
+        snap2 = mgr2.fleet_snapshot()
+        out["recover"] = {"epoch": mgr2.epoch,
+                          "adopted": mgr2.metrics.count_value(
+                              "replicas_adopted"),
+                          "replicas": mgr2.replicas, "stale_op": fenced,
+                          "fenced_ops": snap2["fleet_fenced_ops"],
+                          "completed_before_after": [pre, after]}
+        print(f"  recover: epoch {mgr2.epoch}, re-adopted {mgr2.replicas}; "
+              f"the stale manager's DRAIN -> {fenced}; completed on "
+              f"{survivor} {pre} -> {after}")
+        if (mgr2.replicas != [survivor] or fenced != "StaleEpochError"
+                or after < pre or mgr2.epoch != 2):
+            raise SystemExit(f"phase 28(d): recovery broke a guarantee: "
+                             f"{out['recover']}")
+        for n in list(stale.states()):
+            try:
+                stale.replica(n)._shutdown_local(RuntimeError("stale"),
+                                                 dead=False)
+            except Exception:   # noqa: BLE001 - a tombstone has no client
+                pass
+        stale._running = False
+
+        # SWAP the full-width weights across the wire; the replica's
+        # version tag (the fingerprint its artifacts carry) must then be
+        # the new weights', and a request exported from it resumes on an
+        # in-process replica of the new weights
+        from deeplearning4j_tpu_torch.serving.decode import \
+            _param_fingerprint
+        nbytes = len(pack_leaves(tree_leaves(new.aux, new.blocks)))
+        rr = mgr2.replica(survivor)
+        t0 = time.perf_counter()
+        rr.swap(new)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        want = _param_fingerprint(new.aux, new.blocks)
+        probe = list(sched.items[1]["prompt"])
+        local = ContinuousDecodeServer(new, **FLEET_SERVER).start()
+        try:
+            _warm(local)
+            local_new = local.generate(probe, 139, timeout=600)
+            tok0 = _fleet_counts([rr])[1]
+            fut = rr.submit(probe, 139)
+            _fleet_wait(lambda: _fleet_counts([rr])[1] >= tok0 + 8, 60,
+                        "the swapped replica decoding")
+            art = rr.migrate_out(fut)
+            resumed = local.migrate_in(art).result(600)
+        finally:
+            local.stop()
+        out["swap"] = {"bytes": nbytes, "ms": swap_ms, "tag": art.tag,
+                       "tag_is_new_weights": art.tag == want,
+                       "exported_at": len(art.generated),
+                       "resumed_equals_inprocess": resumed == local_new}
+        print(f"  SWAP of the full weights over the wire: {nbytes} bytes in "
+              f"{swap_ms:.1f} ms ({nbytes / swap_ms / 1e6:.2f} GB/s); the "
+              f"replica's version tag {art.tag} is the new weights' "
+              f"{art.tag == want}; a request exported after "
+              f"{len(art.generated)} tokens resumes in-process, stream == "
+              f"an in-process replica's {resumed == local_new}")
+        if art.tag != want:
+            raise SystemExit("phase 28(d): the swapped replica does not "
+                             "serve the new weights")
+    finally:
+        for m in (mgr, mgr2):
+            if m is not None:
+                m.stop(timeout=60)
+        for p in procs.values():
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["exit_codes"] = {n: p.exitcode for n, p in procs.items()}
+    return out
+
+
+def fleet_phase(fa):
+    """Phase 28. Returns its readings. The fleet, the journal and the wire
+    are host code over the paged serving programs: no kernel of the port
+    is on this path, so the counters are set to 0 first and must read 0
+    after it (the replica processes' own counters are theirs)."""
+    from deeplearning4j_tpu_torch.models.zoo.transformer import TransformerLM
+    print(f"phase 28: FleetManager over {FLEET_REPLICAS} paged replicas of "
+          f"phase 22's model (bf16, full width), then {FLEET_PROCS} replica "
+          f"processes on cuda:0 behind the wire")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    lm = TransformerLM(**FULL, dtype=torch.bfloat16, device="cuda")
+    out = {"config": dict(FLEET_SERVER, replicas=FLEET_REPLICAS,
+                          requests=FLEET_REQUESTS, load=FLEET_LOAD)}
+    t = time.perf_counter()
+    out["a"], mgr, made, sched, nofault = _fleet_inprocess(lm)
+    out["sub_phase_s"] = {"a": time.perf_counter() - t}
+    try:
+        t = time.perf_counter()
+        out["b"] = _fleet_drain(lm, mgr, made)
+        out["sub_phase_s"]["b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["c"], new = _fleet_canary(lm, mgr, made)
+        out["sub_phase_s"]["c"] = time.perf_counter() - t
+    finally:
+        mgr.stop(timeout=120)
+    t = time.perf_counter()
+    out["d"] = _fleet_wire(lm, new, sched, nofault)
+    out["sub_phase_s"]["d"] = time.perf_counter() - t
+    out["wire_over_inprocess_tokens_per_s"] = (
+        out["d"]["wire"]["tokens_per_s"] / out["a"]["fleet"]["tokens_per_s"])
+    launched = dict(fa.launches)
+    if any(launched.values()):
+        raise SystemExit(f"phase 28 launched flash kernels: {launched}")
+    out["flash_launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 28 launched no kernel of the port: {launched}; wire / "
+          f"in-process tokens/s {out['wire_over_inprocess_tokens_per_s']:.3f}"
+          f"; {out['phase_s']:.1f} s ({out['sub_phase_s']})")
     return out
 
 

@@ -26,7 +26,10 @@ uses); the recurrent path and the char-RNN; the embeddings; data-parallel
 and parameter-server training (`parallel`); fused steps, K optimizer steps
 as one CUDA graph replay (`nn.fused`), the training-health watchdog
 (`common.health`) and the checkpoints of replicated training state its
-rollback restores (`util.sharded_checkpoint`). ROADMAP.md queues the rest.
+rollback restores (`util.sharded_checkpoint`); the fleet and the wire:
+`serving.FleetManager` over decode replicas, its journal and recovery, the
+replica wire protocol (`serving.wire`) and the fleet plane (`obs.fleet`).
+ROADMAP.md queues the rest.
 """
 from .common.device import resolve_device
 

@@ -864,7 +864,52 @@ def _from_numpy(a, dtype, device):
 def _params_from_jax(aux, blocks, dtype, device):
     """The JAX package's `(aux, blocks)` -> this module's (Aux, [Block]).
     Both packages store weights as `x @ W`, so nothing is transposed."""
-    t = lambda a: _from_numpy(a, dtype, device)
+    return _params_from_tree(aux, blocks,
+                             lambda a: _from_numpy(a, dtype, device))
+
+
+def _ordered(module):
+    """`module`'s (dotted name, parameter) sorted by the name's parts."""
+    named = [(tuple(n.split(".")), n, t) for n, t in module.named_parameters()]
+    return [(n, t) for _, n, t in sorted(named, key=lambda e: e[0])]
+
+
+def tree_leaves(aux, blocks):
+    """The parameters of one version `(aux, blocks)` in the JAX package's
+    `tree_leaves((aux, blocks))` order, every dict level in sorted key
+    order; each tensor in its own layout, which is the reference's."""
+    return [t for m in (aux, *blocks) for _, t in _ordered(m)]
+
+
+def params_from_leaves(leaves, like):
+    """`tree_leaves`' inverse: a new (Aux, [Block]) holding `leaves`
+    (tensors, on any device) laid out as the version `like` = (aux,
+    blocks), each leaf moved to the device of `like`'s leaf in its place.
+    Shapes and dtypes are kept as given (a server's `swap` refuses a
+    mismatch); a wrong leaf count raises ValueError."""
+    aux, blocks = like
+    names = [[n for n, _ in _ordered(m)] for m in (aux, *blocks)]
+    olds = tree_leaves(aux, blocks)
+    if len(leaves) != len(olds):
+        raise ValueError(f"{len(leaves)} leaves for a version of "
+                         f"{len(olds)}")
+    it = iter(new.to(device=old.device) for new, old in zip(leaves, olds))
+    trees = []
+    for group in names:
+        tree = {}
+        for n in group:
+            *path, last = n.split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[last] = next(it)
+        trees.append(tree)
+    return _params_from_tree(trees[0], trees[1:], lambda t: t)
+
+
+def _params_from_tree(aux, blocks, t):
+    """Nested dicts of leaves laid out as the JAX package's `(aux, blocks)`
+    -> (Aux, [Block]), each leaf through `t`."""
     ln = lambda p: LayerNorm(t(p["g"]), t(p["b"]))
     port_aux = Aux(t(aux["tok"]), t(aux["pos"]), ln(aux["lnf"]),
                    t(aux["head"]))

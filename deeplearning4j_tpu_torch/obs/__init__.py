@@ -1,7 +1,9 @@
 """Observability: span tracing and the metrics registry. Port of
 deeplearning4j_tpu/obs/ (stdlib only, as there): `registry`, `trace` and
-`decompose` are copies of the reference's modules; `fleet` (the fleet
-plane) comes with the decode server (ROADMAP.md queue 1 item 6).
+`decompose` are copies of the reference's modules, and so is `fleet`, the
+fleet plane: `FleetView` (kind-correct metrics federation),
+`merge_traces` (clock-anchor trace stitching), `AutoscaleSignal` and
+`parse_prometheus_text`.
 
 `TRACER` is the process-wide tracer (disabled until `enable_tracing()`);
 `registry.default_registry()` is the process-wide metrics surface.
@@ -10,6 +12,8 @@ from __future__ import annotations
 
 from . import registry
 from .decompose import decompose, decompose_requests
+from .fleet import (AutoscaleSignal, FleetView, merge_traces,
+                    parse_prometheus_text)
 from .registry import Histogram, MetricsRegistry, default_registry, fmt
 from .trace import FlightRecorder, Span, TraceContext, Tracer
 
@@ -40,5 +44,7 @@ __all__ = [
     "MetricsRegistry", "Histogram",
     "default_registry", "fmt", "registry",
     "decompose", "decompose_requests",
+    "FleetView", "AutoscaleSignal", "merge_traces",
+    "parse_prometheus_text",
     "TRACER", "get_tracer", "span", "enable_tracing", "disable_tracing",
 ]

@@ -92,8 +92,12 @@ between running servers. An extraction is one gather on the serve stream
 followed by one synchronous device-to-host copy, so the spilled rows are
 on the host before the freed blocks can be written again.
 
-Not ported yet, raising NotImplementedError that names the ROADMAP.md
-item: the fleet verbs (`kill`, `drain`, item 6).
+The fleet verbs (`serving/fleet.py`, `serving/wire.py`): `kill()` is an
+abrupt death (every held future fails with `ReplicaDeadError`, nothing
+drains or persists, the server never starts again); `drain()` hands
+every admitted request off in one pass on the serve thread, decode-phase
+ones as `RequestArtifact`s (paged only) and the rest as replay specs,
+then stops.
 """
 from __future__ import annotations
 
@@ -119,17 +123,13 @@ from .kvpool import BlockPool
 from .kvstate import (KVStateError, KVStateVersionError,
                       PrefixCacheArtifact, RequestArtifact, artifact_kind)
 from .metrics import ServingMetrics
-from .server import (DeadlineExceededError, RequestMigratedError,
+from .server import (DeadlineExceededError, ReplicaDeadError,
+                     RequestDrainedError, RequestMigratedError,
                      ServerClosedError, ServerOverloadedError,
                      _fail_future, _RequestLoop, _resolve_future)
 from .speculate import as_speculator
 
 log = logging.getLogger(__name__)
-
-
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet; ROADMAP.md "
-                               f"queue 1 item {item}")
 
 
 def _param_leaves(aux, blocks):
@@ -152,14 +152,8 @@ def _param_fingerprint(aux, blocks):
     packages. The durable version tag of `kvstate`; computed once per
     version, never on the decode path (it copies every parameter to the
     host)."""
-    def ordered(module):
-        named = [(tuple(n.split(".")), t)
-                 for n, t in module.named_parameters()]
-        return [t for _, t in sorted(named, key=lambda e: e[0])]
-
-    leaves = ordered(aux) + [t for b in blocks for t in ordered(b)]
     h = hashlib.sha256()
-    for t in leaves:
+    for t in _T.tree_leaves(aux, blocks):
         t = t.detach().cpu().contiguous()
         h.update(str(tuple(t.shape)).encode())
         h.update(_dtype_name(t.dtype).encode())
@@ -395,6 +389,9 @@ class ContinuousDecodeServer(_RequestLoop):
         self._prefix_cmds = collections.deque()   # fleet prefix tier:
         #   ("export", key, max_bytes, reply) | ("adopt", art, None, reply)
         self._prefix_io_budget = self._PREFIX_IO_BUDGET
+        self._drain_cmds = collections.deque()    # (migrate, reply): the
+        #   fleet's drain verb, serviced on the serve thread
+        self._killed = False    # kill() fired: terminal, never serves again
         self._tag_cache = {}    # version index -> parameter fingerprint
         self._prefix_saved = True   # nothing to save before start()
         self._gate_key = None   # the preempting gate's rescan guard
@@ -749,19 +746,161 @@ class ContinuousDecodeServer(_RequestLoop):
 
     @property
     def alive(self):
-        """True while the serve loop runs on a live thread."""
+        """True while the serve loop runs on a live thread: the fleet
+        router's liveness probe. A killed or crashed loop reads False
+        before anyone calls stop()."""
         t = self._thread
-        return bool(self._running and t is not None and t.is_alive())
+        return bool(self._running and not self._killed
+                    and t is not None and t.is_alive())
 
-    # -- not ported yet --------------------------------------------------
+    # -- fleet verbs (serving/fleet.py) ----------------------------------
     def kill(self):
-        raise _not_ported("kill (the fleet's crash verb)", 6)
+        """Abrupt replica death, the verb the fleet's `fleet.replica`
+        sever lands on. The serve loop exits at the next iteration
+        boundary and every in-flight, parked and queued future fails with
+        `ReplicaDeadError`; nothing drains and nothing persists. Terminal
+        and idempotent (a killed server refuses start()); callable from
+        any thread, including a done callback on the serve thread."""
+        self._killed = True
+        self._running = False
+        self._drain_on_stop = False
+        self._wake_loop()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(10.0)
+        if t is None or not t.is_alive() \
+                or t is threading.current_thread():
+            # the loop is gone (or is this thread): fail the stragglers
+            # here (resolved futures are skipped)
+            self._die_now()
+
+    def _die_now(self):
+        """Fail every request this server still holds with the crash
+        error: on the serve thread when the loop notices `_killed`, or on
+        the killer's thread once the loop is gone."""
+        exc = ReplicaDeadError(f"replica {self.instance!r} crashed")
+        n_failed = 0
+        for s, r in enumerate(self._slot_req):
+            if r is not None and _fail_future(r.future, exc):
+                n_failed += 1
+            self._slot_req[s] = None
+        if n_failed:
+            self.metrics.count("failed", n_failed)
+        self._fail_parked(exc)
+        super()._fail_queued(exc)
 
     def drain(self, migrate=None, timeout=60.0):
-        raise _not_ported("drain (the fleet's hand-off verb)", 6)
+        """Hand off every admitted request in one verb, then stop.
+
+        Returns ``(migrated, replayed)``: ``migrated`` lists
+        ``(local_future, RequestArtifact)`` for decode-phase requests
+        (live slots and the parked resume line), each local future failed
+        with `RequestMigratedError`; ``replayed`` lists ``(local_future,
+        spec)`` for queued, deferred, parked, memory-blocked and
+        prefilling requests (a half-written prefill panel is never an
+        artifact), each failed with `RequestDrainedError`, ``spec`` being
+        ``{"prompt", "max_new", "deadline" (absolute monotonic or None),
+        "klass"}``. `migrate` defaults to the layout (paged servers
+        migrate); migrate=True on a fixed-slot server raises ValueError.
+        The hand-off runs on the serve thread between iterations; on
+        return the loop is stopped and the server holds no request."""
+        migrate = self._paged if migrate is None else bool(migrate)
+        if migrate and not self._paged:
+            raise ValueError("drain(migrate=True) requires paged=True "
+                             "(only a block-table KV set can leave the "
+                             "arena); fixed-slot servers drain with "
+                             "migrate=False, and everything replays")
+        if not self._running:
+            raise ServerClosedError("server is not running")
+        reply = cf.Future()
+        self._drain_cmds.append((migrate, reply))
+        self._wake_loop()
+        migrated, replayed = reply.result(timeout)
+        self.stop(drain=False, timeout=timeout)
+        return migrated, replayed
+
+    def _service_drain(self):
+        """Serve-thread half of `drain()`."""
+        while self._drain_cmds:
+            migrate, reply = self._drain_cmds.popleft()
+            try:
+                out = self._drain_now(migrate)
+            except BaseException as e:  # noqa: BLE001 - the reply carries it
+                if not reply.done():
+                    reply.set_exception(e)
+            else:
+                if not reply.done():
+                    reply.set_result(out)
+
+    def _drain_now(self, migrate):
+        migrated, replayed = [], []
+
+        def spec_of(r):
+            return {"prompt": list(r.prompt), "max_new": r.max_new,
+                    "deadline": r.deadline, "klass": r.klass}
+
+        def hand_off(r, art):
+            """Decode-phase state with rows in hand migrates (when asked);
+            everything else replays."""
+            if migrate and art is not None:
+                if _fail_future(r.future, RequestMigratedError(
+                        "request drained to another replica")):
+                    migrated.append((r.future, art))
+                    self.metrics.count("migrated_out")
+                    self._mark_migrate_out(r)
+            elif _fail_future(r.future, RequestDrainedError(
+                    "request replayed on another replica (queued/"
+                    "prefill-phase state is never migrated)")):
+                replayed.append((r.future, spec_of(r)))
+
+        # live slots: a decode-phase slot's rows are extractable, a
+        # prefilling slot's panel is half-written and never an artifact
+        for s, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            if r.future.done():
+                self._free_slot(s)
+                continue
+            art = None
+            if migrate and r.pf_next is None and r.generated:
+                art = self._extract_artifact(s)
+            hand_off(r, art)
+            self._free_slot(s)
+        # parked artifacts (resume line, migrate-in staging) are their own
+        # baton
+        while self._migrate_in_q:
+            self._resume_q.append(self._migrate_in_q.popleft())
+        while self._resume_q:
+            r = self._resume_q.popleft()
+            if r.future.done():
+                continue
+            art, r.artifact = r.artifact, None
+            hand_off(r, art)
+        # queued lines hold no KV state: replay specs
+        for dq in (self._mem_wait, self._prio_q, self._defer_q):
+            while dq:
+                try:
+                    r = dq.popleft()
+                except IndexError:
+                    break
+                if not r.future.done():
+                    hand_off(r, None)
+        while True:
+            try:
+                r = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if not r.future.done():     # skips _Wake sentinels too
+                hand_off(r, None)
+        self._gc_versions()
+        return migrated, replayed
 
     # -- durable KV state ------------------------------------------------
     def start(self):
+        if self._killed:
+            raise ServerClosedError(
+                "replica was killed; build a new server instead of "
+                "restarting a crashed one")
         # a (re)started server has live state the next clean stop persists
         self._prefix_saved = self._prefix_dir is None
         return super().start()
@@ -1755,7 +1894,8 @@ class ContinuousDecodeServer(_RequestLoop):
                     break
                 if _fail_future(r.future, exc):
                     self.metrics.count("failed")
-        for dq in (self._migrate_cmds, self._prefix_cmds):
+        for dq in (self._migrate_cmds, self._prefix_cmds,
+                   self._drain_cmds):
             while dq:
                 try:
                     reply = dq.popleft()[-1]
@@ -1765,6 +1905,10 @@ class ContinuousDecodeServer(_RequestLoop):
                     reply.set_exception(exc)
 
     def _fail_queued(self, exc):
+        """On a killed server the crash error wins whatever the exiting
+        loop passed (it may notice `_running` drop before `_killed`)."""
+        if self._killed:
+            exc = ReplicaDeadError(f"replica {self.instance!r} crashed")
         self._fail_parked(exc)
         super()._fail_queued(exc)
 
@@ -2225,13 +2369,18 @@ class ContinuousDecodeServer(_RequestLoop):
             or bool(self._mem_wait) or bool(self._prio_q) \
             or bool(self._defer_q) or bool(self._resume_q) \
             or bool(self._migrate_in_q) or bool(self._migrate_cmds) \
-            or bool(self._prefix_cmds)
+            or bool(self._prefix_cmds) or bool(self._drain_cmds)
 
     def _loop_once(self):
+        if self._killed:
+            # kill(): fail everything and let the loop exit
+            self._die_now()
+            return
         with torch.no_grad(), card_numerics(self.device, self._cache_dtype):
             self._schedule_once()
 
     def _schedule_once(self):
+        self._service_drain()
         if self._paged:
             # migrate-in staging joins the serve thread's resume line;
             # then the export and prefix commands, before the sweep

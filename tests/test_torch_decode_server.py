@@ -11,9 +11,9 @@ Two parts:
     without speculation, tests/test_overload.py without
     `test_chunked_composes_with_speculate`, and tests/test_fused_serve.py.
     Their bodies are the reference's, run against the port's classes;
-    the speculative ones are in tests/test_torch_speculative.py, and the
-    fleet verbs still raise NotImplementedError naming their ROADMAP.md
-    item.
+    the speculative ones are in tests/test_torch_speculative.py. The
+    fleet verbs (`kill`, `drain`) are held here to their contract and in
+    tests/test_torch_fleet_manager.py against the reference's.
 
 Tests marked `gpu` run on the card and skip without one.
 """
@@ -141,15 +141,51 @@ def test_streams_equal_jax_server(jax_streams, mode):
 
 
 # ---------------------------------------------------------------------------
-# deferred options
+# the fleet verbs and the deferred options
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("verb, args, item", [("kill", (), 6),
-                                              ("drain", (), 6)])
-def test_deferred_verbs_raise_naming_their_item(verb, args, item):
-    srv = ContinuousDecodeServer(_lm(), prompt_buckets=(8,), paged=True)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
-        getattr(srv, verb)(*args)
+@pytest.mark.parametrize("verb", ["kill", "drain"])
+def test_fleet_verbs_resolve_every_future(verb):
+    """kill() fails every in-flight and queued future with
+    ReplicaDeadError; drain() hands them all off as (migrated, replayed),
+    each local future failed with its hand-off error. Either way the
+    server ends stopped, holding nothing."""
+    from deeplearning4j_tpu_torch.serving import (ReplicaDeadError,
+                                                  RequestDrainedError,
+                                                  RequestMigratedError)
+    srv = _paged(_lm(), slots=2, fault_injector=_paced()).start()
+    srv.generate([1, 2, 3], 2, timeout=120)
+    futs = [srv.submit([1, 2, 3], 30) for _ in range(4)]
+    _wait_decoding(srv)
+    if verb == "kill":
+        srv.kill()
+        for f in futs:
+            with pytest.raises(ReplicaDeadError):
+                f.result(30)
+        with pytest.raises(ServerClosedError):
+            srv.start()
+    else:
+        migrated, replayed = srv.drain()
+        assert {f for f, _ in migrated} | {f for f, _ in replayed} == \
+            set(futs)
+        assert migrated and replayed        # two decoding, two queued
+        for f, art in migrated:
+            assert isinstance(f.exception(0), RequestMigratedError)
+            assert list(art.prompt) == [1, 2, 3] and art.generated
+        for f, spec in replayed:
+            assert isinstance(f.exception(0), RequestDrainedError)
+            assert spec == {"prompt": [1, 2, 3], "max_new": 30,
+                            "deadline": None, "klass": "default"}
+    assert not srv.alive
+    assert all(r is None for r in srv._slot_req)
+
+
+def _wait_decoding(srv, timeout=60.0):
+    t0 = time.monotonic()
+    while not any(r is not None and r.pf_next is None and r.generated
+                  for r in srv._slot_req):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError("no request ever reached decode")
+        time.sleep(0.002)
 
 
 def test_fused_with_speculate_names_the_deferred_item():

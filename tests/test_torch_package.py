@@ -1,14 +1,17 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
 `chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py`,
-`chip_embeddings.py`, `chip_parallel.py`, `chip_fused.py` and
-`chip_spec_kv.py` import neither JAX, nor `ml_dtypes` (the card's machine
+`chip_embeddings.py`, `chip_parallel.py`, `chip_fused.py`,
+`chip_spec_kv.py` and `chip_fleet.py` import neither JAX, nor `ml_dtypes` (the card's machine
 has neither), nor anything of the JAX package `deeplearning4j_tpu`, and
 importing the
 port (its `models` package with the embeddings included, and the whole
 `parallel` package) builds no kernel, builds or loads no native library,
-starts no thread, opens no process group and needs no card. The names the port does
-not have yet raise NotImplementedError naming their ROADMAP.md queue 1
-item."""
+starts no thread, opens no process group and needs no card. The fleet
+plane's stdlib halves (`obs/*.py`, `serving/fleetjournal.py`) import
+neither torch nor numpy themselves, as the reference's layering rules
+demand of theirs (tools/analyze/layers_torch.toml holds the same). The names
+the port does not have yet raise NotImplementedError naming their
+ROADMAP.md queue 1 item."""
 import os
 import re
 import subprocess
@@ -59,6 +62,10 @@ import deeplearning4j_tpu_torch.serving.admission
 import deeplearning4j_tpu_torch.serving.kvstate
 import deeplearning4j_tpu_torch.serving.speculate
 import deeplearning4j_tpu_torch.serving.loadgen
+import deeplearning4j_tpu_torch.serving.fleet
+import deeplearning4j_tpu_torch.serving.fleetjournal
+import deeplearning4j_tpu_torch.serving.wire
+import deeplearning4j_tpu_torch.obs.fleet
 import deeplearning4j_tpu_torch.datasets
 import deeplearning4j_tpu_torch.datasets.iterators
 import deeplearning4j_tpu_torch.datasets.normalizers
@@ -115,9 +122,20 @@ _FORBIDDEN = re.compile(
     [p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
        "chip_recurrent.py", "chip_embeddings.py", "chip_parallel.py",
-       "chip_fused.py", "chip_spec_kv.py"]))
+       "chip_fused.py", "chip_spec_kv.py", "chip_fleet.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
+    assert found is None, f"{path}: {found and found.group(0)}"
+
+
+_HEAVY = re.compile(r"^\s*(import|from)\s+(torch|numpy)\b", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(REPO).as_posix() for p in (PORT / "obs").glob("*.py")]
+    + ["deeplearning4j_tpu_torch/serving/fleetjournal.py"]))
+def test_fleet_plane_stdlib_halves_name_neither_torch_nor_numpy(path):
+    found = _HEAVY.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
 
 
