@@ -290,12 +290,43 @@ kernels and are counted apart.
      with prefix_cache_dir= (restored rows hit, streams equal to the saving
      server's; bytes written, save and restore ms). Every artifact is bf16,
      read and written without ml_dtypes.
+ 28. the fleet and the wire on phase 22's model (`fleet_phase`, alone:
+     chip_fleet.py): in-process paged replicas behind a FleetManager
+     against bare servers, a severed replica, a drain, canary rollouts,
+     then 2 replica processes behind the wire; the flash counters read 0.
+ 29. the training tools, the containers' surface and the classic CNNs
+     (`tools_phase`, alone: chip_tools.py), under cuDNN's deterministic
+     algorithms wherever two runs must be bit-equal: (a) predict, get_layer
+     and n_layers on LeNet bf16; (b) config #1's width (LeNet bf16, batch
+     512, 16 batches a fit): PerformanceListener's samples/s beside CUDA
+     events recorded at the same calls, and fused_steps(8) with and without
+     a CollectScoresIterationListener (images/s in interleaved fits; the
+     listener's scores equal to the groups' per-step scores; both nets
+     bit-equal); (c) early stopping: LocalFileModelSaver under build/ with
+     ScoreImprovement(2) and MaxEpochs(5), the best model's zip restored on
+     the card with outputs bit-equal to the net's at its best epoch;
+     EarlyStoppingParallelTrainer over the one-rank wrapper, k = 1 and 2,
+     bit-equal to EarlyStoppingTrainer; TpuEarlyStoppingTrainer over the
+     TrainingMaster; ShardedModelSaver's best model bit-equal; (d)
+     check_gradients on cuda:0 for tier-1's f64 conv + max-pool net and
+     GravesLSTM with masks; (e) the solvers, 10 iterations, card against
+     CPU (1e-8 relative), and LBFGS at 100 iterations below 0.3; (f)
+     ProfilerListener on ResNet-50 bf16, batch 128, 3 steps after 5, then
+     summarize_trace: its top rows and device ms a step beside the step by
+     CUDA events; (g) AlexNet and GoogLeNet at batch 128, VGG-16 at 64,
+     224x224x3, 1000 classes, bf16: one forward, 4 steps on fresh batches
+     (finite losses; ms a step and images/s by CUDA events, the median of
+     the last 3; peak memory; one traced step), then toy copies card
+     against CPU (an f32 forward, an f32 and an f64 step); (h)
+     graft_entry.entry()'s forward, timed. The flash counters read 0.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
 ...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, an
 {"embeddings": ...} line, a {"parallel": ...} line, a {"fused": ...} line,
-a {"spec_kv": ...} line, one {"kernels": [...]} JSON line and, as the last
-line, {"ok": true, "device": {...}}. It imports nothing of JAX.
+a {"spec_kv": ...} line, a {"fleet": ...} line, a {"tools": ...} line, one
+{"kernels": [...]} JSON line and, as the last line, {"ok": true, "device":
+{...}}. It imports nothing of JAX.
 """
+import contextlib
 import json
 import math
 import os
@@ -803,6 +834,7 @@ def main():
     fused = fused_phase(fa)
     spec_kv = spec_kv_phase(fa)
     fleet = fleet_phase(fa)
+    tools = tools_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -837,6 +869,7 @@ def main():
     print(json.dumps({"fused": fused}))
     print(json.dumps({"spec_kv": spec_kv}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6315,6 +6348,673 @@ def fleet_phase(fa):
     print(f"  phase 28 launched no kernel of the port: {launched}; wire / "
           f"in-process tokens/s {out['wire_over_inprocess_tokens_per_s']:.3f}"
           f"; {out['phase_s']:.1f} s ({out['sub_phase_s']})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the training tools, the containers' surface and the classic CNNs
+# ---------------------------------------------------------------------------
+TOOLS_LENET_B, TOOLS_LENET_BATCHES, TOOLS_FUSED_FITS = 512, 16, 5
+TOOLS_ES_BATCHES, TOOLS_ES_VAL = 8, 2
+PROF_B, PROF_START, PROF_STEPS = 128, 5, 3
+CNN_BATCH = {"alexnet": 128, "vgg16": 64, "googlenet": 128}
+CNN_TOY_HW = {"alexnet": 64, "vgg16": 32, "googlenet": 64}
+CNN_STEPS = 4
+# Phase 29(g)'s toy copies, card against CPU, dropout off: the f32 forward
+# within 1e-5 of the largest output (tier-1 reads <= 1.7e-6 between XLA
+# and oneDNN on the CPU); the f32 step's parameter change within 1e-3
+# relative L2 (tier-1: GoogLeNet's f32 gradients differ by 1.6e-4 relative
+# L2 between XLA and oneDNN, 1e-3 at its stem, where its f64 gradients
+# agree to 1.4e-15); the f64 step within 1e-9 of the largest change.
+CNN_FWD_TOL, CNN_F32_STEP_L2, CNN_F64_STEP_TOL = 1e-5, 1e-3, 1e-9
+SOLVER_TOL = 1e-8   # card against CPU, f64, 10 iterations: relative
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside (the port then picks them by
+    heuristics, the same for a shape in every call), for comparisons that
+    must be bit-equal on the card."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _load_tier1(name):
+    """A tier-1 test module by its file (its nets and data builders; its
+    JAX fixtures are not run)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_tier1_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _EventMarks:
+    """A listener recording a CUDA event at each iteration_done: the
+    device time between two calls."""
+
+    def __init__(self):
+        self.events = []
+
+    def iteration_done(self, model, iteration):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events.append(e)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events,
+                                                  self.events[1:])]
+
+
+def _lenet_data(seed, rows, n):
+    """n numpy batches of config #1's shape (784 features, 10 classes),
+    labelled by one fixed linear map, so that a held-out set can improve."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(seed)
+    w = np.random.default_rng(290).standard_normal((784, 10))
+    out = []
+    for _ in range(n):
+        x = rng.random((rows, 784), dtype=np.float32)
+        out.append(DataSet(x, np.eye(10, dtype=np.float32)[
+            np.argmax((x - 0.5) @ w, axis=1)]))
+    return out
+
+
+def tools_f1():
+    """Phase 29(a): predict, get_layer and n_layers on the card."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    print("phase 29(a): LeNet bf16 on the card: predict, get_layer, "
+          "n_layers")
+    with _cudnn_deterministic():
+        net = lenet(data_type="bfloat16")
+        x = np.random.default_rng(291).random((256, 784), dtype=np.float32)
+        pred = net.predict(x)
+        want = net.output(x).argmax(-1)
+    layers_ok = (net.n_layers == len(net.conf.layers) == 6 and all(
+        net.get_layer(i) is net.conf.layers[i] for i in range(6)))
+    ok = (pred.dtype.kind == "i" and pred.shape == (256,)
+          and np.array_equal(pred, want) and layers_ok)
+    print(f"  predict == output(...).argmax(-1) on 256 rows: "
+          f"{np.array_equal(pred, want)}; n_layers {net.n_layers}, "
+          f"get_layer(i) is conf.layers[i]: {layers_ok}")
+    if not ok:
+        raise SystemExit("phase 29(a): predict / get_layer / n_layers")
+    return {"predict_equal": True, "n_layers": net.n_layers,
+            "classes_seen": int(len(set(pred.tolist())))}
+
+
+def tools_listeners():
+    """Phase 29(b): the listeners at config #1's width. Returns its
+    readings."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresIterationListener, PerformanceListener)
+    B, n = TOOLS_LENET_B, TOOLS_LENET_BATCHES
+    print(f"phase 29(b): listeners on LeNet bf16, batch {B}, {n} batches a "
+          f"fit (phase 26's data): PerformanceListener beside CUDA events; "
+          f"fused_steps({FUSED_K}) with and without a "
+          f"CollectScoresIterationListener")
+    gen = torch.Generator(device="cuda").manual_seed(261)
+    x = torch.rand((B, 784), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 10, (B,), generator=gen, device="cuda"), 10).float()
+    ds = DataSet(x, y)
+
+    def epoch():
+        return ListDataSetIterator([ds] * n)
+
+    out = {}
+    net = lenet(data_type="bfloat16")
+    net.fit(epoch())                       # cuDNN's search
+    perf, marks = PerformanceListener(), _EventMarks()
+    net.set_listeners(perf, marks)
+    net.fit(epoch())
+    dev_ms = marks.ms()
+    host = [s for _, _, s in perf.history]
+    if len(host) != n - 1 or len(dev_ms) != n - 1:
+        raise SystemExit(f"PerformanceListener saw {len(host)} intervals, "
+                         f"the events {len(dev_ms)}; want {n - 1}")
+    out["performance_listener"] = {
+        "median_samples_per_s": _p(host, 50),
+        "median_images_per_s_cuda_events": _p(
+            [B * 1e3 / ms for ms in dev_ms], 50),
+        "median_step_ms_cuda_events": _p(dev_ms, 50),
+        "median_step_ms_host": _p([1e3 * dt for _, dt, _ in
+                                   perf.history], 50),
+        "last_batch_size": net._last_batch_size}
+    r = out["performance_listener"]
+    print(f"  PerformanceListener median {r['median_samples_per_s']:.0f} "
+          f"samples/s (host clock between calls, "
+          f"{r['median_step_ms_host']:.3f} ms); CUDA events between the "
+          f"same calls "
+          f"{r['median_images_per_s_cuda_events']:.0f} images/s "
+          f"({r['median_step_ms_cuda_events']:.3f} ms); _last_batch_size "
+          f"{net._last_batch_size}")
+    if net._last_batch_size != B or not r["median_samples_per_s"] > 0:
+        raise SystemExit(f"PerformanceListener read {r}")
+
+    quiet = lenet(data_type="bfloat16").fused_steps(FUSED_K)
+    heard = lenet(data_type="bfloat16").fused_steps(FUSED_K)
+    collect = CollectScoresIterationListener()
+    heard.set_listeners(collect)
+    seen = _record_steps(heard)
+    nets = {"fused8": quiet, "fused8_listener": heard}
+    rates = {k: [] for k in nets}
+
+    def timed_fit(name):
+        net = nets[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(epoch())
+        float(net._score)
+        torch.cuda.synchronize()
+        return B * n / (time.perf_counter() - t0)
+
+    for name in nets:                      # the capture
+        timed_fit(name)
+    for i in range(TOOLS_FUSED_FITS):
+        for name in (list(nets) if i % 2 == 0 else list(nets)[::-1]):
+            rates[name].append(timed_fit(name))
+    got = [s for _, s in collect.scores]
+    want = _step_scores(seen)
+    its = [i for i, _ in collect.scores]
+    if got != want or its != list(range(len(want))) or \
+            len(want) != n * (TOOLS_FUSED_FITS + 1):
+        raise SystemExit(f"the listener's scores are not the groups' "
+                         f"per-step scores: {got[:4]} vs {want[:4]}")
+    _same_training_state("fused8 with and without a listener", quiet, heard)
+    for name in nets:
+        out[name] = {"images_per_s": rates[name],
+                     "median_images_per_s": _p(rates[name], 50),
+                     "graph_replays": nets[name].fused_counts[
+                         "graph_replays"]}
+        print(f"  {name}: images/s {[round(v) for v in rates[name]]}, "
+              f"median {out[name]['median_images_per_s']:.0f}; "
+              f"{nets[name].fused_counts['graph_replays']} graph replays")
+    out["listener_over_quiet"] = (out["fused8_listener"]["median_images_per_s"]
+                                  / out["fused8"]["median_images_per_s"])
+    out["listener_scores"] = len(got)
+    print(f"  the listener heard {len(got)} steps, each score equal to its "
+          f"group's; with / without: {out['listener_over_quiet']:.3f}")
+    return out
+
+
+def tools_early_stopping():
+    """Phase 29(c): early stopping on the card. Returns its readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.parallel import (
+        EarlyStoppingParallelTrainer, MasterDataSetLossCalculator,
+        ParameterAveragingTrainingMaster, TpuEarlyStoppingTrainer)
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import \
+        ShardedModelSaver
+    B = TOOLS_LENET_B
+    print(f"phase 29(c): early stopping on LeNet bf16, {TOOLS_ES_BATCHES} "
+          f"training batches of {B}, {TOOLS_ES_VAL} held out, under cuDNN's "
+          f"deterministic algorithms")
+    batches = _lenet_data(292, B, TOOLS_ES_BATCHES)
+    held = _lenet_data(293, B, TOOLS_ES_VAL)
+    probe = held[0].features
+    root = Path(__file__).resolve().parent / "build" / "phase29_es"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def conf(saver=None, calc=None, *conds):
+        b = (EarlyStoppingConfiguration.Builder()
+             .score_calculator(calc or DataSetLossCalculator(
+                 ListDataSetIterator(held)))
+             .epoch_termination_conditions(*conds))
+        return (b.model_saver(saver) if saver is not None else b).build()
+
+    def recording(saver, what):
+        seen = []
+        save = saver.save_best_model
+
+        def save_best_model(net, score):
+            seen.append(what(net))
+            save(net, score)
+
+        saver.save_best_model = save_best_model
+        return seen
+
+    out = {}
+    with _cudnn_deterministic():
+        # the zip saver: the best model restored from bestModel.bin gives
+        # the outputs the net gave at its best epoch, bit for bit
+        saver = LocalFileModelSaver(root / "zip")
+        at_best = recording(saver, lambda n: n.output(probe))
+        net = lenet(data_type="bfloat16")
+        t0 = time.perf_counter()
+        res = EarlyStoppingTrainer(conf(
+            saver, None, ScoreImprovementEpochTerminationCondition(2),
+            MaxEpochsTerminationCondition(5)), net,
+            ListDataSetIterator(batches)).fit()
+        fit_s = time.perf_counter() - t0
+        best = res.get_best_model()
+        bit_equal = bool(np.array_equal(best.output(probe), at_best[-1]))
+        out["zip"] = {"best_epoch": res.best_model_epoch,
+                      "total_epochs": res.total_epochs,
+                      "reason": res.termination_reason,
+                      "details": res.termination_details,
+                      "score_vs_epoch": {str(k): v for k, v in
+                                         res.score_vs_epoch.items()},
+                      "fit_s": fit_s, "best_restored_bit_equal": bit_equal,
+                      "best_on": str(best.device)}
+        print(f"  LocalFileModelSaver: {res.total_epochs} epochs "
+              f"({res.termination_details}), best epoch "
+              f"{res.best_model_epoch}, {fit_s:.2f} s; bestModel.bin "
+              f"restored on {best.device}, outputs bit-equal to the net's "
+              f"at its best epoch: {bit_equal}")
+        if not bit_equal or best.device.type != "cuda":
+            raise SystemExit("phase 29(c): the best model's zip does not "
+                             "restore the best epoch")
+
+        # the parallel trainer in both modes is the trainer on one rank
+        runs = {}
+        for mode in ("trainer", 1, 2):
+            net = lenet(data_type="bfloat16")
+            es = conf(None, None, MaxEpochsTerminationCondition(3))
+            it = ListDataSetIterator(batches)
+            trainer = (EarlyStoppingTrainer(es, net, it) if mode == "trainer"
+                       else EarlyStoppingParallelTrainer(
+                           es, net, it, averaging_frequency=mode))
+            r = trainer.fit()
+            runs[mode] = (r.score_vs_epoch, net.params())
+        same = all(runs[k][0] == runs["trainer"][0] and np.array_equal(
+            runs[k][1], runs["trainer"][1]) for k in (1, 2))
+        out["parallel_trainer_equals_trainer"] = same
+        print(f"  EarlyStoppingParallelTrainer (one rank, k = 1 and 2) == "
+              f"EarlyStoppingTrainer, scores and parameters bit-equal: "
+              f"{same}")
+        if not same:
+            raise SystemExit("phase 29(c): the parallel trainer differs")
+
+        # one epoch is one execute_training pass of the master
+        net = lenet(data_type="bfloat16")
+        tm = (ParameterAveragingTrainingMaster.Builder(B)
+              .averaging_frequency(2).rdd_training_approach("direct")
+              .build())
+        r = TpuEarlyStoppingTrainer(conf(
+            None, MasterDataSetLossCalculator(ListDataSetIterator(held)),
+            MaxEpochsTerminationCondition(3),
+            ScoreImprovementEpochTerminationCondition(2)), tm, net,
+            DataSet.merge(batches)).fit()
+        out["master"] = {"total_epochs": r.total_epochs,
+                         "best_epoch": r.best_model_epoch,
+                         "best_score": r.best_model_score,
+                         "iterations": net.conf.iteration_count}
+        print(f"  TpuEarlyStoppingTrainer over the TrainingMaster: "
+              f"{r.total_epochs} epochs, best {r.best_model_epoch} "
+              f"({r.best_model_score:.4f}), {net.conf.iteration_count} steps")
+        if (r.best_model is None or not math.isfinite(r.best_model_score)
+                or net.conf.iteration_count != TOOLS_ES_BATCHES
+                * r.total_epochs):
+            raise SystemExit(f"phase 29(c) master: {out['master']}")
+
+        # the sharded saver: the best model holds the best epoch's masters
+        saver = ShardedModelSaver(str(root / "sharded"),
+                                  lambda: lenet(data_type="bfloat16"))
+        at_best = recording(saver, lambda n: (n.params(), n.output(probe)))
+        net = lenet(data_type="bfloat16")
+        r = EarlyStoppingTrainer(conf(saver, None,
+                                      MaxEpochsTerminationCondition(3)),
+                                 net, ListDataSetIterator(batches)).fit()
+        best = r.get_best_model()
+        params_equal = bool(np.array_equal(best.params(), at_best[-1][0]))
+        outputs_equal = bool(np.array_equal(best.output(probe),
+                                            at_best[-1][1]))
+        out["sharded"] = {"best_epoch": r.best_model_epoch,
+                          "params_bit_equal": params_equal,
+                          "outputs_bit_equal": outputs_equal}
+        print(f"  ShardedModelSaver: best epoch {r.best_model_epoch}, "
+              f"restored masters bit-equal {params_equal}, outputs "
+              f"bit-equal {outputs_equal}")
+        if not (params_equal and outputs_equal):
+            raise SystemExit("phase 29(c): ShardedModelSaver's restore")
+    return out
+
+
+def tools_gradient_check():
+    """Phase 29(d): tier-1's f64 conv + max-pool net and f64 GravesLSTM
+    with masks pass check_gradients on the card."""
+    from deeplearning4j_tpu_torch.gradientcheck import check_gradients
+    G = _load_tier1("test_torch_gradient_check")
+    print("phase 29(d): check_gradients on cuda:0, f64, cuDNN's "
+          "deterministic algorithms: tier-1's conv + max-pool net (50 of "
+          "its parameters) and GravesLSTM with masks (50)")
+    out = {}
+    with _cudnn_deterministic():
+        x, y = G.cnn_data()
+        pool = G.SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                  stride=(2, 2))
+        net = G.cnn_net((pool,), device="cuda")
+        t0 = time.perf_counter()
+        out["conv_max_pool"] = check_gradients(net, x, y, max_rel_error=1e-4,
+                                               subset=50)
+        out["conv_s"] = time.perf_counter() - t0
+        x, y, fmask, lmask = G.lstm_data()
+        net = G.lstm_net(device="cuda")
+        t0 = time.perf_counter()
+        out["graves_lstm_masked"] = check_gradients(
+            net, x, y, fmask=fmask, lmask=lmask, max_rel_error=1e-4,
+            subset=50)
+        out["lstm_s"] = time.perf_counter() - t0
+    print(f"  conv + max pool: {out['conv_max_pool']} ({out['conv_s']:.2f} "
+          f"s); GravesLSTM with masks: {out['graves_lstm_masked']} "
+          f"({out['lstm_s']:.2f} s)")
+    if not (out["conv_max_pool"] and out["graves_lstm_masked"]):
+        raise SystemExit("phase 29(d): a gradient check failed on the card")
+    return out
+
+
+def tools_solvers():
+    """Phase 29(e): the solvers on the card against the CPU."""
+    from deeplearning4j_tpu_torch.optimize import Solver
+    S = _load_tier1("test_torch_solvers")
+    print(f"phase 29(e): the solvers on tier-1's f64 4-8-2 MLP, 10 "
+          f"iterations, card against CPU (relative {SOLVER_TOL:g}); LBFGS "
+          f"100 iterations on the card")
+    x, y = S._xor_ish()
+    out = {}
+    for algo in S.ALGOS:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[dev] = Solver(S._net(algo, device=dev),
+                              max_iterations=10).optimize(x, y)
+            got[f"{dev}_s"] = time.perf_counter() - t0
+        rel = abs(got["cuda"] - got["cpu"]) / abs(got["cpu"])
+        out[algo] = dict(got, rel_err=rel)
+        _check(f"{algo}: card {got['cuda']:.12g} ({got['cuda_s']:.2f} s) "
+               f"vs CPU {got['cpu']:.12g}", rel, SOLVER_TOL)
+    net = S._net("lbfgs", device="cuda")
+    final = Solver(net, max_iterations=100).optimize(x, y)
+    out["lbfgs_100"] = final
+    print(f"  LBFGS 100 iterations on the card: {final:.3e} (< 0.3)")
+    if not final < 0.3:
+        raise SystemExit(f"phase 29(e): LBFGS reached {final}")
+    return out
+
+
+def tools_profiler():
+    """Phase 29(f): ProfilerListener and summarize_trace on ResNet-50
+    (config #2). Returns its readings."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.optimize.profiler import (ProfilerListener,
+                                                            summarize_trace)
+    B = PROF_B
+    print(f"phase 29(f): ProfilerListener on ResNet-50 bf16, batch {B}, "
+          f"224x224x3: {PROF_STEPS} steps traced after {PROF_START}, then "
+          f"summarize_trace")
+    torch.cuda.empty_cache()
+    net = resnet50(data_type="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(296)
+    x = torch.rand((B, 224, 224, 3), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (B,), generator=gen, device="cuda"), 1000).float()
+    ds = DataSet(x, y)
+    logdir = Path(__file__).resolve().parent / "build" / "phase29_prof"
+    shutil.rmtree(logdir, ignore_errors=True)
+    listener = ProfilerListener(logdir, start_iteration=PROF_START,
+                                num_iterations=PROF_STEPS)
+    net.set_listeners(listener)
+    t0 = time.perf_counter()
+    for _ in range(PROF_START + PROF_STEPS):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if not listener.done:
+        raise SystemExit("ProfilerListener did not stop")
+    t0 = time.perf_counter()
+    rows = summarize_trace(logdir)
+    summarize_s = time.perf_counter() - t0
+    whole = summarize_trace(logdir, merge_fusion_names=False)
+    net.set_listeners()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(PROF_STEPS + 1)]
+    events[0].record()
+    for i in range(PROF_STEPS):
+        net.fit(ds)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    total = sum(r["total_ms"] for r in rows)
+    conv = [r for r in rows if _kernel_kind(r["name"]) == "convolution"]
+    out = {"trace_bytes": os.path.getsize(listener.path),
+           "fit_s": fit_s, "summarize_s": summarize_s,
+           "device_ms_per_step": total / PROF_STEPS,
+           "step_ms_cuda_events": step_ms,
+           "rows": len(rows), "top_rows": rows[:10],
+           "convolution_ms_per_step": sum(r["total_ms"] for r in conv)
+           / PROF_STEPS,
+           "a_kernel_name_whole": whole[0]["name"],
+           "a_kernel_name_merged": rows[0]["name"]}
+    print(f"  trace {out['trace_bytes'] / 2 ** 20:.1f} MiB, summarized in "
+          f"{summarize_s:.2f} s: {len(rows)} rows, {total:.2f} ms of device "
+          f"time, {out['device_ms_per_step']:.2f} ms a step (convolutions "
+          f"{out['convolution_ms_per_step']:.2f} ms); the step by CUDA "
+          f"events {[round(t, 2) for t in step_ms]} ms")
+    for r in rows[:8]:
+        print(f"    {r['total_ms']:9.3f} ms  x{r['count']:<5d} "
+              f"{r['pct']:5.2f}%  {r['name'][:90]}")
+    print(f"  a whole kernel name: {whole[0]['name'][:160]}")
+    if not conv or not total > 0:
+        raise SystemExit("phase 29(f): no convolution kernel in the rows")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _toy_cnn(name, device, data_type):
+    """Phase 29(g)'s toy copy of a classic CNN (10 classes, dropout off)."""
+    from deeplearning4j_tpu_torch.models.zoo import classic_cnns as C
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    hw = CNN_TOY_HW[name]
+    conf = getattr(C, f"{name}_conf")(height=hw, width=hw, channels=3,
+                                      num_classes=10, data_type=data_type)
+    layers = (conf.layers if hasattr(conf, "layers")
+              else [v.conf for v in conf.vertices.values() if v.is_layer])
+    for layer in layers:
+        layer.dropout = None
+    cls = ComputationGraph if name == "googlenet" else MultiLayerNetwork
+    return cls(conf, device=device).init()
+
+
+def _first(out):
+    return out[0] if isinstance(out, list) else out
+
+
+def _toy_cnn_card_vs_cpu(name):
+    """One f32 forward, one f32 step and one f64 step of the toy copy on
+    the card and on the CPU, the same weights."""
+    import numpy as np
+    hw = CNN_TOY_HW[name]
+    rng = np.random.default_rng(297)
+    x = rng.random((2, hw, hw, 3), dtype=np.float32)
+    y = _one_hot(rng, 2, 10)
+    out = {}
+    with _cudnn_deterministic():
+        nets = {d: _toy_cnn(name, d, "float32") for d in ("cuda", "cpu")}
+        o = {d: _first(n.output(x)) for d, n in nets.items()}
+        out["forward"] = _max_err(o["cuda"], o["cpu"]) / float(
+            np.abs(o["cpu"]).max())
+        p0 = nets["cpu"].params()
+        for n in nets.values():
+            n.fit(x, y)
+        d_card, d_cpu = nets["cuda"].params() - p0, nets["cpu"].params() - p0
+        out["f32_step_l2"] = float(np.linalg.norm(d_card - d_cpu)
+                                   / np.linalg.norm(d_cpu))
+        nets = {d: _toy_cnn(name, d, "float64") for d in ("cuda", "cpu")}
+        p0 = nets["cpu"].params()
+        for n in nets.values():
+            n.fit(x.astype(np.float64), y.astype(np.float64))
+        change = np.abs(nets["cpu"].params() - p0).max()
+        out["f64_step"] = _max_err(nets["cuda"].params(),
+                                   nets["cpu"].params()) / float(change)
+    _check(f"{name} toy f32 forward, card vs CPU (of the largest output)",
+           out["forward"], CNN_FWD_TOL)
+    _check(f"{name} toy f32 step, parameter change (relative L2)",
+           out["f32_step_l2"], CNN_F32_STEP_L2)
+    _check(f"{name} toy f64 step (of the largest change)", out["f64_step"],
+           CNN_F64_STEP_TOL)
+    return out
+
+
+def tools_classic_cnns():
+    """Phase 29(g): AlexNet, VGG-16 and GoogLeNet at their published width.
+    Returns their readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo import classic_cnns as C
+    print(f"phase 29(g): the classic CNNs at 224x224x3, 1000 classes, bf16, "
+          f"Nesterov 0.9: one forward and {CNN_STEPS} steps each "
+          f"(batches {CNN_BATCH}), then toy copies card vs CPU")
+    out = {}
+    for name, batch in CNN_BATCH.items():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        net = getattr(C, name)(data_type="bfloat16")
+        init_s = time.perf_counter() - t0
+        # a fresh batch each step, as an epoch feeds them: VGG-16's
+        # published rate (0.01, no BatchNorm) diverges on one repeated
+        # batch of random labels within 4 steps, in the reference as in
+        # the port (f32 on the CPU, batch 8: losses 11.4, 34.0, 1923,
+        # 3.5e18, then NaN in the reference)
+        gen = torch.Generator(device="cuda").manual_seed(298)
+        batches = []
+        for _ in range(CNN_STEPS + 3):
+            x = torch.rand((batch, 224, 224, 3), generator=gen,
+                           device="cuda")
+            y = torch.nn.functional.one_hot(torch.randint(
+                0, 1000, (batch,), generator=gen, device="cuda"),
+                1000).float()
+            batches.append(DataSet(x, y))
+        probs = _first(net.output(batches[0].features))
+        if probs.shape != (batch, 1000) or not np.isfinite(probs).all():
+            raise SystemExit(f"{name}: bad output {probs.shape}")
+        torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(CNN_STEPS + 1)]
+        scores = []
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(CNN_STEPS):
+            net.fit(batches[i])
+            scores.append(net._score)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        first_steps_s = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        losses = [float(s) for s in scores]
+        if not all(math.isfinite(v) for v in losses):
+            raise SystemExit(f"{name}: losses not finite: {losses}")
+        ms = _p(step_ms[1:], 50)
+        r = {"batch": batch, "params": net.num_params(), "init_s": init_s,
+             "losses": losses, "step_ms": step_ms, "median_step_ms": ms,
+             "images_per_s": batch * 1e3 / ms,
+             "steps_s_with_search": first_steps_s,
+             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "kernels": _kernel_breakdown(
+                 lambda: net.fit(batches[CNN_STEPS]), iters=1, top=6)}
+        # the operations of one training step, counted by torch's flop
+        # counter over the step's convolutions and products (forward and
+        # backward), and the least time the card takes for them
+        from torch.utils.flop_counter import FlopCounterMode
+        with FlopCounterMode(display=False) as counter:
+            net.fit(batches[CNN_STEPS + 2])
+        r["step_flop"] = counter.get_total_flops()
+        r["bound_ms"] = 1e3 * r["step_flop"] / PEAK_BF16_FLOPS
+        r["bound_share"] = r["bound_ms"] / ms
+        print(f"  {name}: {r['params'] / 1e6:.1f}M parameters (init "
+              f"{init_s:.1f} s), batch {batch}: losses "
+              f"{[round(v, 4) for v in losses]}; step ms "
+              f"{[round(t, 2) for t in step_ms]} (the first searches), "
+              f"median of the last 3 {ms:.2f} ms, {r['images_per_s']:.0f} "
+              f"images/s; peak {r['peak_memory_gib']:.2f} GiB; one traced "
+              f"step {r['kernels']['device_ms']:.2f} ms of device time, "
+              f"busy {r['kernels']['busy_share']:.1%}; "
+              f"{r['step_flop'] / 1e12:.3f} TFLOP a step (flop counter): "
+              f"bound {r['bound_ms']:.2f} ms at the bf16 peak, "
+              f"{r['bound_share']:.1%} of the step")
+        for k, v in r["kernels"]["top_kernels_ms"]:
+            print(f"    {v:8.3f} ms  {k}")
+        del net, batches, x, y
+        out[name] = r
+    torch.cuda.empty_cache()
+    out["toy_card_vs_cpu"] = {name: _toy_cnn_card_vs_cpu(name)
+                              for name in CNN_BATCH}
+    return out
+
+
+def tools_graft_entry():
+    """Phase 29(h): graft_entry.entry()'s forward on the card."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.graft_entry import entry
+    print("phase 29(h): graft_entry.entry(): the ResNet-50 bf16 inference "
+          "forward, [8, 224, 224, 3]")
+    torch.cuda.empty_cache()
+    fn, (params, x) = entry()
+    out = fn(params, x)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: fn(params, x), iters=20)
+    ok = (tuple(out.shape) == (8, 1000) and out.dtype == torch.bfloat16
+          and out.is_cuda and bool(torch.isfinite(out).all()))
+    sums = out.float().sum(-1).cpu().numpy()
+    print(f"  output {tuple(out.shape)} {out.dtype} on {out.device}, "
+          f"finite; row sums {np.round(sums, 3).tolist()}; {ms:.3f} ms a "
+          f"forward by CUDA events")
+    if not ok:
+        raise SystemExit("phase 29(h): bad entry() output")
+    return {"shape": list(out.shape), "dtype": str(out.dtype), "ms": ms}
+
+
+def tools_phase(fa):
+    """Phase 29. Returns its readings. The training tools, the containers'
+    surface and the classic CNNs run no kernel of the port: the counters
+    are set to 0 first and must read 0 after it."""
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    out = {"sub_phase_s": {}}
+    for key, fn in (("a", tools_f1), ("b", tools_listeners),
+                    ("c", tools_early_stopping), ("d", tools_gradient_check),
+                    ("e", tools_solvers), ("f", tools_profiler),
+                    ("g", tools_classic_cnns), ("h", tools_graft_entry)):
+        t = time.perf_counter()
+        out[key] = fn()
+        out["sub_phase_s"][key] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    launched = dict(fa.launches)
+    if any(launched.values()):
+        raise SystemExit(f"phase 29 launched flash kernels: {launched}")
+    out["flash_launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 29 launched no kernel of the port: {launched}; "
+          f"{out['phase_s']:.1f} s ({out['sub_phase_s']})")
     return out
 
 

@@ -28,9 +28,30 @@ as one CUDA graph replay (`nn.fused`), the training-health watchdog
 (`common.health`) and the checkpoints of replicated training state its
 rollback restores (`util.sharded_checkpoint`); the fleet and the wire:
 `serving.FleetManager` over decode replicas, its journal and recovery, the
-replica wire protocol (`serving.wire`) and the fleet plane (`obs.fleet`).
-ROADMAP.md queues the rest.
+replica wire protocol (`serving.wire`) and the fleet plane (`obs.fleet`);
+the training tools: listeners, the profiler and the full-batch solvers
+(`optimize`), early stopping (`earlystopping`, and over the wrapper and
+the master in `parallel`), gradient checks (`gradientcheck`); the classic
+CNNs of the zoo (AlexNet, VGG-16, GoogLeNet) and `graft_entry`, the
+ResNet-50 inference forward. ROADMAP.md queues the rest.
+
+The package exports the reference's six names beside `resolve_device`.
 """
 from .common.device import resolve_device
+from .nn.conf.computation_graph_configuration import \
+    ComputationGraphConfiguration
+from .nn.conf.input_type import InputType
+from .nn.conf.neural_net_configuration import (MultiLayerConfiguration,
+                                               NeuralNetConfiguration)
+from .nn.graph import ComputationGraph
+from .nn.multilayer import MultiLayerNetwork
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "ComputationGraph",
+    "ComputationGraphConfiguration",
+    "InputType",
+    "MultiLayerConfiguration",
+    "NeuralNetConfiguration",
+    "MultiLayerNetwork",
+    "resolve_device",
+]

@@ -447,8 +447,7 @@ def finish_fused(net, scores, health_stack, n_steps):
             if action == ROLLBACK:
                 return i
         net.conf.iteration_count += 1
-        for listener in net.listeners:
-            listener.iteration_done(net, net.conf.iteration_count - 1)
+        net._fire_iteration_done()
     # groups are clipped at checkpoint boundaries (fused.group_size), so a
     # due save can only land on the last inner step, where the net's state
     # is the post-due-step state

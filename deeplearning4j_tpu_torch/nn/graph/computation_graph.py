@@ -20,6 +20,10 @@ name.
 layer vertex carries its state by vertex name; a TBPTT segment slices the
 sequence inputs, labels and masks and passes static ones whole.
 
+Listeners, `make_flat_score_fn` and `_last_batch_size` are
+`multilayer.Network`'s (the reference's graph has `set_listeners` but no
+`add_listener`); `get_layer(name)` is the vertex's layer configuration.
+
 `fused_steps(K)` and `training_health` are `multilayer.Network`'s: a fused
 group stacks the multi-input feature dicts and multi-output label lists
 leaf by leaf, over an iterator of DataSets or MultiDataSets (or any object
@@ -37,9 +41,6 @@ from the network's one generator, whose state checkpoint does not keep and
 which cannot be read on the host inside a CUDA graph capture (a fused
 group): a segment's keep masks are drawn in its first forward, in the
 plain path's order, and its recompute reuses them (`_DropoutTape`).
-
-Not ported yet (NotImplementedError, naming the ROADMAP.md item):
-listeners.
 """
 from __future__ import annotations
 
@@ -332,11 +333,13 @@ class ComputationGraph(Network):
         for _ in range(num_epochs):
             if hasattr(data, "reset"):
                 data.reset()
+            self._epoch_event("on_epoch_start")
             if hasattr(data, "has_next"):
                 self._fit_stream(data)
             else:
                 for ds in data:
                     self._step(self._batch(self._dataset(ds)))
+            self._epoch_event("on_epoch_end")
             self.conf.epoch_count += 1
         return self
 
@@ -455,15 +458,14 @@ class ComputationGraph(Network):
     # ------------------------------------------------------------------
     # Score / gradients
     # ------------------------------------------------------------------
-    def compute_gradient_and_score(self, features, labels, fmask=None,
-                                   lmask=None, train=True):
-        """(gradients keyed by vertex name, score); see
-        MultiLayerNetwork.compute_gradient_and_score."""
-        self._ensure_init()
+    def _gradient_batch(self, features, labels, fmask, lmask):
         lmasks = None if lmask is None else _as_list(lmask)
         batch = self._batch(MultiDataSet(features, labels, None, lmasks))
-        batch = batch[:2] + (self._masks(fmask),) + batch[3:]
-        return self._gradient_and_score(batch, train)
+        return batch[:2] + (self._masks(fmask),) + batch[3:]
+
+    def get_layer(self, name):
+        """The layer configuration of vertex `name`."""
+        return self.conf.vertices[name].conf
 
 
 def _keeps_time_axis(layer):

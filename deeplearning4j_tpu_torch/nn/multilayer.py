@@ -47,9 +47,11 @@ group for the steps taken inside it.
 `fit` also takes a DataSetIterator: the batches are staged onto the
 network's device by `datasets.iterators.AsyncDataSetIterator` while the
 previous step runs (a bf16 feature wire for bf16 networks), with the
-reference's epoch semantics. `evaluate` / `evaluate_regression` score an
-iterator through the same staging; `make_inference_fn` is the pure
-inference step `serving.InferenceServer` runs.
+reference's epoch semantics: listeners with `on_epoch_start` /
+`on_epoch_end` hear each epoch begin and end. `evaluate` /
+`evaluate_regression` score an iterator through the same staging;
+`make_inference_fn` is the pure inference step `serving.InferenceServer`
+runs.
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 on the card float32 networks run with TF32 off (`card_numerics`).
@@ -64,8 +66,19 @@ newest checkpoint (`util.sharded_checkpoint`) or aborts. A step's learning
 rates come from a device buffer the host fills before it
 (`updater.updaters`), so a captured step reads each replay's rates.
 
+Listeners (`set_listeners`, `add_listener`; `optimize.listeners`) hear
+`iteration_done(net, iteration)` once per optimizer step, from the host
+after the step: the single step, each TBPTT segment, each inner step of a
+fused group (in its epilogue, never inside a CUDA graph capture), and a
+`parallel.ParallelWrapper` round. With no listener nothing is read on the
+host. `_last_batch_size` is the rows of the last batch a fit path took
+(`optimize.listeners.PerformanceListener` reads it).
+`make_flat_score_fn` is the score as a differentiable function of the flat
+parameter vector (`gradientcheck`, `optimize.solvers`).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): listeners, `pretrain`.
+item): `pretrain` and `pretrain_layer` (18b), `collect_activation_stats`
+(22).
 """
 from __future__ import annotations
 
@@ -153,7 +166,8 @@ class Network(nn.Module):
         # the process group BatchNorm's training statistics span
         # (batch_stats_over); None: this rank's batch
         self._stats_group = None
-        self.listeners = []          # iteration listeners (item 16)
+        self.listeners = []          # iteration listeners
+        self._last_batch_size = 0    # rows of the last batch fit took
         # the training-health watchdog (common.health.install)
         self._health_policy = None
         self._health_gen = 0
@@ -185,6 +199,10 @@ class Network(nn.Module):
 
     def _segment(self, batch, t0, length):
         """The TBPTT segment [t0, t0 + length) of a device batch."""
+        raise NotImplementedError
+
+    def _gradient_batch(self, features, labels, fmask, lmask):
+        """The device batch of `compute_gradient_and_score`'s arguments."""
         raise NotImplementedError
 
     # ------------------------------------------------------------------
@@ -264,14 +282,31 @@ class Network(nn.Module):
     def _step(self, batch):
         """num_iterations optimizer steps on one device batch, or with
         truncated BPTT one step per segment."""
+        self._last_batch_size = _rows(batch[0])
         if self.conf.backprop_type == "tbptt":
             return self._fit_tbptt(batch)
         for _ in range(int(self.conf.global_conf.get("num_iterations", 1))):
             with obs.TRACER.span("train.dispatch", cat="train"):
                 self._train_step(lambda rng: self._loss(*batch, True, rng))
-            if (self._health_policy is not None
-                    and self._finish_armed() == H.ROLLBACK):
+            if self._health_policy is None:
+                self._fire_iteration_done()
+            elif self._finish_armed() == H.ROLLBACK:
                 break           # counters and generator restored
+
+    def _fire_iteration_done(self):
+        """Tell every listener that the optimizer step (or a data-parallel
+        round) numbered `iteration_count - 1` is done. Called on the host,
+        after the step."""
+        for listener in self.listeners:
+            listener.iteration_done(self, self.conf.iteration_count - 1)
+
+    def _epoch_event(self, name):
+        """`on_epoch_start` / `on_epoch_end` of the listeners that define
+        it."""
+        for listener in self.listeners:
+            hook = getattr(listener, name, None)
+            if hook is not None:
+                hook(self)
 
     def _init_carries(self, batch_size):
         """Every recurrent layer's zero carry, by key, in the compute type
@@ -309,7 +344,9 @@ class Network(nn.Module):
             with obs.TRACER.span("train.dispatch", cat="train", tbptt=True):
                 new = self._train_step(
                     lambda rng: self._loss(*seg, True, rng, carries))
-            if self._health_policy is not None:
+            if self._health_policy is None:
+                self._fire_iteration_done()
+            else:
                 new = H.gate_update(self._step_health["all_finite"], new,
                                     carries)
                 if self._finish_armed() == H.ROLLBACK:
@@ -333,7 +370,9 @@ class Network(nn.Module):
         for epoch in range(num_epochs):
             if epoch > 0 or not wrapped_here or not async_it.has_next():
                 async_it.reset()
+            self._epoch_event("on_epoch_start")
             self._fit_stream(async_it)
+            self._epoch_event("on_epoch_end")
             self.conf.epoch_count += 1
         return self
 
@@ -466,8 +505,7 @@ class Network(nn.Module):
         if action == H.ROLLBACK:
             return action
         self.conf.iteration_count += 1
-        for listener in self.listeners:
-            listener.iteration_done(self, self.conf.iteration_count - 1)
+        self._fire_iteration_done()
         if action == H.OK:
             with obs.TRACER.span("train.checkpoint", cat="train"):
                 H.fit_loop_checkpoint(self)
@@ -535,6 +573,7 @@ class Network(nn.Module):
         single-step from the restored state, as the sequential loop would."""
         g = len(group)
         armed = self._health_policy is not None
+        self._last_batch_size = _rows(group[0][0])
 
         def make_static():
             return {"batch": [F.tree_map(_static_like, group[0])
@@ -742,16 +781,59 @@ class Network(nn.Module):
                                self._dropout_gen if training else None)
         return float(s)
 
-    def _gradient_and_score(self, batch, train):
-        """(gradients as the reference nests its parameters, in the port's
-        layout; score). Dropout draws from a generator seeded 0, as the
-        reference uses PRNGKey(0)."""
+    def compute_gradient_and_score(self, features, labels, fmask=None,
+                                   lmask=None, train=True):
+        """(gradients, score): the gradients as the reference nests its
+        parameters (MultiLayerNetwork: a list of per-layer dicts;
+        ComputationGraph: keyed by vertex name), in the port's layout
+        (`flatten_gradients` gives the reference's flat vector). Dropout
+        draws from a generator seeded 0, as the reference uses
+        PRNGKey(0)."""
         self._ensure_init()
+        batch = self._gradient_batch(features, labels, fmask, lmask)
         with card_numerics(self._device, self.compute_dtype):
             score, *_ = self._loss(
                 *batch, train, torch.Generator(self._device).manual_seed(0))
             grads = self._grads(score)
         return self._tree(grads), float(score.detach())
+
+    def make_flat_score_fn(self, features, labels, fmask=None, lmask=None,
+                           train=True):
+        """`score(flat)`: the loss on this batch as a function of a flat
+        parameter vector in the reference's layout and order (`params()`),
+        a numpy array or a tensor, cast to the parameter type. The result
+        is a 0-d tensor, differentiable through `torch.autograd` back to
+        `flat` (the layout moves, e.g. HWIO to OIHW, are autograd ops).
+        Every call draws dropout from a fresh generator seeded 0, as the
+        reference uses PRNGKey(0), so two calls see the same masks. The
+        layers' state is the network's own."""
+        self._ensure_init()
+        batch = self._gradient_batch(features, labels, fmask, lmask)
+        dev = self._device
+        leaves = [(key, k, layer, p.dtype, p.numel(),
+                   tuple(layer.to_reference(k, p).shape))
+                  for key, k, layer, p in self._param_leaves()]
+
+        def score(flat):
+            if not isinstance(flat, torch.Tensor):
+                flat = torch.from_numpy(np.asarray(flat))
+            flat = flat.to(dev).reshape(-1)
+            tree = {key: {} for key, _ in self._keyed_layers()}
+            offset = 0
+            for key, k, layer, dtype, n, shape in leaves:
+                chunk = flat[offset:offset + n].reshape(shape).to(dtype)
+                tree[key][k] = layer.from_reference(k, chunk)
+                offset += n
+            if offset != flat.numel():
+                raise ValueError(f"Expected {offset} params, got "
+                                 f"{flat.numel()}")
+            with card_numerics(dev, self.compute_dtype):
+                s, *_ = self._loss(*batch, train,
+                                   torch.Generator(dev).manual_seed(0),
+                                   params=tree)
+            return s
+
+        return score
 
     # ------------------------------------------------------------------
     # Flat parameters, in the reference's layout and order
@@ -912,9 +994,21 @@ class Network(nn.Module):
         clips groups at its boundaries. Returns self."""
         return F.install(self, k)
 
-    # -- not ported yet ------------------------------------------------
     def set_listeners(self, *listeners):
-        raise not_ported("listeners", 16)
+        """Replace the iteration listeners (`optimize.listeners`). Returns
+        self."""
+        self.listeners = list(listeners)
+        return self
+
+    setListeners = set_listeners
+
+
+def _rows(features):
+    """The batch size of a device batch's features (a tensor, or a dict of
+    the graph's inputs)."""
+    if isinstance(features, dict):
+        features = next(iter(features.values()))
+    return int(features.shape[0])
 
 
 def _detached(carries):
@@ -1097,6 +1191,25 @@ class MultiLayerNetwork(Network):
     def pretrain(self, *args, **kwargs):
         raise not_ported("layerwise pretraining", "18b")
 
+    def pretrain_layer(self, *args, **kwargs):
+        raise not_ported("layerwise pretraining (pretrain_layer)", "18b")
+
+    def collect_activation_stats(self, *args, **kwargs):
+        raise not_ported("collect_activation_stats (the activation "
+                         "summaries of ui/stats.py)", 22)
+
+    def add_listener(self, listener):
+        """Append one iteration listener. Returns self."""
+        self.listeners.append(listener)
+        return self
+
+    def get_layer(self, i):
+        """Layer `i`'s configuration."""
+        return self.layers[i]
+
+    @property
+    def n_layers(self):
+        return len(self.layers)
 
     # ------------------------------------------------------------------
     # Inference
@@ -1114,6 +1227,11 @@ class MultiLayerNetwork(Network):
             return layer.forward_with_state(params[i], h, state[i],
                                             train=train, rng=rng)[0]
         return layer.forward(params[i], h, train=train, rng=rng)
+
+    def predict(self, x):
+        """The class index of each example: the argmax over the last axis
+        of `output(x)`, as a numpy int array."""
+        return np.asarray(self.output(x)).argmax(axis=-1)
 
     def output(self, x, train=False, features_mask=None):
         """The output layer's activations for `x`, as numpy."""
@@ -1214,14 +1332,5 @@ class MultiLayerNetwork(Network):
                 train=train, rng=self._dropout_gen if train else None)
         return [np.asarray(x)] + [to_public(a) for a in acts]
 
-
-    # ------------------------------------------------------------------
-    # Score / gradients
-    # ------------------------------------------------------------------
-    def compute_gradient_and_score(self, features, labels, fmask=None,
-                                   lmask=None, train=True):
-        """(gradients, score): the gradients as the reference nests its
-        parameters (a list of per-layer dicts), in the port's layout
-        (`flatten_gradients` gives the reference's flat vector)."""
-        return self._gradient_and_score(
-            self._batch(DataSet(features, labels, fmask, lmask)), train)
+    def _gradient_batch(self, features, labels, fmask, lmask):
+        return self._batch(DataSet(features, labels, fmask, lmask))

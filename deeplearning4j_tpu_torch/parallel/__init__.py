@@ -5,16 +5,20 @@ Data-parallel training over a `torch.distributed` process group
 mesh, `distributed`, `MagicQueue`), the asynchronous parameter server
 (`GradientsAccumulator`, `ParameterServerParallelWrapper`, its TCP transport
 `PSServer` / `PSClient` / `ps_worker_fit`, `ParameterServerTrainingHook`),
-the `TrainingMaster` and its facades, the time sources, ring attention
-(sequence parallelism) and `pipeline.sgd_momentum_update`.
+the `TrainingMaster` and its facades, early stopping over the wrapper and
+the master (`early_stopping`), the time sources, ring attention (sequence
+parallelism) and `pipeline.sgd_momentum_update`.
 
 Not ported yet: the names below raise NotImplementedError naming their
-ROADMAP.md queue 1 item: early stopping over the wrapper and the master
-(item 16, with `earlystopping/`), the pipeline schedule, MoE and the
-sharded updater state (item 20), and the ParallelWrapper command line
-(`main`, item 22, with `util/model_guesser.py` and `ui/`).
+ROADMAP.md queue 1 item: the pipeline schedule, MoE and the sharded
+updater state (item 20), and the ParallelWrapper command line (`main`,
+item 22, with `util/model_guesser.py` and `ui/`).
 """
-from . import distributed
+from . import distributed, early_stopping
+from .early_stopping import (EarlyStoppingParallelTrainer,
+                             MasterDataSetLossCalculator,
+                             SparkEarlyStoppingTrainer,
+                             TpuEarlyStoppingTrainer)
 from .magic_queue import MagicQueue
 from .parallel_wrapper import ParallelWrapper
 from .parameter_server import (GradientsAccumulator,
@@ -29,10 +33,6 @@ from .training_master import (ParameterAveragingTrainingMaster,
                               TrainingMasterStats)
 
 _NOT_PORTED = {
-    **dict.fromkeys(("EarlyStoppingParallelTrainer",
-                     "MasterDataSetLossCalculator",
-                     "SparkEarlyStoppingTrainer", "TpuEarlyStoppingTrainer",
-                     "early_stopping"), 16),
     **dict.fromkeys(("PipelineParallel", "gpipe", "make_pipeline_mesh",
                      "init_moe", "make_expert_mesh", "moe_mlp_dense",
                      "moe_mlp_sharded", "shard_moe_params",
@@ -47,11 +47,14 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["GradientsAccumulator", "MagicQueue", "NTPTimeSource",
+__all__ = ["EarlyStoppingParallelTrainer", "GradientsAccumulator",
+           "MagicQueue", "MasterDataSetLossCalculator", "NTPTimeSource",
            "ParallelWrapper", "ParameterAveragingTrainingMaster",
            "ParameterServerParallelWrapper", "ParameterServerTrainingHook",
-           "PSClient", "PSServer", "ps_worker_fit", "SystemClockTimeSource",
+           "PSClient", "PSServer", "ps_worker_fit",
+           "SparkEarlyStoppingTrainer", "SystemClockTimeSource",
            "TimeSource", "TpuComputationGraph", "TpuDl4jMultiLayer",
+           "TpuEarlyStoppingTrainer",
            "TrainingHook", "TrainingMasterStats", "blockwise_attention",
-           "distributed", "make_mesh", "ring_self_attention",
+           "distributed", "early_stopping", "make_mesh", "ring_self_attention",
            "shard_params"]

@@ -27,7 +27,9 @@ the collectives are explicit (`sharding.all_reduce_mean`):
   last round runs only the batches that remain, as the reference does.
 
 Counters: `iteration_count` advances by 1 a batch (by k a round), and
-`_last_batch_size` is the global batch size. The fault injector fires
+`_last_batch_size` is the global batch size. The network's listeners hear
+`iteration_done` once a round (a batch, or k local steps), as the
+reference's. The fault injector fires
 "wrapper.round" before each round and "wrapper.batch" on each batch's
 features (`common.resilience`, `datasets.iterators.inject_features`).
 
@@ -329,8 +331,11 @@ class ParallelWrapper:
                 if action != H.SKIP:
                     net._score = net._step_score
                 net.conf.iteration_count += 1
+                net._fire_iteration_done()
                 if action != H.OK:
                     continue    # a skipped or diverged round is never saved
+            else:
+                net._fire_iteration_done()
             self._round_done()
 
     # -- mode 2: k local steps, then averaging -------------------------
@@ -405,6 +410,7 @@ class ParallelWrapper:
         if action != H.SKIP:
             net._score = score
         net._last_batch_size = B
+        net._fire_iteration_done()
         return action
 
     def _round_health(self, scores, hs):

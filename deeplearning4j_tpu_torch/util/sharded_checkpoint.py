@@ -22,8 +22,8 @@ refuses a checkpoint whose shapes differ from the network's.
 With a torch.distributed process group, rank 0 writes and prunes, every
 rank waits at a barrier, and every rank restores the same file.
 Mesh-sharded state (tensor parallelism, ZeRO, `torch.distributed.
-checkpoint`) is ROADMAP.md queue 1 item 20; `ShardedModelSaver` comes with
-early stopping (item 16).
+checkpoint`) is ROADMAP.md queue 1 item 20. `ShardedModelSaver` is the
+early-stopping saver over these files.
 """
 from __future__ import annotations
 
@@ -288,6 +288,43 @@ class ShardedCheckpointManager:
             raise FileNotFoundError("no scored checkpoints under "
                                     f"{self.directory!r}")
         return self.restore(net, best)
+
+
+class ShardedModelSaver:
+    """The early-stopping saver SPI over the checkpoint files of
+    `save_checkpoint` (reference util/sharded_checkpoint.py:298-331; the
+    reference's LocalFileModelSaver writes the zip). A checkpoint holds no
+    configuration, so the saver takes `net_factory`, a zero-argument
+    callable building the same architecture, for the restore. The
+    reference saves orbax directories: nothing is read across packages."""
+
+    def __init__(self, directory, net_factory):
+        self.directory = os.path.abspath(directory)
+        self.net_factory = net_factory
+        os.makedirs(self.directory, exist_ok=True)
+
+    @property
+    def best_path(self):
+        return os.path.join(self.directory, "bestModel")
+
+    @property
+    def latest_path(self):
+        return os.path.join(self.directory, "latestModel")
+
+    def save_best_model(self, net, score):
+        save_checkpoint(net, self.best_path)
+
+    def save_latest_model(self, net, score):
+        save_checkpoint(net, self.latest_path)
+
+    def get_best_model(self):
+        return load_checkpoint(self.net_factory(), self.best_path)
+
+    def get_latest_model(self):
+        return load_checkpoint(self.net_factory(), self.latest_path)
+
+    saveBestModel = save_best_model
+    getBestModel = get_best_model
 
 
 def _remove(path):

@@ -29,6 +29,14 @@ ResNet-50 at full depth is built, not trained: its JSON is the reference's,
 both ways; its parameter count is in 25.4e6-25.8e6 (as tests/test_zoo.py);
 its flat parameters have the reference's shapes, in order.
 
+The graph's surface beside the reference's (the residual graph, f64):
+`get_layer(name)` is the reference's layer conf for every layer vertex;
+`make_flat_score_fn` at `params()` equals `score(training=True)` (BatchNorm
+on the batch's statistics) and the reference's callable to 1e-12 relative,
+and its autograd gradient equals `flatten_gradients(
+compute_gradient_and_score(...)[0])` to 1e-10 relative; `set_listeners`
+returns the graph, which has no `add_listener` (nor has the reference's).
+
 Tests marked `gpu` run on the card and skip without one:
     python -m pytest --noconftest tests/test_torch_computation_graph.py -m gpu
 """
@@ -347,6 +355,52 @@ def test_residual_zip_round_trips_bn_state(J, graph_runs, tmp_path):
                                           v)
     again = TS.restore_computation_graph(path, device="cpu")
     np.testing.assert_array_equal(again.output(x)[0], net.output(x)[0])
+
+
+def _reference_graph(J, run):
+    jnet = J.Graph(J.Conf.from_json(run["conf"])).init()
+    jnet._params = J.jax.tree.map(J.jax.numpy.asarray, run["params"])
+    jnet._model_state = J.jax.tree.map(J.jax.numpy.asarray, run["state"])
+    return jnet
+
+
+def test_get_layer_and_listener_api_are_the_reference_s(graph_runs, J):
+    run = graph_runs["adam-f64"]
+    net, jnet = _port_graph(run), _reference_graph(J, run)
+    names = net._layer_names()
+    assert len(names) == 26
+    for name in names:
+        assert net.get_layer(name) is net.conf.vertices[name].conf
+        assert net.get_layer(name).to_dict() == jnet.get_layer(name).to_dict()
+    listener = object()
+    assert net.set_listeners(listener) is net and net.listeners == [listener]
+    assert net.setListeners() is net and net.listeners == []
+    assert not hasattr(net, "add_listener")
+    assert not hasattr(jnet, "add_listener")
+
+
+def test_flat_score_fn_and_its_gradient_match_the_reference(graph_runs, J):
+    """f64: the score at params() equals score(training=True) and the
+    reference's make_flat_score_fn to 1e-12 relative; the autograd gradient
+    through the flat vector (HWIO to OIHW, BatchNorm on the batch's
+    statistics) equals the flat analytic gradient to 1e-10 relative."""
+    run = graph_runs["adam-f64"]
+    net, jnet = _port_graph(run), _reference_graph(J, run)
+    x, y = (a.astype(np.float64) for a in _batch(seed=6))
+    flat = net.params()
+    assert flat.dtype == np.float64
+    score = net.make_flat_score_fn(x, y)
+    s = float(score(flat))
+    assert s == pytest.approx(net.score(MultiDataSet([x], [y]),
+                                        training=True), rel=1e-12)
+    assert s == pytest.approx(float(jnet.make_flat_score_fn(x, y)(flat)),
+                              rel=1e-12)
+    v = torch.tensor(flat, requires_grad=True)
+    (g,) = torch.autograd.grad(score(v), v)
+    want = net.flatten_gradients(net.compute_gradient_and_score(x, y)[0])
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(g.numpy(), want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
 
 
 def test_entry_points_run_on_the_card_or_raise():

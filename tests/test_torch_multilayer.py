@@ -27,6 +27,14 @@ training from it as the JAX package does (one step, 1e-5). A zip that the
 port writes restores in the JAX package with identical params, the same
 updater state, and outputs within 1e-6 of the port's.
 
+The containers' surface beside the reference's (LeNet): `predict` equal
+to the reference's; `get_layer` / `n_layers` the reference's layer confs;
+`make_flat_score_fn` at `params()` equal to `score` and to the reference's
+callable (f64, 1e-12 relative), its autograd gradient equal to
+`flatten_gradients(compute_gradient_and_score(...)[0])` (f64, 1e-10
+relative); with dropout, two calls see the same masks (a fresh generator
+seeded 0 each); `set_listeners` / `add_listener` return the net.
+
 Tests marked `gpu` run on the card and skip without one:
     python -m pytest --noconftest tests/test_torch_multilayer.py -m gpu
 """
@@ -44,6 +52,7 @@ from deeplearning4j_tpu_torch.models.zoo.lenet import lenet, lenet_conf
 from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
     MultiLayerConfiguration, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf import layers as TLy
+from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.util import model_serializer as TS
 
@@ -368,6 +377,79 @@ def test_tree_leaves_follow_jax_order(J):
 
 
 # ---------------------------------------------------------------------------
+# The containers' surface: predict, get_layer, n_layers, make_flat_score_fn
+# ---------------------------------------------------------------------------
+
+def _reference_net(J, run):
+    jnet = J.Net(J.Conf.from_json(run["conf"])).init()
+    jnet._params = J.jax.tree.map(J.jax.numpy.asarray, run["params"])
+    return jnet
+
+
+def test_predict_get_layer_and_n_layers_are_the_reference_s(lenet_runs, J):
+    run = lenet_runs["nesterovs"]
+    net, jnet = _port_lenet(run), _reference_net(J, run)
+    x, _ = _batch(seed=3, n=16)
+    got = net.predict(x)
+    assert got.dtype.kind == "i" and got.shape == (16,)
+    np.testing.assert_array_equal(got, np.asarray(jnet.predict(x)))
+    np.testing.assert_array_equal(got, net.output(x).argmax(-1))
+    assert net.n_layers == jnet.n_layers == 6
+    for i in range(net.n_layers):
+        assert net.get_layer(i) is net.layers[i]
+        assert net.get_layer(i).to_dict() == jnet.get_layer(i).to_dict()
+
+
+def test_flat_score_fn_and_its_gradient_match_the_reference(lenet_runs, J):
+    """f64 (the adam run): the score at params() equals score() and the
+    reference's make_flat_score_fn to 1e-12 relative (read: 0 and 0);
+    the autograd gradient equals the flat analytic gradient to 1e-10
+    relative (read: 0). The gradient is not zero: the layout moves (HWIO
+    to OIHW) are autograd ops."""
+    run = lenet_runs["adam"]
+    net, jnet = _port_lenet(run), _reference_net(J, run)
+    x, y = (a.astype(np.float64) for a in _batch(seed=4))
+    flat = net.params()
+    assert flat.dtype == np.float64
+    score = net.make_flat_score_fn(x, y)
+    s = float(score(flat))
+    assert s == pytest.approx(net.score(DataSet(x, y)), rel=1e-12)
+    assert s == pytest.approx(float(jnet.make_flat_score_fn(x, y)(flat)),
+                              rel=1e-12)
+    v = torch.tensor(flat, requires_grad=True)
+    (g,) = torch.autograd.grad(score(v), v)
+    want = net.flatten_gradients(net.compute_gradient_and_score(x, y)[0])
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(g.numpy(), want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
+    # another point gives another score: the callable reads its argument
+    assert float(score(flat * 0.5)) != s
+
+
+def test_flat_score_fn_draws_the_same_dropout_masks_each_call():
+    conf = (NeuralNetConfiguration.Builder().seed(3).data_type("float64")
+            .list()
+            .layer(0, TLy.DenseLayer(n_out=16, activation="tanh",
+                                     dropout=0.5))
+            .layer(1, TLy.OutputLayer(n_out=3, activation="softmax",
+                                      loss_function="mcxent"))
+            .set_input_type(InputType.feed_forward(5)).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    rng = np.random.default_rng(5)
+    x, y = rng.random((8, 5)), np.eye(3)[rng.integers(0, 3, 8)]
+    score = net.make_flat_score_fn(x, y)
+    flat = net.params()
+    assert float(score(flat)) == float(score(flat))
+    assert float(score(flat)) != net.score(DataSet(x, y))   # masks applied
+    v = torch.tensor(flat, requires_grad=True)
+    (g,) = torch.autograd.grad(score(v), v)
+    np.testing.assert_allclose(
+        g.numpy(),
+        net.flatten_gradients(net.compute_gradient_and_score(x, y)[0]),
+        rtol=1e-12, atol=1e-14)
+
+
+# ---------------------------------------------------------------------------
 # Entry points and what is not ported yet
 # ---------------------------------------------------------------------------
 
@@ -383,10 +465,17 @@ def test_entry_points_run_on_the_card_or_raise():
 
 def test_unported_paths_raise_with_their_roadmap_items():
     net = lenet(device="cpu")
-    for call, item in ((lambda: net.set_listeners(object()), "item 16"),
-                       (lambda: net.pretrain(None), "item 18b")):
+    for call, item in ((lambda: net.pretrain_layer(0, None), "item 18b$"),
+                       (lambda: net.pretrain(None), "item 18b$"),
+                       (lambda: net.collect_activation_stats(), "item 22$")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # item 16 is ported: the listener API returns the net
+    listener = object()
+    assert net.set_listeners(listener) is net and net.listeners == [listener]
+    assert net.setListeners() is net and net.listeners == []
+    assert net.add_listener(listener) is net and net.listeners == [listener]
+    net.listeners = []
     # item 17 is ported: fused steps and the watchdog arm and train
     assert net.fused_steps(4) is net and net._fused_steps == 4
     assert net.training_health() is net

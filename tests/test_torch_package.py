@@ -1,7 +1,8 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
 `chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py`,
 `chip_embeddings.py`, `chip_parallel.py`, `chip_fused.py`,
-`chip_spec_kv.py` and `chip_fleet.py` import neither JAX, nor `ml_dtypes` (the card's machine
+`chip_spec_kv.py`, `chip_fleet.py` and `chip_tools.py` import neither JAX,
+nor `ml_dtypes` (the card's machine
 has neither), nor anything of the JAX package `deeplearning4j_tpu`, and
 importing the
 port (its `models` package with the embeddings included, and the whole
@@ -11,7 +12,8 @@ plane's stdlib halves (`obs/*.py`, `serving/fleetjournal.py`) import
 neither torch nor numpy themselves, as the reference's layering rules
 demand of theirs (tools/analyze/layers_torch.toml holds the same). The names
 the port does not have yet raise NotImplementedError naming their
-ROADMAP.md queue 1 item."""
+ROADMAP.md queue 1 item. The package exports the reference's six names
+beside `resolve_device`."""
 import os
 import re
 import subprocess
@@ -83,6 +85,15 @@ import deeplearning4j_tpu_torch.models.sequencevectors
 import deeplearning4j_tpu_torch.models.paragraphvectors
 import deeplearning4j_tpu_torch.models.glove
 import deeplearning4j_tpu_torch.text
+import deeplearning4j_tpu_torch.optimize
+import deeplearning4j_tpu_torch.optimize.listeners
+import deeplearning4j_tpu_torch.optimize.solvers
+import deeplearning4j_tpu_torch.optimize.profiler
+import deeplearning4j_tpu_torch.earlystopping
+import deeplearning4j_tpu_torch.gradientcheck
+import deeplearning4j_tpu_torch.parallel.early_stopping
+import deeplearning4j_tpu_torch.models.zoo.classic_cnns
+import deeplearning4j_tpu_torch.graft_entry
 from deeplearning4j_tpu_torch.common import native_ops
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
@@ -122,7 +133,8 @@ _FORBIDDEN = re.compile(
     [p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
        "chip_recurrent.py", "chip_embeddings.py", "chip_parallel.py",
-       "chip_fused.py", "chip_spec_kv.py", "chip_fleet.py"]))
+       "chip_fused.py", "chip_spec_kv.py", "chip_fleet.py",
+       "chip_tools.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
@@ -153,7 +165,6 @@ def test_forbidden_pattern_catches_what_it_should():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("EarlyStoppingParallelTrainer", 16), ("TpuEarlyStoppingTrainer", 16),
     ("PipelineParallel", 20), ("moe_mlp_sharded", 20),
     ("zero_state_sharding", 20), ("main", 22)])
 def test_unported_parallel_names_raise_with_their_items(name, item):
@@ -164,13 +175,58 @@ def test_unported_parallel_names_raise_with_their_items(name, item):
         P.no_such_name
 
 
+def test_early_stopping_names_resolve_in_parallel():
+    import deeplearning4j_tpu_torch.parallel as P
+    from deeplearning4j_tpu_torch.parallel import (
+        EarlyStoppingParallelTrainer, MasterDataSetLossCalculator,
+        SparkEarlyStoppingTrainer, TpuEarlyStoppingTrainer, early_stopping)
+    assert SparkEarlyStoppingTrainer is TpuEarlyStoppingTrainer
+    assert early_stopping.EarlyStoppingParallelTrainer is \
+        EarlyStoppingParallelTrainer
+    assert issubclass(MasterDataSetLossCalculator,
+                      early_stopping.DataSetLossCalculator)
+    for name in ("EarlyStoppingParallelTrainer", "MasterDataSetLossCalculator",
+                 "SparkEarlyStoppingTrainer", "TpuEarlyStoppingTrainer",
+                 "early_stopping"):
+        assert name in P.__all__ and name not in P._NOT_PORTED
+
+
+def test_package_exports_the_reference_s_names():
+    import deeplearning4j_tpu_torch as D
+    from deeplearning4j_tpu_torch.nn.conf.computation_graph_configuration \
+        import ComputationGraphConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+        MultiLayerConfiguration, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    # the reference's __init__.py:18-33, and resolve_device
+    assert sorted(D.__all__) == sorted([
+        "ComputationGraph", "ComputationGraphConfiguration", "InputType",
+        "MultiLayerConfiguration", "NeuralNetConfiguration",
+        "MultiLayerNetwork", "resolve_device"])
+    assert (D.ComputationGraph, D.ComputationGraphConfiguration, D.InputType,
+            D.MultiLayerConfiguration, D.NeuralNetConfiguration,
+            D.MultiLayerNetwork) == (
+        ComputationGraph, ComputationGraphConfiguration, InputType,
+        MultiLayerConfiguration, NeuralNetConfiguration, MultiLayerNetwork)
+    reference = (REPO / "deeplearning4j_tpu" / "__init__.py").read_text()
+    names = re.search(r"__all__ = \[(.*?)\]", reference, re.S).group(1)
+    assert sorted(re.findall(r'"(\w+)"', names)) == sorted(
+        n for n in D.__all__ if n != "resolve_device")
+
+
 def test_unported_training_options_raise_with_their_items():
     from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
     from deeplearning4j_tpu_torch.parallel import (
         ParallelWrapper, ParameterAveragingTrainingMaster)
     net = lenet(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16$"):
-        net.set_listeners()
+    # item 16 is ported: set_listeners returns the net
+    assert net.set_listeners() is net and net.listeners == []
+    with pytest.raises(NotImplementedError, match="item 18b$"):
+        net.pretrain_layer(0, None)
+    with pytest.raises(NotImplementedError, match="item 22$"):
+        net.collect_activation_stats()
     # items 17 and 20a are ported: the options build
     b = ParallelWrapper.Builder(net).health_policy(True).checkpointing("d")
     assert b._health_policy is True and b._checkpoint["directory"] == "d"
