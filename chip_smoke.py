@@ -319,12 +319,33 @@ kernels and are counted apart.
      the last 3; peak memory; one traced step), then toy copies card
      against CPU (an f32 forward, an f32 and an f64 step); (h)
      graft_entry.entry()'s forward, timed. The flash counters read 0.
+ 30. layerwise pretraining and Keras import (`python3 chip_pretrain.py`
+     alone): (a) the MNIST deep autoencoder of DL4J's DeepAutoEncoderExample
+     (RBMs 784-1000-500-250-100-30-100-250-500-1000, a sigmoid MSE
+     OutputLayer 1000 -> 784, f32, batch 1000, the synthetic MNIST
+     stand-in): `pretrain` over 3 batches a layer (layer 0's reconstruction
+     error must fall), each layer's pretrain step timed (ms, images/s), two
+     traced by the port's profiler (device ms, busy share), then `fit` over
+     ReconstructionDataSetIterator (ms, images/s, busy share), peak memory;
+     (b) the same with denoising AutoEncoders (corruption 0.3); (c)
+     VaeMNIST2dPlots' VAE (784 -> [256, 256] -> 2 -> [256, 256], Bernoulli,
+     leakyrelu, RMSProp 1e-3, batch 128): pretrained over 8 batches (the
+     negative ELBO on a fixed batch and eps must fall), then
+     reconstruction_probability (16 samples) and generate_at_mean_given_z
+     on a 20x20 grid of z; (d) Keras import on the card (no h5py there):
+     the committed real fixture from tests/fixtures/
+     keras_toy_residual_torch.npz within 1e-5 of Keras's predictions, and
+     tier-1's Keras 1 MLP, th conv, LSTM and functional nets card against
+     CPU (1e-5); then an RBM (CD-1), a gaussian RBM (CD-2), an AutoEncoder
+     and a VAE pretrained in float64 on the card and on the CPU with the
+     same draws: parameters and score within 1e-9. The flash counters read
+     0.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
 ...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, an
 {"embeddings": ...} line, a {"parallel": ...} line, a {"fused": ...} line,
-a {"spec_kv": ...} line, a {"fleet": ...} line, a {"tools": ...} line, one
-{"kernels": [...]} JSON line and, as the last line, {"ok": true, "device":
-{...}}. It imports nothing of JAX.
+a {"spec_kv": ...} line, a {"fleet": ...} line, a {"tools": ...} line, a
+{"pretrain": ...} line, one {"kernels": [...]} JSON line and, as the last
+line, {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 import contextlib
 import json
@@ -835,6 +856,7 @@ def main():
     spec_kv = spec_kv_phase(fa)
     fleet = fleet_phase(fa)
     tools = tools_phase(fa)
+    pretrain = pretrain_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -870,6 +892,7 @@ def main():
     print(json.dumps({"spec_kv": spec_kv}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"tools": tools}))
+    print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7014,6 +7037,327 @@ def tools_phase(fa):
     out["flash_launches"] = launched
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 29 launched no kernel of the port: {launched}; "
+          f"{out['phase_s']:.1f} s ({out['sub_phase_s']})")
+    return out
+
+
+
+# Phase 30: layerwise pretraining and Keras import. (a)/(b): the MNIST deep
+# autoencoder of DL4J's DeepAutoEncoderExample (Hinton & Salakhutdinov,
+# Science 313:504, 2006) at its widths and batch, with RBMs and then with
+# denoising AutoEncoders; (c) VaeMNIST2dPlots' VAE; 3 (a, b) and 8 (c)
+# batches of the synthetic MNIST stand-in a layer.
+PRE_SIZES = (1000, 500, 250, 100, 30, 100, 250, 500, 1000)
+PRE_B, PRE_BATCHES = 1000, 3
+VAE_B, VAE_BATCHES = 128, 8
+PRE_LOGDIR = Path(__file__).resolve().parent / "build" / "phase30_prof"
+
+
+def _mnist(batch, batches, binarize=False, seed=301):
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    return MnistDataSetIterator(batch, num_examples=batch * batches,
+                                seed=seed, binarize=binarize)
+
+
+def _deep_autoencoder(kind, data_type="float32", device="cuda"):
+    """Phase 30(a)/(b)'s network: nine pretrain layers 784-1000-500-250-
+    100-30-100-250-500-1000 (RBMs, or AutoEncoders with corruption 0.3) and
+    a sigmoid MSE OutputLayer 1000 -> 784; SGD, learning rate 0.1."""
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (RBM, AutoEncoder,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (NeuralNetConfiguration.Builder().seed(123).updater("sgd")
+         .learning_rate(0.1).activation("sigmoid").data_type(data_type)
+         .list())
+    for i, n in enumerate(PRE_SIZES):
+        b = b.layer(i, RBM(n_out=n) if kind == "rbm"
+                    else AutoEncoder(n_out=n, corruption_level=0.3))
+    b = b.layer(len(PRE_SIZES), OutputLayer(n_out=784, activation="sigmoid",
+                                            loss_function="mse"))
+    conf = b.set_input_type(InputType.feed_forward(784)).build()
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _traced(fn):
+    """(device ms, wall ms, busy share) of fn() under the port's profiler
+    (optimize.profiler.trace, then summarize_trace)."""
+    from deeplearning4j_tpu_torch.optimize.profiler import (summarize_trace,
+                                                            trace)
+    shutil.rmtree(PRE_LOGDIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    with trace(PRE_LOGDIR):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device_ms = sum(r["total_ms"] for r in summarize_trace(PRE_LOGDIR))
+    return {"device_ms": device_ms, "wall_ms": wall_ms,
+            "busy_share": device_ms / wall_ms}
+
+
+def _wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def pre_deep_autoencoder(kind):
+    """Phase 30(a) (kind "rbm") or (b) ("autoencoder"). Returns its
+    readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ReconstructionDataSetIterator
+    label = "(a) RBM" if kind == "rbm" else "(b) AutoEncoder"
+    print(f"phase 30{label[:3]}: the MNIST deep autoencoder, {label[4:]} "
+          f"stack 784-{'-'.join(map(str, PRE_SIZES))}, sigmoid MSE output "
+          f"1000->784, f32, batch {PRE_B}, {PRE_BATCHES} batches a layer")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = _deep_autoencoder(kind)
+    it = _mnist(PRE_B, PRE_BATCHES)
+    x0 = torch.tensor(it.next_batch().features, device="cuda")
+    layer0 = net.layers[0]
+    with torch.no_grad():
+        e0 = float(layer0.pretrain_loss(net._params[0], x0))
+    first_ms = _wall_ms(lambda: net.pretrain(it))
+    with torch.no_grad():
+        e1 = float(layer0.pretrain_loss(net._params[0], x0))
+    steps = []
+    for i in range(len(PRE_SIZES)):        # warm: the second pass, timed
+        ms = _wall_ms(lambda: net.pretrain_layer(i, it)) / PRE_BATCHES
+        steps.append({"layer": i, "n_in": net.layers[i].n_in,
+                      "n_out": net.layers[i].n_out, "ms": ms,
+                      "images_per_s": PRE_B / ms * 1e3})
+    _traced(lambda: net.pretrain_layer(0, it))   # CUPTI's first window
+    traced = {i: _traced(lambda: net.pretrain_layer(i, it))
+              for i in (0, 4)}
+    pre_peak = torch.cuda.max_memory_allocated()
+    rit = ReconstructionDataSetIterator(_mnist(PRE_B, PRE_BATCHES))
+    ds = _mnist(PRE_B, 1, seed=302).next_batch()
+    s0 = net.score((ds.features, ds.features))
+    net.fit(rit)                                 # warm
+    fit_ms = _wall_ms(lambda: net.fit(rit)) / PRE_BATCHES
+    fit_trace = _traced(lambda: net.fit(rit))
+    s1 = net.score((ds.features, ds.features))
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(np.isfinite(net.params()).all())
+    out = {"pretrain_steps": steps, "first_pretrain_ms": first_ms,
+           "layer0_pretrain_loss": [e0, e1],
+           "traced_pretrain": {str(i): t for i, t in traced.items()},
+           "fit_ms": fit_ms, "fit_images_per_s": PRE_B / fit_ms * 1e3,
+           "fit_traced": fit_trace, "fit_score": [s0, s1],
+           "pretrain_peak_bytes": pre_peak, "peak_bytes": peak}
+    for r in steps:
+        print(f"  pretrain layer {r['layer']} {r['n_in']}->{r['n_out']}: "
+              f"{r['ms']:.3f} ms a step, {r['images_per_s']:.0f} images/s")
+    for i, t in traced.items():
+        print(f"  layer {i} traced: {t['device_ms']:.3f} ms of device time "
+              f"in {t['wall_ms']:.3f} ms, busy {t['busy_share']:.1%}")
+    print(f"  layer 0's loss {e0:.4f} -> {e1:.4f} over the first pass; "
+          f"fit over ReconstructionDataSetIterator {fit_ms:.3f} ms a step "
+          f"({out['fit_images_per_s']:.0f} images/s), busy "
+          f"{fit_trace['busy_share']:.1%}; score {s0:.5f} -> {s1:.5f}; "
+          f"peak {peak / 2**20:.1f} MiB (pretraining {pre_peak / 2**20:.1f})")
+    if not (finite and np.isfinite([e0, e1, s0, s1]).all() and e1 < e0):
+        raise SystemExit(f"phase 30{label[:3]}: bad pretraining {out}")
+    del net
+    return out
+
+
+def pre_vae():
+    """Phase 30(c): VaeMNIST2dPlots' VAE, pretrained; then
+    reconstruction_probability and generate_at_mean_given_z."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import \
+        VariationalAutoencoder
+    from deeplearning4j_tpu_torch.nn.conf.layers.variational import \
+        BernoulliReconstructionDistribution
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    print(f"phase 30(c): VAE 784 -> [256, 256] -> 2 -> [256, 256], "
+          f"Bernoulli, leakyrelu, RMSProp 1e-3, batch {VAE_B}, "
+          f"{VAE_BATCHES} batches, pretrain only")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = (NeuralNetConfiguration.Builder().seed(12345).updater("rmsprop")
+            .learning_rate(1e-3).l2(1e-4).weight_init("xavier")
+            .activation("leakyrelu").list()
+            .layer(0, VariationalAutoencoder(
+                n_out=2, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), pzx_activation="identity",
+                reconstruction_distribution=(
+                    BernoulliReconstructionDistribution())))
+            .set_input_type(InputType.feed_forward(784)).build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    vae = net.layers[0]
+    it = _mnist(VAE_B, VAE_BATCHES, binarize=True)
+    x = torch.tensor(it.next_batch().features, device="cuda")
+    eps = vae.pretrain_draws(x, torch.Generator("cuda").manual_seed(31))
+    with torch.no_grad():
+        l0 = float(vae.pretrain_loss(net._params[0], x, draws=eps))
+    first_ms = _wall_ms(lambda: net.pretrain(it))
+    step_ms = _wall_ms(lambda: net.pretrain(it)) / VAE_BATCHES
+    _traced(lambda: net.pretrain(it))
+    tr = _traced(lambda: net.pretrain(it))
+    with torch.no_grad():
+        p = net._params[0]
+        l1 = float(vae.pretrain_loss(p, x, draws=eps))
+        logp = vae.reconstruction_probability(p, x, num_samples=16)
+        logp_ms = _wall_ms(lambda: vae.reconstruction_probability(
+            p, x, num_samples=16))
+        g = torch.linspace(-4, 4, 20, device="cuda")
+        z = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+        img = vae.generate_at_mean_given_z(p, z)
+        gen_ms = _wall_ms(lambda: vae.generate_at_mean_given_z(p, z))
+    peak = torch.cuda.max_memory_allocated()
+    ok = (np.isfinite([l0, l1]).all() and l1 < l0
+          and tuple(logp.shape) == (VAE_B,)
+          and bool(torch.isfinite(logp).all()) and float(logp.max()) <= 0
+          and tuple(img.shape) == (400, 784)
+          and bool(((img >= 0) & (img <= 1)).all()))
+    out = {"step_ms": step_ms, "images_per_s": VAE_B / step_ms * 1e3,
+           "first_pretrain_ms": first_ms, "elbo_loss": [l0, l1],
+           "traced": tr, "reconstruction_probability_ms": logp_ms,
+           "mean_log_p": float(logp.mean()), "generate_ms": gen_ms,
+           "peak_bytes": peak}
+    print(f"  {step_ms:.3f} ms a pretrain step ({out['images_per_s']:.0f} "
+          f"images/s), busy {tr['busy_share']:.1%}; negative ELBO on a "
+          f"fixed batch and eps {l0:.3f} -> {l1:.3f}; "
+          f"reconstruction_probability x16 {logp_ms:.3f} ms (mean log p "
+          f"{out['mean_log_p']:.2f}); generate_at_mean_given_z on a 20x20 "
+          f"grid {gen_ms:.3f} ms; peak {peak / 2**20:.1f} MiB")
+    if not ok:
+        raise SystemExit(f"phase 30(c): bad VAE {out}")
+    del net
+    return out
+
+
+def pre_keras():
+    """Phase 30(d): the Keras import, from the npz form of the committed
+    fixture and from tier-1's model builders (the card's machine has no
+    h5py), card against Keras's predictions and against the CPU."""
+    import numpy as np
+    print("phase 30(d): Keras import: the real fixture from its npz against "
+          "Keras's predictions; Keras 1 MLP, th conv, LSTM and functional "
+          "nets card against CPU (f32)")
+    K = _load_tier1("test_torch_keras_import")
+    net = K.build(*K.read_npz_model(), device="cuda")
+    io = np.load(K.REAL_IO)
+    err_keras = float(np.abs(K._first(net.output(io["x"])) - io["y"]).max())
+    inputs = {"mlp": (5, 4), "th_conv": (2, 8, 8, 2), "lstm": (2, 6, 3),
+              "functional": (3, 6, 6, 2)}
+    errs = {}
+    rng = np.random.default_rng(303)
+    for name, shape in inputs.items():
+        cfg, w = K.MODELS[name]()
+        x = rng.standard_normal(shape).astype(np.float32)
+        a, b = (K._first(K.build(cfg, K.groups(w), d).output(x))
+                for d in ("cuda", "cpu"))
+        errs[name] = float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+    print(f"  real fixture on the card vs Keras: {err_keras:.3e} (limit "
+          f"1e-5); card vs CPU: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (limit 1e-5)")
+    if not (err_keras <= 1e-5 and all(v <= 1e-5 for v in errs.values())):
+        raise SystemExit("phase 30(d): Keras import disagrees")
+    return {"real_fixture_vs_keras": err_keras, "card_vs_cpu": errs}
+
+
+def _same_draws(net, seed):
+    """Make each pretrain layer of `net` draw on the CPU from its own
+    generator and move the draws to the batch's device, so that a card
+    network and a CPU network get the same draws."""
+    def moved(d, device):
+        if d is None or isinstance(d, torch.Tensor):
+            return None if d is None else d.to(device)
+        return [t.to(device) for t in d]
+
+    for i, layer in enumerate(net.layers):
+        if hasattr(layer, "pretrain_draws"):
+            orig = layer.pretrain_draws
+            gen = torch.Generator().manual_seed(seed + i)
+            layer.pretrain_draws = (
+                lambda h, g, orig=orig, gen=gen:
+                moved(orig(h.cpu(), gen), h.device))
+
+
+def pre_card_vs_cpu():
+    """Phase 30, card against CPU in float64 with the same draws: CD-1, a
+    gaussian CD-2, an AutoEncoder and a VAE pretrained over 3 batches."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        RBM, AutoEncoder, OutputLayer, VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    print("phase 30: card vs CPU, float64, the same draws: RBM 784->1000 "
+          "(CD-1), RBM 1000->500 (gaussian hidden, CD-2), AutoEncoder "
+          "500->250, VAE 250->[256, 256]->2, batch 100, 3 batches each")
+
+    def make(device):
+        conf = (NeuralNetConfiguration.Builder().seed(7).updater("adam")
+                .learning_rate(1e-3).activation("sigmoid")
+                .data_type("float64").list()
+                .layer(0, RBM(n_out=1000))
+                .layer(1, RBM(n_out=500, k=2, hidden_unit="gaussian"))
+                .layer(2, AutoEncoder(n_out=250, corruption_level=0.3))
+                .layer(3, VariationalAutoencoder(
+                    n_out=2, encoder_layer_sizes=(256, 256),
+                    decoder_layer_sizes=(256, 256), activation="tanh"))
+                .layer(4, OutputLayer(n_out=10, activation="softmax"))
+                .set_input_type(InputType.feed_forward(784)).build())
+        net = MultiLayerNetwork(conf, device=device).init()
+        _same_draws(net, 3000)
+        return net
+
+    nets = {d: make(d) for d in ("cuda", "cpu")}
+    scores = {}
+    for d, net in nets.items():
+        net.pretrain(_mnist(100, 3, binarize=True, seed=304))
+        scores[d] = net.score()
+    a, b = nets["cuda"].params(), nets["cpu"].params()
+    err = float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+    moved = float(np.abs(b - make("cpu").params()).max())
+    serr = abs(scores["cuda"] - scores["cpu"]) / max(1.0, abs(scores["cpu"]))
+    print(f"  parameters {err:.3e}, last score {serr:.3e} (limit 1e-9); "
+          f"pretraining moved the parameters by up to {moved:.3e}")
+    if not (err <= 1e-9 and serr <= 1e-9 and moved > 0):
+        raise SystemExit("phase 30: card and CPU pretraining disagree")
+    return {"params_err": err, "score_err": serr, "moved": moved}
+
+
+def pretrain_phase(fa):
+    """Phase 30. Returns its readings. Pretraining and the Keras import run
+    no kernel of the port: the counters are set to 0 first and must read 0
+    after it."""
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    out = {"sub_phase_s": {}}
+    for key, fn in (("a", lambda: pre_deep_autoencoder("rbm")),
+                    ("b", lambda: pre_deep_autoencoder("autoencoder")),
+                    ("c", pre_vae), ("d", pre_keras),
+                    ("card_vs_cpu", pre_card_vs_cpu)):
+        t = time.perf_counter()
+        out[key] = fn()
+        out["sub_phase_s"][key] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    launched = dict(fa.launches)
+    if any(launched.values()):
+        raise SystemExit(f"phase 30 launched flash kernels: {launched}")
+    out["flash_launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 30 launched no kernel of the port: {launched}; "
           f"{out['phase_s']:.1f} s ({out['sub_phase_s']})")
     return out
 

@@ -22,14 +22,6 @@ import torch
 
 LAYER_REGISTRY = {}
 
-# Layers of the reference that the port has not ported yet, by JSON type,
-# with the ROADMAP.md item (queue 1) that queues each.
-NOT_PORTED = {
-    "rbm": "item 18b (rbm.py)",
-    "vae": "item 18b (variational.py)",
-    "autoencoder": "item 18b (pretrain layers)",
-}
-
 # Fields that participate in global-default override (reference:
 # NeuralNetConfiguration.Builder globals). None on a layer = inherit global.
 GLOBAL_OVERRIDABLE = (
@@ -40,13 +32,6 @@ GLOBAL_OVERRIDABLE = (
     "lr_policy", "lr_policy_decay_rate", "lr_policy_steps", "lr_policy_power",
     "lr_policy_max_iterations", "lr_schedule",
 )
-
-
-def not_ported(layer_type):
-    """The error for a layer the port does not have yet."""
-    return NotImplementedError(
-        f"layer type '{layer_type}' is not ported to deeplearning4j_tpu_torch "
-        f"yet: ROADMAP.md queue 1 {NOT_PORTED[layer_type]}")
 
 
 def register_layer(name):
@@ -163,8 +148,6 @@ class LayerConf:
     def from_dict(cls, d):
         d = dict(d)
         typ = d.pop("type")
-        if typ in NOT_PORTED:
-            raise not_ported(typ)
         if typ not in LAYER_REGISTRY:
             raise ValueError(f"Unknown layer type '{typ}'. "
                              f"Known: {sorted(LAYER_REGISTRY)}")

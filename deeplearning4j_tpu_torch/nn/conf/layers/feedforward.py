@@ -1,10 +1,9 @@
 """Feed-forward layer configs: port of
 deeplearning4j_tpu/nn/conf/layers/feedforward.py (Dense, Output, RnnOutput,
-Loss, Activation, Dropout, Embedding).
+Loss, Activation, Dropout, Embedding, AutoEncoder).
 
 Forward math as the reference: preOutput = x @ W + b with W [n_in, n_out],
-the activation on top; cuBLAS runs the product. AutoEncoder is not ported
-yet (`base.NOT_PORTED`).
+the activation on top; cuBLAS runs the product.
 """
 from __future__ import annotations
 
@@ -157,6 +156,66 @@ class EmbeddingLayer(LayerConf):
             idx = idx[:, 0]
         emb = params["W"][idx.long()] + params["b"]
         return activations.get(self.activation)(emb)
+
+
+@register_layer("autoencoder")
+@dataclass
+class AutoEncoder(LayerConf):
+    """Denoising autoencoder, a pretrain layer: encode with W, b; decode
+    with Wᵀ, vb; `forward` is `encode`. Its corruption keeps each input
+    where a uniform draw is below 1 - corruption_level (as
+    jax.random.bernoulli); the draws come from `pretrain_draws` on a
+    torch.Generator, or are handed in as `draws`."""
+    n_in: int = None
+    n_out: int = None
+    corruption_level: float = 0.3
+    sparsity: float = 0.0
+    loss_function: str = "mse"
+
+    def set_n_in(self, input_type, override=True):
+        if self.n_in is None or override:
+            self.n_in = _ff_size(input_type)
+
+    def get_output_type(self, input_type):
+        return InputType.feed_forward(self.n_out)
+
+    def init_params(self, gen, dtype=torch.float32):
+        w = weights.init(gen, (self.n_in, self.n_out), self.n_in, self.n_out,
+                         self.weight_init, self.dist, dtype)
+        return {"W": w, "b": torch.zeros(self.n_out, dtype=dtype),
+                "vb": torch.zeros(self.n_in, dtype=dtype)}
+
+    def encode(self, params, x):
+        return activations.get(self.activation)(x @ params["W"] + params["b"])
+
+    def decode(self, params, h):
+        return activations.get(self.activation)(
+            h @ params["W"].T + params["vb"])
+
+    def forward(self, params, x, *, train=False, rng=None, mask=None,
+                state=None):
+        return self.encode(params, x)
+
+    def pretrain_draws(self, x, gen):
+        """The corruption's uniforms for the batch `x`, from the
+        torch.Generator `gen`; None when there is no corruption (no
+        generator, or corruption_level 0), as the reference corrupts only
+        when given a key."""
+        if gen is None or not self.corruption_level > 0:
+            return None
+        return torch.rand(x.shape, generator=gen, dtype=x.dtype,
+                          device=x.device)
+
+    def pretrain_loss(self, params, x, *, rng=None, draws=None):
+        """The reconstruction loss of the corrupted input, the mean over
+        examples. `draws`: the corruption's uniforms (drawn from `rng`
+        when None)."""
+        if draws is None:
+            draws = self.pretrain_draws(x, rng)
+        xc = x if draws is None else x * (draws < 1.0 - self.corruption_level)
+        recon = self.decode(params, self.encode(params, xc))
+        return losses.get(self.loss_function)(x, recon, "identity",
+                                              None).mean()
 
 
 def _ff_size(input_type):

@@ -14,9 +14,6 @@ unchanged:
                                   loss_function="mcxent"))
             .set_input_type(InputType.convolutional_flat(28, 28, 1))
             .build())
-
-A document naming a layer the port does not have yet raises
-NotImplementedError with its ROADMAP.md item (`layers.base.NOT_PORTED`).
 """
 from __future__ import annotations
 

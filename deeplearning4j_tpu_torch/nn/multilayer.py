@@ -76,9 +76,12 @@ host. `_last_batch_size` is the rows of the last batch a fit path took
 `make_flat_score_fn` is the score as a differentiable function of the flat
 parameter vector (`gradientcheck`, `optimize.solvers`).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): `pretrain` and `pretrain_layer` (18b), `collect_activation_stats`
-(22).
+`pretrain` / `pretrain_layer` train the pretrainable layers (AutoEncoder,
+RBM, VariationalAutoencoder) greedily, each on the frozen activations below
+it, with the raw updater rule; `fit` never calls them.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+`collect_activation_stats` (22).
 """
 from __future__ import annotations
 
@@ -114,6 +117,11 @@ def _param_sort_key(k):
     order = {"W": 0, "RW": 1, "b": 2, "gamma": 0, "beta": 1, "mean": 2, "var": 3,
              "vb": 3}
     return (order.get(k, 9), k)
+
+
+def _pretrainable(layer):
+    return hasattr(layer, "pretrain_loss") or hasattr(layer,
+                                                      "pretrain_grads")
 
 
 def mean_score(per_example):
@@ -889,6 +897,14 @@ class Network(nn.Module):
     # ------------------------------------------------------------------
     # The reference's per-layer trees (weight bridge and model zips)
     # ------------------------------------------------------------------
+    def reference_params(self):
+        """The parameters as the reference nests them (per layer: name ->
+        numpy array), in its layout: what `from_jax_params` takes."""
+        self._ensure_init()
+        return self._tree({key: {k: _to_numpy(layer.to_reference(k, p))
+                                 for k, p in self._slot(key).params.items()}
+                           for key, layer in self._keyed_layers()})
+
     def reference_updater_state(self):
         """The updater state as the reference nests it (per layer: param
         name -> state name -> numpy array), in its layout."""
@@ -1188,11 +1204,83 @@ class MultiLayerNetwork(Network):
             raise TypeError(f"Cannot fit on {type(data)}")
         return data
 
-    def pretrain(self, *args, **kwargs):
-        raise not_ported("layerwise pretraining", "18b")
+    # ------------------------------------------------------------------
+    # Layerwise pretraining: greedy unsupervised training of each
+    # pretrainable layer (AutoEncoder, RBM, VariationalAutoencoder) on the
+    # activations of the frozen layers below it. `fit` never calls it.
+    # ------------------------------------------------------------------
+    def pretrain(self, data, num_epochs=1):
+        """`pretrain_layer` for each pretrainable layer, in order."""
+        self._ensure_init()
+        for i, layer in enumerate(self.layers):
+            if _pretrainable(layer):
+                self.pretrain_layer(i, data, num_epochs)
+        return self
 
-    def pretrain_layer(self, *args, **kwargs):
-        raise not_ported("layerwise pretraining (pretrain_layer)", "18b")
+    def pretrain_layer(self, i, data, num_epochs=1):
+        """Train layer `i` alone, num_epochs passes over `data` (a DataSet
+        or a DataSetIterator), one step a batch: the layers below run
+        frozen (train=False), then the layer's preprocessor; the gradients
+        are the layer's own CD statistics (`pretrain_grads`) where it has
+        them, else autograd of `pretrain_loss`; the update is the raw
+        updater rule at the layer's learning rate (0.1 when unset), p -= u,
+        with no L1/L2, schedule or gradient normalization, and an updater
+        state that lives for this call only. The layer's random draws come
+        from the network's generator, once a batch. `score()` is then the
+        last batch's loss."""
+        self._ensure_init()
+        layer = self.layers[i]
+        if not _pretrainable(layer):
+            raise ValueError(f"Layer {i} ({type(layer).__name__}) is not "
+                             "pretrainable")
+        init_fn, apply_fn = U.get(layer.updater or "sgd")
+        hp, lr = layer.updater_hp(), layer.learning_rate or 0.1
+        masters = self._slot(i).params
+        ustate = {k: init_fn(p.detach()) for k, p in masters.items()}
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator([data])
+        for _ in range(num_epochs):
+            data.reset()
+            while data.has_next():
+                ds = next_processed(data)
+                with card_numerics(self._device, self.compute_dtype):
+                    self._score = self._pretrain_step(
+                        i, self._input(ds.features), ustate, apply_fn, lr,
+                        hp)
+        return self
+
+    pretrainLayer = pretrain_layer
+
+    def _pretrain_step(self, i, x, ustate, apply_fn, lr, hp):
+        """One pretraining step of layer `i` on the batch `x`; updates the
+        layer's masters and `ustate` in place, returns the loss."""
+        layer = self.layers[i]
+        with torch.no_grad():
+            acts, _, _ = self._apply_layers(self._cast_params(),
+                                            self._states(), x, train=False,
+                                            rng=None, upto=i)
+            h = acts[-1] if acts else x
+            if i in self.conf.preprocessors:
+                h = self.conf.preprocessors[i].pre_process(h)
+        draws = layer.pretrain_draws(h, self._dropout_gen)
+        masters = self._slot(i).params
+        cast = {k: p.detach().to(self.compute_dtype).requires_grad_()
+                for k, p in masters.items()}
+        if hasattr(layer, "pretrain_grads"):
+            with torch.no_grad():
+                grads = layer.pretrain_grads(cast, h, draws=draws)
+                loss = layer.pretrain_loss(cast, h, draws=draws)
+        else:
+            loss = layer.pretrain_loss(cast, h, draws=draws)
+            grads = dict(zip(cast, torch.autograd.grad(
+                loss, list(cast.values()), allow_unused=True,
+                materialize_grads=True)))
+        with torch.no_grad():
+            for k, p in masters.items():
+                upd, ustate[k] = apply_fn(ustate[k], grads[k].to(p.dtype),
+                                          lr, hp)
+                p.sub_(upd)
+        return loss.detach()
 
     def collect_activation_stats(self, *args, **kwargs):
         raise not_ported("collect_activation_stats (the activation "

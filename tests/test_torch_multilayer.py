@@ -279,17 +279,27 @@ def test_golden_conf_json_round_trips(J, name):
 
 
 def test_conf_naming_an_unported_layer_raises_with_its_roadmap_item(J):
-    """A reference document with a VAE layer (ROADMAP.md item 18b)."""
+    """A reference document with a VAE layer (item 18b, ported) builds in
+    the port and writes back the reference's text, the reconstruction
+    distribution's dict included; the port's own builder gives the same
+    document."""
     from deeplearning4j_tpu.nn.conf import layers as JLy
     from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
         NeuralNetConfiguration as JNNC
+    dist = {"type": "bernoulli"}
     text = (JNNC.Builder().seed(1).list()
-            .layer(JLy.VariationalAutoencoder(n_in=6, n_out=3))
+            .layer(JLy.VariationalAutoencoder(
+                n_in=6, n_out=3, reconstruction_distribution=dist))
             .layer(JLy.OutputLayer(n_in=3, n_out=2)).build().to_json())
-    with pytest.raises(NotImplementedError, match="vae.*item 18b"):
-        MultiLayerConfiguration.from_json(text)
-    with pytest.raises(NotImplementedError, match="vae.*item 18b"):
-        TLy.VariationalAutoencoder(n_out=3)
+    conf = MultiLayerConfiguration.from_json(text)
+    assert isinstance(conf.layers[0], TLy.VariationalAutoencoder)
+    assert conf.layers[0].reconstruction_distribution == dist
+    assert conf.to_json() == text
+    mine = (NeuralNetConfiguration.Builder().seed(1).list()
+            .layer(TLy.VariationalAutoencoder(
+                n_in=6, n_out=3, reconstruction_distribution=dist))
+            .layer(TLy.OutputLayer(n_in=3, n_out=2)).build().to_json())
+    assert mine == text
 
 
 def test_builder_dsl_infers_preprocessors_and_n_in():
@@ -465,11 +475,26 @@ def test_entry_points_run_on_the_card_or_raise():
 
 def test_unported_paths_raise_with_their_roadmap_items():
     net = lenet(device="cpu")
-    for call, item in ((lambda: net.pretrain_layer(0, None), "item 18b$"),
-                       (lambda: net.pretrain(None), "item 18b$"),
-                       (lambda: net.collect_activation_stats(), "item 22$")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="item 22$"):
+        net.collect_activation_stats()
+    # item 18b is ported: LeNet has no pretrainable layer, and a toy RBM
+    # net pretrains (one CD-1 step a batch) and returns itself
+    with pytest.raises(ValueError, match="not pretrainable"):
+        net.pretrain_layer(0, None)
+    assert net.pretrain(None) is net
+    rbm = MultiLayerNetwork(
+        NeuralNetConfiguration.Builder().seed(3).list()
+        .layer(0, TLy.RBM(n_out=5))
+        .layer(1, TLy.OutputLayer(n_out=2, activation="softmax"))
+        .set_input_type(InputType.feed_forward(6)).build(),
+        device="cpu").init()
+    x = (np.random.default_rng(4).random((8, 6)) > 0.5).astype(np.float32)
+    before = rbm.params().copy()
+    assert rbm.pretrain_layer(0, DataSet(x, np.zeros((8, 2), np.float32)),
+                              num_epochs=2) is rbm
+    after = rbm.params()
+    assert np.isfinite(rbm.score()) and not np.array_equal(before, after)
+    np.testing.assert_array_equal(after[-12:], before[-12:])  # layer 1 kept
     # item 16 is ported: the listener API returns the net
     listener = object()
     assert net.set_listeners(listener) is net and net.listeners == [listener]

@@ -1,13 +1,14 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
 `chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py`,
 `chip_embeddings.py`, `chip_parallel.py`, `chip_fused.py`,
-`chip_spec_kv.py`, `chip_fleet.py` and `chip_tools.py` import neither JAX,
-nor `ml_dtypes` (the card's machine
-has neither), nor anything of the JAX package `deeplearning4j_tpu`, and
+`chip_spec_kv.py`, `chip_fleet.py`, `chip_tools.py` and `chip_pretrain.py`
+import neither JAX, nor `ml_dtypes` (the card's machine has neither), nor
+anything of the JAX package `deeplearning4j_tpu`, and
 importing the
 port (its `models` package with the embeddings included, and the whole
 `parallel` package) builds no kernel, builds or loads no native library,
-starts no thread, opens no process group and needs no card. The fleet
+starts no thread, opens no process group and needs no card; the Keras
+import (`keras/`, in the scan) does not import h5py either. The fleet
 plane's stdlib halves (`obs/*.py`, `serving/fleetjournal.py`) import
 neither torch nor numpy themselves, as the reference's layering rules
 demand of theirs (tools/analyze/layers_torch.toml holds the same). The names
@@ -94,11 +95,16 @@ import deeplearning4j_tpu_torch.gradientcheck
 import deeplearning4j_tpu_torch.parallel.early_stopping
 import deeplearning4j_tpu_torch.models.zoo.classic_cnns
 import deeplearning4j_tpu_torch.graft_entry
+import deeplearning4j_tpu_torch.nn.conf.layers.rbm
+import deeplearning4j_tpu_torch.nn.conf.layers.variational
+import deeplearning4j_tpu_torch.keras
+import deeplearning4j_tpu_torch.keras.keras_import
+import deeplearning4j_tpu_torch.keras.server
 from deeplearning4j_tpu_torch.common import native_ops
 from deeplearning4j_tpu_torch.ops import _build
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
-                                       "deeplearning4j_tpu"))
+                                       "deeplearning4j_tpu", "h5py"))
 assert not leaked, leaked
 # no prefetch thread, server thread or kernel starts at import
 import threading
@@ -134,7 +140,7 @@ _FORBIDDEN = re.compile(
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
        "chip_recurrent.py", "chip_embeddings.py", "chip_parallel.py",
        "chip_fused.py", "chip_spec_kv.py", "chip_fleet.py",
-       "chip_tools.py"]))
+       "chip_tools.py", "chip_pretrain.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
@@ -223,8 +229,11 @@ def test_unported_training_options_raise_with_their_items():
     net = lenet(device="cpu")
     # item 16 is ported: set_listeners returns the net
     assert net.set_listeners() is net and net.listeners == []
-    with pytest.raises(NotImplementedError, match="item 18b$"):
+    # item 18b is ported: pretrain_layer refuses a layer that cannot
+    # pretrain, pretrain visits none of LeNet's
+    with pytest.raises(ValueError, match="not pretrainable"):
         net.pretrain_layer(0, None)
+    assert net.pretrain(None) is net
     with pytest.raises(NotImplementedError, match="item 22$"):
         net.collect_activation_stats()
     # items 17 and 20a are ported: the options build
