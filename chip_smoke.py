@@ -340,12 +340,46 @@ kernels and are counted apart.
      and a VAE pretrained in float64 on the card and on the CPU with the
      same draws: parameters and score within 1e-9. The flash counters read
      0.
+ 31. model parallelism (`python3 chip_model_parallel.py` alone): 4 gloo
+     rank processes on cuda:0 (and, where four cards are present, (a) once
+     more over NCCL, one rank a card): (a) GPipe over four flash
+     TransformerLM stages at bench.py's width, bf16, T=8192, 4 microbatches
+     of one row: K2, K4 and K5 launched exactly 21 times per rank over 3
+     `fit_batch` steps and K1 7 times per `forward`; the first step's loss
+     and stage gradients against the four blocks run in order in this
+     process through the same kernels (bf16 limits: loss 5e-3 relative,
+     gradients 2e-2 relative L2); step time, the rotations' spans in an
+     instrumented step (their share of it) and a lone rotation's time, a
+     traced step's device time (busy share of the card), peak
+     memory per rank; f32 at T=1024 on the card against the CPU's plain
+     versions (1e-5); (b) Megatron blocks at d_model 512, 8 heads (4 a
+     rank), d_ff 2048 on (data 1, model 2, pipe 2), T=1024: loss and
+     gradients against the dense blocks in f32 (1e-5) and bf16, then 10
+     steps (the loss falls); (c) experts E=8 over 4 ranks, d_model 512,
+     d_ff 2048, 4,096 tokens: sharded against dense at k=1, 2, with and
+     without a capacity that drops, dp x ep top-2, a MoE block's step
+     (1e-5, expert ids equal); (d) LeNet with Adam at batch 128 through
+     the wrapper's tensor parallelism and sharded updater state on (data
+     2, model 2) against the replicated run (1e-5), each rank holding half
+     (a quarter) of every split leaf, `lower_step`'s footprint, a
+     checkpoint saved shard by shard and restored bit-equal into a split
+     layout and into one net, `swap_from_checkpoint` into an
+     InferenceServer, and its step time against data parallelism on
+     (data 4); (e) config 4's skip-gram with its tables
+     column-sharded over the 4 ranks against the whole tables (1e-5); the
+     flash counters read 0 after (b)-(e); (f)
+     `graft_entry.dryrun_multichip(4)` on cuda:0 ranks with its budget gate,
+     K3 launched once a ring hop (counted apart); K1, K2, K4, K5 held
+     against their plain versions and timed at the stage shape (B=1,
+     T=8192). Under 120 s.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
 ...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, an
 {"embeddings": ...} line, a {"parallel": ...} line, a {"fused": ...} line,
 a {"spec_kv": ...} line, a {"fleet": ...} line, a {"tools": ...} line, a
-{"pretrain": ...} line, one {"kernels": [...]} JSON line and, as the last
-line, {"ok": true, "device": {...}}. It imports nothing of JAX.
+{"pretrain": ...} line, a {"model_parallel": ...} line, one {"kernels":
+[...]} JSON line (K1, K2, K4 and K5 with their GPipe launches and stage-shape
+times) and, as the last line, {"ok": true, "device": {...}}. It imports
+nothing of JAX.
 """
 import contextlib
 import json
@@ -857,6 +891,7 @@ def main():
     fleet = fleet_phase(fa)
     tools = tools_phase(fa)
     pretrain = pretrain_phase(fa)
+    model_parallel = model_parallel_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -882,6 +917,14 @@ def main():
         "name": "flash_attention_partial", "route": "cuda",
         "source": src + "flash_attention_fwd.cu", "replaces": ref + "203"},
         **ring["partial"]))
+    # phase 31: the GPipe path's launches per rank (3 fit_batch steps, one
+    # forward) and each kernel at the stage shape
+    for entry in kernels:
+        key = entry["name"][len("flash_attention_"):]
+        if key in model_parallel["pipeline_launches"]:
+            entry["pipeline_launches"] = \
+                model_parallel["pipeline_launches"][key]
+            entry["stage_shape"] = model_parallel["stage_shape"][key]
     print(json.dumps({"training_core": core}))
     print(json.dumps({"data_and_serving": serving}))
     print(json.dumps({"decode_serving": decode}))
@@ -893,6 +936,7 @@ def main():
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"pretrain": pretrain}))
+    print(json.dumps({"model_parallel": model_parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7359,6 +7403,857 @@ def pretrain_phase(fa):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 30 launched no kernel of the port: {launched}; "
           f"{out['phase_s']:.1f} s ({out['sub_phase_s']})")
+    return out
+
+
+# -- phase 31: model parallelism --------------------------------------------
+
+MP_WORLD = 4
+MP_GROUP_TIMEOUT_S, MP_JOIN_TIMEOUT_S = 120, 400
+MP_SEED = 310
+MP_M = 4                    # (a): microbatches of one row each
+MP_MOE = dict(d=512, e=8, f=2048, tokens=4096)
+# (a), bf16: the pipeline runs the sequential model's kernels on one row a
+# microbatch (cuBLAS picks its products by shape) and sums each stage's
+# weight gradient over 7 ticks in bf16 where the sequential backward sums
+# one product; each such sum rounds to 2^-8 relative. The limits: the
+# loss 5e-3 relative, each stage gradient 2e-2 relative L2.
+MP_LOSS_RTOL, MP_GRAD_RL2 = 5e-3, 2e-2
+# (b), bf16: the Megatron block rounds each rank's partial product (the
+# attention's output projection, the MLP's down-projection) to bf16 before
+# the all-reduce adds them, where the dense block rounds one whole product:
+# one more rounding on the block's two outputs and on every gradient that
+# flows back through them. Read 1.2e-2 in the CPU rehearsal at d 64.
+MP_TP_GRAD_RL2 = 5e-2
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _rel_max(a, b):
+    """max |a - b| over max(1, max |b|): f32 products summed in another
+    order."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def _mp_tokens(t, seed):
+    import numpy as np
+    x = np.random.default_rng(seed).integers(0, FULL["vocab_size"],
+                                              (B, t)).astype(np.int64)
+    return x, (x + 1) % FULL["vocab_size"]
+
+
+def _mp_lm(dtype, device):
+    """(aux, 4 blocks) at bench.py's width, from MP_SEED (a CPU generator:
+    the same weights in every process)."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer as TR
+    return TR.init_lm(FULL["vocab_size"], FULL["d_model"], FULL["n_heads"],
+                      4, max_len=T, seed=MP_SEED, dtype=dtype,
+                      device=device)
+
+
+def _mp_pipeline(dtype, device, group=None, attention="flash"):
+    from deeplearning4j_tpu_torch.models.zoo import transformer as TR
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        PipelineParallel, make_pipeline_mesh)
+    aux, blocks = _mp_lm(dtype, device)
+    return PipelineParallel(
+        TR.make_block_fn(FULL["n_heads"], attention), blocks,
+        make_pipeline_mesh(MP_WORLD, group=group, device=device),
+        loss_fn=TR.lm_loss,
+        aux_params=aux, pre_fn=TR.embed_fn, n_micro=MP_M,
+        learning_rate=0.1, momentum=0.9)
+
+
+def _mp_gpipe(rank, fa, barrier, cpu_group=None):
+    """31(a) on this rank: stage 'rank' of four, bf16, T=8192. `barrier`
+    waits for every rank; `cpu_group` carries the f32 CPU pipeline (None:
+    the world group, a gloo one)."""
+    from deeplearning4j_tpu_torch.parallel import ring_attention as ra
+    out = {}
+    pp = _mp_pipeline(torch.bfloat16, "cuda")
+    x, y = _mp_tokens(T, MP_SEED + 1)
+    xs, ys = pp._put_micro(x), pp._put_micro(y)
+    loss = pp._loss(xs, ys)
+    grads = torch.autograd.grad(loss, list(pp.stage.parameters()))
+    out["grad_loss"] = float(loss.detach())
+    out["stage_grads"] = {n: g.float().cpu() for (n, _), g in
+                          zip(pp.stage.named_parameters(), grads)}
+    del loss, grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(3):
+        barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(pp.fit_batch(x, y))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    out["launches_fit"] = dict(fa.launches)
+    # one more step under the port's profiler: this rank's device time
+    # beside the step's wall time (the four ranks share the card)
+    from deeplearning4j_tpu_torch.optimize.profiler import (summarize_trace,
+                                                            trace)
+    logdir = str(Path(__file__).resolve().parent / "build"
+                 / f"mp_trace_{os.getpid()}")
+    barrier()
+    with trace(logdir):
+        t0 = time.perf_counter()
+        pp.fit_batch(x, y)
+        torch.cuda.synchronize()
+        out["traced_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["traced_device_ms"] = sum(r["total_ms"]
+                                  for r in summarize_trace(logdir))
+    shutil.rmtree(logdir, ignore_errors=True)
+    # one more step with each rotation timed on the host clock, the card
+    # synchronised before and after it: a span holds the rotation's
+    # staging through the host and its wait for the peer rank, not this
+    # rank's queued compute
+    spans, rotate = [], ra._ppermute
+
+    def timed_rotation(tensors, group, shift=1):
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        moved = rotate(tensors, group, shift)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t_r)
+        return moved
+
+    ra._ppermute = timed_rotation
+    try:
+        barrier()
+        t0 = time.perf_counter()
+        pp.fit_batch(x, y)
+        torch.cuda.synchronize()
+        out["timed_rotations_step_ms"] = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ra._ppermute = rotate
+    out["rotations_in_step"] = len(spans)
+    out["rotation_spans_ms"] = 1e3 * sum(spans)
+    fa.reset_launches()
+    barrier()
+    t0 = time.perf_counter()
+    h = pp.forward(x)
+    torch.cuda.synchronize()
+    out["forward_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["launches_forward"] = dict(fa.launches)
+    out["forward_ok"] = (tuple(h.shape) == (B, T, FULL["d_model"])
+                         and bool(torch.isfinite(h).all()))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["losses"], out["step_ms"] = losses, step_ms
+    act = torch.randn(1, T, FULL["d_model"], device="cuda",
+                      dtype=torch.bfloat16)
+    group = pp.mesh.axis_group("pipe")
+    barrier()
+    out["rotation_ms"] = cuda_ms(lambda: ra._ppermute([act], group),
+                                 iters=5, warmup=1)
+    del pp, h, act
+    torch.cuda.empty_cache()
+    # f32, T=1024: the kernels on the card against the plain versions on
+    # the CPU, through the same schedule; one step (the CPU's part is the
+    # slow one)
+    x1, y1 = x[:, :1024], y[:, :1024]
+    runs = []
+    for dev, group in (("cuda", None), ("cpu", cpu_group)):
+        p32 = _mp_pipeline(torch.float32, dev, group)
+        ls = [p32.fit_batch(x1, y1)]
+        runs.append((ls, [p.detach().cpu() for p in p32._params()]))
+        del p32
+    out["f32_loss_err"] = max(abs(a - b) for a, b in zip(runs[0][0],
+                                                         runs[1][0]))
+    out["f32_param_err"] = max((a - b).abs().max().item()
+                               for a, b in zip(runs[0][1], runs[1][1]))
+    return out
+
+
+def _mp_three_axis(rank):
+    """31(b): Megatron blocks in the GPipe rotation on (data 1, model 2,
+    pipe 2), T=1024, f32 and bf16, against the dense blocks run in order
+    on this rank; then 10 bf16 steps."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer as TR
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        PipelineParallel, make_pipeline_mesh)
+    from deeplearning4j_tpu_torch.parallel.sharding import shard_slice
+    mesh = make_pipeline_mesh(2, n_data=1, n_model=2, device="cuda")
+    s, m = mesh.index("pipe"), mesh.index("model")
+    H, d = FULL["n_heads"], FULL["d_model"]
+    specs = TR.tp_block_specs()
+    x, y = _mp_tokens(1024, MP_SEED + 2)
+    x, y = x[:2], y[:2]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(MP_SEED + 3)
+        dense = [TR.init_block(gen, d, H, 4 * d, dtype, "cuda")
+                 for _ in range(2)]
+        aux = TR.init_lm(FULL["vocab_size"], d, H, 1, max_len=1024,
+                         seed=MP_SEED + 4, dtype=dtype, device="cuda")[0]
+        pp = PipelineParallel(
+            TR.make_tp_block_fn(H // 2, mesh=mesh),
+            [TR.tp_block_from_block(b, H) for b in dense], mesh,
+            loss_fn=TR.lm_loss, aux_params=aux, pre_fn=TR.embed_fn,
+            n_micro=2, learning_rate=0.1, momentum=0.9, param_specs=specs)
+        xs, ys = pp._put_micro(x), pp._put_micro(y)
+        loss = pp._loss(xs, ys)
+        names = [n for n, _ in pp.stage.named_parameters()]
+        g = torch.autograd.grad(loss, list(pp.stage.parameters()))
+        # the dense blocks in order, on this rank alone
+        blk = TR.make_block_fn(H)
+        xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
+        h = TR.embed_fn(aux, xt)
+        for b in dense:
+            h = blk(b, h)
+        seq = TR.lm_loss(aux, h, yt)
+        sg = torch.autograd.grad(seq, list(dense[s].parameters()))
+        want = TR.tp_layout(dict(zip(
+            [n for n, _ in dense[s].named_parameters()], sg)), H)
+        errs = {}
+        for n, gt in zip(names, g):
+            w = want[n]
+            for dim, ax in enumerate(specs[n][1:]):
+                if ax == "model":
+                    w = shard_slice(w, dim, m, 2)
+            errs[n] = (_rel_max(gt, w) if dtype == torch.float32
+                       else _rel_l2(gt.float(), w.float()))
+        key = "f32" if dtype == torch.float32 else "bf16"
+        out[key] = {"loss": float(loss.detach()),
+                    "seq_loss": float(seq.detach()),
+                    "grad_err": max(errs.values()),
+                    "local_wqkv": tuple(pp.stage.attn.wqkv.shape)}
+        if dtype == torch.bfloat16:
+            out["losses"] = [pp.fit_batch(x, y) for _ in range(10)]
+    return out
+
+
+def _mp_moe(rank):
+    """31(c): experts over 4 ranks (two a rank) against the dense layer on
+    this rank, f32: k=1, 2, with and without a capacity that drops; dp x
+    ep top-2; one step of a MoE block."""
+    import copy
+
+    from deeplearning4j_tpu_torch.models.zoo import transformer as TR
+    from deeplearning4j_tpu_torch.parallel import moe
+    c = MP_MOE
+    gen = torch.Generator().manual_seed(MP_SEED + 5)
+    full = moe.init_moe(gen, c["d"], c["e"], c["f"], device="cuda")
+    with torch.no_grad():       # non-zero biases, the same on every rank
+        for b in (full.b1, full.b2):
+            b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+    x = torch.randn(c["tokens"], c["d"], generator=gen).cuda()
+    w = torch.randn(c["tokens"], c["d"], generator=gen).cuda()
+    names = ["gate", "w1", "b1", "w2", "b2"]
+    out = {"cases": {}}
+
+    def case(mesh, params, k, cap, data_axis=None):
+        local = moe.shard_moe_params(params, mesh)
+        apply = moe.moe_mlp_sharded(mesh, capacity=cap, k=k,
+                                    data_axis=data_axis)
+        xg = x.clone().requires_grad_()
+        yv, aux = apply(local, xg)
+        g = torch.autograd.grad((yv * w).sum() + aux,
+                                [getattr(local, n) for n in names] + [xg])
+        dp = copy.deepcopy(params)
+        xd = x.clone().requires_grad_()
+        n_sh = mesh.n_ranks
+        yd, auxd = moe.moe_mlp_dense(dp, xd, cap, n_sh, k)
+        gd = torch.autograd.grad((yd * w).sum() + auxd,
+                                 [getattr(dp, n) for n in names] + [xd])
+        e = mesh.index("expert")
+        per = params.w1.shape[0] // mesh.axis_size("expert")
+        errs = {"y": _rel_max(yv, yd),
+                "aux": abs(float(aux.detach()) - float(auxd.detach()))}
+        for n, a, b in zip(names + ["x"], g, gd):
+            errs[n] = _rel_max(a, b if n in ("gate", "x")
+                               else b[e * per:(e + 1) * per])
+        shard = (mesh.index("data") * mesh.axis_size("expert") + e
+                 if data_axis else e)
+        rows = slice(shard * c["tokens"] // n_sh,
+                     (shard + 1) * c["tokens"] // n_sh)
+        ids_local = moe._route_topk(params.gate, x[rows], k)[0]
+        ids_dense = moe._route_topk(params.gate, x, k)[0][rows]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: apply(local, x), iters=3, warmup=1)
+        return {"errs": errs, "ids_equal": bool(torch.equal(ids_local,
+                                                            ids_dense)),
+                "y": yd.detach(), "sharded_ms": ms}
+
+    mesh = moe.make_expert_mesh(MP_WORLD, device="cuda")
+    ys = {}
+    # a capacity of 3/4 of an expert's mean load drops units
+    caps = {k: 3 * (k * c["tokens"] // MP_WORLD) // (4 * c["e"])
+            for k in (1, 2)}
+    for k, cap in ((1, None), (1, caps[1]), (2, None), (2, caps[2])):
+        r = case(mesh, full, k, cap)
+        ys[(k, cap)] = r.pop("y")
+        out["cases"][f"k{k}_cap{cap}"] = r
+    out["drops"] = {k: float((ys[(k, caps[k])] - ys[(k, None)]).abs().max())
+                    for k in (1, 2)}
+    de_mesh = moe.make_expert_mesh(2, n_data=2, device="cuda")
+    half = moe.init_moe(torch.Generator().manual_seed(MP_SEED + 6), c["d"],
+                        4, c["f"], device="cuda")
+    r = case(de_mesh, half, 2, None, "data")
+    r.pop("y")
+    out["cases"]["dp_ep_k2"] = r
+    # one SGD step of a MoE block, sharded experts against dense ones
+    blk = TR.init_moe_block(torch.Generator().manual_seed(MP_SEED + 7),
+                            c["d"], FULL["n_heads"], c["e"], c["f"],
+                            device="cuda")
+    sb = copy.deepcopy(blk)
+    sb.moe = moe.shard_moe_params(blk.moe, mesh)
+    xb = x.reshape(4, c["tokens"] // 4, c["d"])
+    wb = w.reshape(xb.shape)
+    grads = []
+    for b, fn in ((blk, TR.make_moe_block_fn(FULL["n_heads"],
+                                              moe.moe_mlp_dense)),
+                  (sb, TR.make_moe_block_fn(FULL["n_heads"],
+                                            moe.moe_mlp_sharded(mesh)))):
+        yb, aux = fn(b, xb)
+        ps = list(b.parameters())
+        gs = torch.autograd.grad((yb * wb).sum() + aux, ps)
+        grads.append(dict(zip([n for n, _ in b.named_parameters()], gs)))
+        with torch.no_grad():               # the SGD step
+            for p_, g_ in zip(ps, gs):
+                p_ -= 1e-4 * g_
+    e = mesh.index("expert")
+    dense_g, shard_g = grads
+    out["block_err"] = max(
+        _rel_max(g_, dense_g[n] if not n.startswith("moe.")
+                 or n == "moe.gate" else dense_g[n][2 * e:2 * e + 2])
+        for n, g_ in shard_g.items())
+    return out
+
+
+def _mp_wrapper(rank, out_dir):
+    """31(d): LeNet with Adam, global batch 128, on (data 2, model 2) with
+    tensor parallelism and the sharded updater state, against the
+    replicated run on the same 4 ranks; a sharded-run checkpoint restored
+    into a fresh 4-rank layout."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.sharding import make_mesh
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import \
+        ShardedCheckpointManager
+    batches = _lenet_data(MP_SEED + 8, 128, 3)
+
+    def build(nm, split):
+        net = lenet(device="cuda", updater="adam", learning_rate=1e-3)
+        pw = (ParallelWrapper.Builder(net)
+              .mesh(make_mesh(n_data=MP_WORLD // nm, n_model=nm,
+                              device="cuda"))
+              .tensor_parallel(split).sharded_updater_state(split).build())
+        return net, pw
+
+    def shapes(net):
+        return ({f"{k}.{n}": tuple(p.shape) for k, per in
+                 net._params.items() for n, p in per.items()},
+                {f"{k}.{n}.{s}": tuple(t.shape) for k, per in
+                 net._updater_state.items() for n, st in per.items()
+                 for s, t in st.items()})
+
+    out = {}
+    with _cudnn_deterministic():
+        net, pw = build(2, True)
+        whole = shapes(net)
+        pw._ensure_sharded()
+        local = shapes(net)
+        pw._join_state()
+        pw.fit(ListDataSetIterator(batches))
+        rep, rpw = build(1, False)
+        rpw.fit(ListDataSetIterator(batches))
+        out["param_err"] = float(np.abs(net.params() - rep.params()).max())
+        out["lowered"] = pw.lower_step(batches[0]).footprint
+    # a parameter that divides keeps 1/2 (over "model"); an updater state
+    # leaf 1/2 (over "data") or, when its parameter is split too, 1/4
+    split = {"params_half": 0, "state_half": 0, "state_quarter": 0,
+             "other": 0}
+    for i, kind in ((0, "params"), (1, "state")):
+        for key, w_ in whole[i].items():
+            l_ = local[i][key]
+            if w_ == l_:
+                continue
+            r_ = int(np.prod(w_)) / int(np.prod(l_))
+            name = f"{kind}_{'half' if r_ == 2 else 'quarter'}"
+            split[name if name in split else "other"] += 1
+    out["split"] = split
+    # saved while split: every rank writes its shards (a directory), then
+    # restored into a fresh split layout on the 4 ranks
+    ck = Path(out_dir) / "ckpt"
+    mgr = ShardedCheckpointManager(str(ck))
+    pw._ensure_sharded()
+    mgr.save(net, 3)
+    pw._join_state()
+    out["sharded_dir"] = (ck / "ckpt_3").is_dir()
+    fresh, fpw = build(2, True)
+    fpw._ensure_sharded()
+    mgr.restore(fresh, 3)
+    fpw._join_state()
+    out["restore_equal"] = bool(np.array_equal(fresh.params(), net.params()))
+    out["params"] = net.params()
+    out["ckpt"] = str(ck)
+    # the step time of TP + ZeRO on (data 2, model 2) against plain data
+    # parallelism on (data 4): fits of the 3 batches, each timed twice in
+    # turn (the state split and joined at each fit's ends), the least
+    import torch.distributed as dist
+    times = {"tp_zero": [], "data_parallel": []}
+    for _ in range(2):
+        for key, run in (("tp_zero", pw), ("data_parallel", rpw)):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.fit(ListDataSetIterator(batches))
+            torch.cuda.synchronize()
+            times[key].append(1e3 * (time.perf_counter() - t0)
+                              / len(batches))
+    out["step_ms"] = {key: min(v) for key, v in times.items()}
+    return out
+
+
+def _mp_w2v(rank):
+    """31(e): config 4's skip-gram (V=10,000, D=100, negative 5) with syn0
+    and syn1neg column-sharded over the 4 ranks (25 columns each, eager:
+    each 64-pair chunk's logits all-reduced through the host) against the
+    same learner whole on this rank (CUDA graphs), 3 flushes of 4,096
+    pairs, f32."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.parallel.sharding import make_mesh
+    vocab = _emb_vocab()
+    rng = np.random.default_rng(MP_SEED + 10)
+    pairs = [(rng.integers(0, EMB_V, 4096), rng.integers(0, EMB_V, 4096))
+             for _ in range(3)]
+    out = {}
+    for name, mesh in (("sharded", make_mesh(n_data=1, n_model=MP_WORLD,
+                                             device="cuda")),
+                       ("whole", None)):
+        learner = _emb_learner(vocab, "skipgram", False, 4096, "cuda")
+        if mesh is not None:
+            learner.configure(vocab, learner.lookup, window=EMB_WINDOW,
+                              negative=EMB_NEG, use_hs=False, seed=1,
+                              mesh=mesh, device="cuda")
+            out["local_d"] = int(learner._syn0.shape[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c, o in pairs:
+            learner.enqueue_pairs(c, o, 0.025)
+        learner.finish()
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_flush"] = 1e3 * (time.perf_counter() - t0) / 3
+        out[name] = (learner.lookup.syn0.copy(),
+                     learner.lookup.syn1neg.copy())
+    out["err"] = max(float(np.abs(a - b).max()) for a, b in
+                     zip(out.pop("sharded"), out.pop("whole")))
+    return out
+
+
+def mp_rank(rank, world, store, out_dir, backend="gloo"):
+    """One rank of phase 31, started by spawn: on cuda:0 in a gloo group,
+    (a) through (e), the flash counters set to 0 after (a) and read after
+    (e); over NCCL (one rank a card), (a) alone, its f32 CPU pipeline on a
+    gloo group beside."""
+    import torch.distributed as dist
+    import traceback
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    code = 1
+    try:
+        nccl = backend == "nccl"
+        torch.cuda.set_device(rank if nccl else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_num_threads(2)
+        dist.init_process_group(
+            backend, store=dist.FileStore(store, world), rank=rank,
+            world_size=world,
+            timeout=timedelta(seconds=MP_GROUP_TIMEOUT_S))
+        barrier = (partial(dist.barrier, device_ids=[rank]) if nccl
+                   else dist.barrier)
+        cpu_group = dist.new_group(backend="gloo") if nccl else None
+        res = {"sub_phase_s": {}}
+        parts = [("a", lambda r: _mp_gpipe(r, fa, barrier, cpu_group))]
+        if not nccl:
+            parts += [("b", _mp_three_axis), ("c", _mp_moe),
+                      ("d", lambda r: _mp_wrapper(r, out_dir)),
+                      ("e", _mp_w2v)]
+        for key, fn in parts:
+            t = time.perf_counter()
+            res[key] = fn(rank)
+            res["sub_phase_s"][key] = time.perf_counter() - t
+            if key == "a":
+                fa.reset_launches()
+            # a hang shows in the log as the part after the last line
+            print(f"  31({key}) rank {rank} done in "
+                  f"{res['sub_phase_s'][key]:.1f} s", flush=True)
+        res["flash_after_bcde"] = dict(fa.launches) if not nccl else {}
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+        code = 0
+    except BaseException:
+        traceback.print_exc()
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        # the meshes hold gloo subgroups: leave without their teardown
+        os._exit(code)
+
+
+def _mp_run_ranks(backend="gloo"):
+    import torch.multiprocessing as mp
+    work = (Path(__file__).resolve().parent / "build"
+            / f"mp_{backend}_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mp_rank, args=(
+        r, MP_WORLD, str(work / "store"), str(work), backend))
+        for r in range(MP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MP_JOIN_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * MP_WORLD:
+        raise SystemExit(f"phase 31 ranks over {backend} exited {codes}")
+    return work, [torch.load(work / f"rank{r}.pt", weights_only=False)
+                  for r in range(MP_WORLD)]
+
+
+def _mp_sequential_grads():
+    """The four blocks in order in this process, through the same kernels
+    (bf16, T=8192, one backward): (loss, [each block's gradients])."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer as TR
+    aux, blocks = _mp_lm(torch.bfloat16, "cuda")
+    lm = TR.TransformerLM.__new__(TR.TransformerLM)
+    torch.nn.Module.__init__(lm)
+    lm._setup(aux, blocks, FULL["n_heads"], "flash", 0.1, 0.9)
+    x, y = _mp_tokens(T, MP_SEED + 1)
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    loss = lm._loss(xt, yt)
+    grads = []
+    for b in lm.blocks:
+        names = [n for n, _ in b.named_parameters()]
+        grads.append(names)
+    flat = torch.autograd.grad(loss, [p for b in lm.blocks
+                                      for p in b.parameters()])
+    it = iter(flat)
+    out = [{n: next(it).float().cpu() for n in names} for names in grads]
+    return float(loss.detach()), out
+
+
+def _mp_stage_timings(fa):
+    """K1, K2, K4, K5 at the pipeline's stage shape (B=1, T=8192, H=8,
+    D=64, bf16, causal): first each against its plain version on the same
+    inputs, with phases 3 and 7's bf16 limits (a SystemExit on a
+    mismatch), then timed by CUDA events beside each one's bound."""
+    H, D = FULL["n_heads"], FULL["d_model"] // FULL["n_heads"]
+    shape = f"B=1 T={T} H={H} D={D} bf16 causal"
+    args, errs = check_training_kernels(
+        fa, f"stage shape {shape}", 1, T, H, D, torch.bfloat16, True,
+        (1e-2, 1e-2, 1e-2), seed=31)
+    q, k, v, do, lse, delta = args
+    errs["fwd"] = check_flash(fa, f"K1 stage shape {shape}", q, k, v, True,
+                              None, atol=1e-2, rtol=1e-2, row_rtol=1e-2)
+    pairs = H * T * (T + 1) / 2
+    panel = T * H * D * 2
+    stats = H * T * 4
+    calls = {
+        "fwd": (lambda: fa.flash_attention(q, k, v, True),
+                4 * D * pairs, 4 * panel),
+        "fwd_lse": (lambda: fa.flash_attention_fwd_lse(q, k, v, True),
+                    4 * D * pairs, 4 * panel + stats),
+        "bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                     delta, True),
+                   6 * D * pairs, 5 * panel + 2 * stats),
+        "bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                       delta, True),
+                    8 * D * pairs, 6 * panel + 2 * stats)}
+    out = {}
+    with torch.no_grad():
+        for name, (fn, flops, nbytes) in calls.items():
+            ms = cuda_ms(fn, iters=20)
+            b_ms, b_by = bound(flops, nbytes)
+            out[name] = {"max_abs_err": errs[name], "ms": ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    return out
+
+
+def _mp_check_gpipe(ranks, seq_loss, seq_grads, backend):
+    """31(a)'s checks over the ranks' readings; returns its summary."""
+    S = MP_WORLD
+    ticks = MP_M + S - 1
+    want_fit = {"fwd": 0, "fwd_lse": 3 * ticks, "partial": 0,
+                "bwd_dq": 3 * ticks, "bwd_dkv": 3 * ticks}
+    want_fwd = {"fwd": ticks, "fwd_lse": 0, "partial": 0, "bwd_dq": 0,
+                "bwd_dkv": 0}
+    grad_err, loss_err = 0.0, 0.0
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        if a["launches_fit"] != want_fit or a["launches_forward"] != \
+                want_fwd:
+            raise SystemExit(f"31(a) rank {r} launched {a['launches_fit']} "
+                             f"in 3 fit_batch steps and "
+                             f"{a['launches_forward']} in forward: want "
+                             f"{want_fit} and {want_fwd}")
+        if not a["forward_ok"]:
+            raise SystemExit(f"31(a) rank {r}: bad forward")
+        loss_err = max(loss_err, abs(a["grad_loss"] - seq_loss) / seq_loss)
+        for n, g in a["stage_grads"].items():
+            grad_err = max(grad_err, _rel_l2(g, seq_grads[r][n]))
+        if not (a["f32_loss_err"] <= 1e-5 and a["f32_param_err"] <= 1e-5):
+            raise SystemExit(f"31(a) rank {r}: f32 T=1024 card vs CPU "
+                             f"{a['f32_loss_err']:.3e} / "
+                             f"{a['f32_param_err']:.3e}")
+        if not (all(map(math.isfinite, a["losses"]))
+                and a["losses"] == ranks[0]["a"]["losses"]):
+            raise SystemExit(f"31(a) rank {r} losses {a['losses']}")
+    a0 = ranks[0]["a"]
+    step_ms = max(max(res["a"]["step_ms"][1:]) for res in ranks)
+    rot_ms = max(res["a"]["rotation_ms"] for res in ranks)
+    rotations = 2 * ticks - 1
+    device_ms = [res["a"]["traced_device_ms"] for res in ranks]
+    # measured: each rank's rotation spans over its instrumented step
+    span_share = [res["a"]["rotation_spans_ms"]
+                  / res["a"]["timed_rotations_step_ms"] for res in ranks]
+    traced_wall = max(res["a"]["traced_wall_ms"] for res in ranks)
+    # gloo: the ranks share one card; NCCL: each rank has its own
+    cards = 1 if backend == "gloo" else len(ranks)
+    out = {"launches_fit_per_rank": a0["launches_fit"],
+           "launches_forward_per_rank": a0["launches_forward"],
+           "loss_rel_err": loss_err, "grad_rel_l2": grad_err,
+           "losses": a0["losses"],
+           "step_ms": [max(res["a"]["step_ms"][i] for res in ranks)
+                       for i in range(3)],
+           "tokens_per_s": B * T / step_ms * 1e3,
+           "rotation_ms": rot_ms, "rotations_per_step": rotations,
+           "rotation_share_estimate": rotations * rot_ms / step_ms,
+           "rotations_counted": [res["a"]["rotations_in_step"]
+                                 for res in ranks],
+           "rotation_spans_ms": [res["a"]["rotation_spans_ms"]
+                                 for res in ranks],
+           "timed_rotations_step_ms": [res["a"]["timed_rotations_step_ms"]
+                                       for res in ranks],
+           "rotation_span_share": span_share,
+           "traced_device_ms_per_rank": device_ms,
+           "card_busy_share": sum(device_ms) / (cards * traced_wall),
+           "forward_ms": a0["forward_ms"],
+           "peak_gib": [res["a"]["peak_gib"] for res in ranks],
+           "f32_loss_err": max(res["a"]["f32_loss_err"] for res in ranks),
+           "f32_param_err": max(res["a"]["f32_param_err"]
+                                for res in ranks)}
+    out["backend"] = backend
+    print(f"  31(a) GPipe over {backend}, 4 flash stages, bf16 T={T}, "
+          f"M={MP_M}: launches "
+          f"per rank {a0['launches_fit']} over 3 steps, "
+          f"{a0['launches_forward']} per forward; loss vs sequential "
+          f"{loss_err:.3e} (<= {MP_LOSS_RTOL}), stage gradients rel L2 "
+          f"{grad_err:.3e} (<= {MP_GRAD_RL2}); step "
+          f"{out['step_ms']} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s; rotations measured in an instrumented step: "
+          f"{out['rotations_counted']} a rank, their spans "
+          f"{[round(m, 2) for m in out['rotation_spans_ms']]} ms of "
+          f"{[round(m, 1) for m in out['timed_rotations_step_ms']]} ms = "
+          f"{[round(f, 3) for f in span_share]} (host staging and the wait "
+          f"for the peer); estimate from a lone rotation {rot_ms:.2f} ms x "
+          f"{rotations} = {out['rotation_share_estimate']:.1%} of a step; "
+          f"busy "
+          f"{out['card_busy_share']:.1%} a card (a traced step, the ranks' "
+          f"device ms {[round(m, 1) for m in device_ms]}); peak "
+          f"{[round(g, 2) for g in out['peak_gib']]} GiB; f32 T=1024 "
+          f"card vs CPU {out['f32_loss_err']:.3e} / "
+          f"{out['f32_param_err']:.3e}")
+    if not (loss_err <= MP_LOSS_RTOL and grad_err <= MP_GRAD_RL2):
+        raise SystemExit("31(a): the pipeline disagrees with the sequential "
+                         "blocks")
+    return out
+
+
+def model_parallel_phase(fa, nccl_only=False):
+    """Phase 31. Returns its readings; raises SystemExit on a failed
+    check. With four cards, 31(a) runs over NCCL too, one rank a card
+    (`nccl_only`: that alone)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import graft_entry
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import \
+        ShardedCheckpointManager
+    t_phase = time.perf_counter()
+    out = {"card": card_line(), "sub_phase_s": {}}
+    print(f"phase 31: model parallelism, {MP_WORLD} gloo ranks on cuda:0 "
+          f"({out['card']})")
+    t = time.perf_counter()
+    seq_loss, seq_grads = _mp_sequential_grads()
+    torch.cuda.empty_cache()
+    out["sub_phase_s"]["sequential"] = time.perf_counter() - t
+    if torch.cuda.device_count() >= MP_WORLD:
+        t = time.perf_counter()
+        work, ranks = _mp_run_ranks("nccl")
+        out["sub_phase_s"]["nccl_ranks"] = time.perf_counter() - t
+        out["a_nccl"] = _mp_check_gpipe(ranks, seq_loss, seq_grads, "nccl")
+        shutil.rmtree(work, ignore_errors=True)
+    else:
+        out["a_nccl"] = ("not run: one card; the NCCL route of phase 31 is "
+                         "unverified")
+        print(f"  31(a) over NCCL: {out['a_nccl']}")
+    if nccl_only:
+        return out
+    t = time.perf_counter()
+    work, ranks = _mp_run_ranks()
+    out["sub_phase_s"]["ranks"] = time.perf_counter() - t
+    for r, res in enumerate(ranks):
+        out["sub_phase_s"][f"rank{r}"] = res["sub_phase_s"]
+
+    out["a"] = _mp_check_gpipe(ranks, seq_loss, seq_grads, "gloo")
+
+    # (b)
+    b_out = {}
+    for key in ("f32", "bf16"):
+        errs = [res["b"][key]["grad_err"] for res in ranks]
+        lerr = max(abs(res["b"][key]["loss"] - res["b"][key]["seq_loss"])
+                   / abs(res["b"][key]["seq_loss"]) for res in ranks)
+        b_out[key] = {"grad_err": max(errs), "loss_rel_err": lerr}
+    b_out["losses"] = ranks[0]["b"]["losses"]
+    b_out["local_wqkv"] = ranks[0]["b"]["f32"]["local_wqkv"]
+    out["b"] = b_out
+    print(f"  31(b) three axes (data 1, model 2, pipe 2), local wqkv "
+          f"{b_out['local_wqkv']}, T=1024: f32 loss {b_out['f32']} "
+          f"(1e-5), bf16 {b_out['bf16']} (loss {MP_LOSS_RTOL}, grads "
+          f"{MP_TP_GRAD_RL2}); 10 bf16 steps {b_out['losses'][0]:.4f} -> "
+          f"{b_out['losses'][-1]:.4f}")
+    if not (b_out["f32"]["grad_err"] <= 1e-5
+            and b_out["f32"]["loss_rel_err"] <= 1e-5
+            and b_out["bf16"]["grad_err"] <= MP_TP_GRAD_RL2
+            and b_out["bf16"]["loss_rel_err"] <= MP_LOSS_RTOL
+            and b_out["losses"][-1] < b_out["losses"][0]):
+        raise SystemExit("31(b): the three-axis program disagrees")
+
+    # (c)
+    c_out = {"cases": {}}
+    for name in ranks[0]["c"]["cases"]:
+        errs = {}
+        for res in ranks:
+            for k_, v_ in res["c"]["cases"][name]["errs"].items():
+                errs[k_] = max(errs.get(k_, 0.0), v_)
+        ids = all(res["c"]["cases"][name]["ids_equal"] for res in ranks)
+        c_out["cases"][name] = {
+            "max_err": max(errs.values()), "ids_equal": ids,
+            "sharded_ms": max(res["c"]["cases"][name]["sharded_ms"]
+                              for res in ranks)}
+        if not (ids and max(errs.values()) <= 1e-5):
+            raise SystemExit(f"31(c) {name}: {errs}, ids equal {ids}")
+    c_out["drops"] = ranks[0]["c"]["drops"]
+    c_out["block_err"] = max(res["c"]["block_err"] for res in ranks)
+    out["c"] = c_out
+    print(f"  31(c) MoE {MP_MOE} over {MP_WORLD} ranks, f32: {json.dumps(c_out['cases'])}; capacity moves y by "
+          f"{c_out['drops']}; block step {c_out['block_err']:.3e}")
+    if not (min(c_out["drops"].values()) > 1e-3
+            and c_out["block_err"] <= 1e-5):
+        raise SystemExit("31(c): no drop, or the MoE block step disagrees")
+
+    # (d)
+    d0 = ranks[0]["d"]
+    d_out = {"param_err": max(res["d"]["param_err"] for res in ranks),
+             "split": d0["split"],
+             "lower_step_footprint": d0["lowered"],
+             "restore_4_ranks_equal": all(res["d"]["restore_equal"]
+                                          for res in ranks),
+             "sharded_dir": d0["sharded_dir"],
+             "step_ms": {key: max(res["d"]["step_ms"][key] for res in ranks)
+                         for key in d0["step_ms"]}}
+    with _cudnn_deterministic():
+        one = lenet(device="cuda", updater="adam", learning_rate=1e-3,
+                    seed=7)
+        ShardedCheckpointManager(d0["ckpt"]).restore(one, 3)
+        d_out["restore_1_rank_equal"] = bool(np.array_equal(one.params(),
+                                                            d0["params"]))
+        xs = _lenet_data(MP_SEED + 9, 8, 1)[0].features
+        with InferenceServer(lenet(device="cuda"), max_batch=8,
+                             max_wait_ms=50.0) as srv:
+            srv.swap_from_checkpoint(d0["ckpt"], lambda: lenet(
+                device="cuda", updater="adam", learning_rate=1e-3))
+            served = np.stack([f.result(60) for f in
+                               [srv.submit(r) for r in xs]])
+        want = np.asarray(one.output(xs))
+        d_out["swap_err"] = float(np.abs(served - want).max())
+    out["d"] = d_out
+    print(f"  31(d) LeNet Adam, batch 128, TP + ZeRO on (data 2, model 2) "
+          f"vs replicated on 4: {d_out['param_err']:.3e} (1e-5); "
+          f"split leaves {d_out['split']}; lower_step {json.dumps(d_out['lower_step_footprint'])}; "
+          f"saved shard by shard {d_out['sharded_dir']}, restored "
+          f"bit-equal into 4 split ranks "
+          f"{d_out['restore_4_ranks_equal']}, into 1 "
+          f"{d_out['restore_1_rank_equal']}; swap_from_checkpoint served "
+          f"vs output {d_out['swap_err']:.3e} (1e-5); a step (fit of 3, "
+          f"slowest rank): TP + ZeRO on (data 2, model 2) "
+          f"{d_out['step_ms']['tp_zero']:.2f} ms, data parallel on (data 4) "
+          f"{d_out['step_ms']['data_parallel']:.2f} ms")
+    if not (d_out["param_err"] <= 1e-5 and d_out["split"]["other"] == 0
+            and d_out["split"]["params_half"] > 0
+            and d_out["split"]["state_half"] > 0
+            and d_out["restore_4_ranks_equal"] and d_out["sharded_dir"]
+            and d_out["restore_1_rank_equal"]
+            and d_out["swap_err"] <= 1e-5):
+        raise SystemExit("31(d): the wrapper's TP / ZeRO run disagrees")
+    shutil.rmtree(work, ignore_errors=True)
+    e_out = {"err": max(res["e"]["err"] for res in ranks),
+             "local_d": ranks[0]["e"]["local_d"],
+             "sharded_ms_per_flush": max(res["e"]["sharded_ms_per_flush"]
+                                         for res in ranks),
+             "whole_ms_per_flush": max(res["e"]["whole_ms_per_flush"]
+                                       for res in ranks)}
+    out["e"] = e_out
+    print(f"  31(e) config 4's skip-gram, tables column-sharded over "
+          f"{MP_WORLD} ranks ({e_out['local_d']} of {EMB_D} columns each) "
+          f"vs whole: {e_out['err']:.3e} (1e-5); "
+          f"{e_out['sharded_ms_per_flush']:.1f} ms a flush of 4,096 pairs "
+          f"sharded (eager, host all-reduces), "
+          f"{e_out['whole_ms_per_flush']:.1f} ms whole (CUDA graph)")
+    if not e_out["err"] <= 1e-5:
+        raise SystemExit("31(e): the sharded Word2Vec disagrees")
+    flash = [res["flash_after_bcde"] for res in ranks]
+    if any(any(f.values()) for f in flash):
+        raise SystemExit(f"31(b)-(e) launched flash kernels: {flash}")
+
+    # (f)
+    t = time.perf_counter()
+    costs = graft_entry.dryrun_multichip(MP_WORLD, device="cuda")
+    out["sub_phase_s"]["f"] = time.perf_counter() - t
+    launched = graft_entry.LAST_RUN["flash_launches"]
+    want = {"fwd": 0, "fwd_lse": 0, "partial": MP_WORLD, "bwd_dq": 0,
+            "bwd_dkv": 0}
+    if launched != want:
+        raise SystemExit(f"31(f) rank 0 launched {launched}: want {want} "
+                         f"(K3 once a ring hop)")
+    out["f"] = {"collectives": costs,
+                "timings_s": graft_entry.LAST_RUN["timings_s"],
+                "k3_launches_rank0": launched["partial"]}
+    print(f"  31(f) dryrun_multichip({MP_WORLD}) on cuda:0 ranks: budget "
+          f"gate passed; K3 launches on rank 0: {launched['partial']} (one "
+          f"a ring hop, counted apart)")
+    out["stage_shape"] = _mp_stage_timings(fa)
+    a = out["a"]
+    out["pipeline_launches"] = {
+        "fwd": a["launches_forward_per_rank"]["fwd"],
+        **{k: a["launches_fit_per_rank"][k] for k in ("fwd_lse", "bwd_dq",
+                                                      "bwd_dkv")}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  stage shape: {json.dumps(out['stage_shape'])}")
+    print(f"  phase 31 {out['phase_s']:.1f} s ({out['sub_phase_s']})")
     return out
 
 

@@ -36,10 +36,21 @@ algorithm and shape): ~1,000 chunks of ~40 kernels would otherwise be
 launched one by one. The eager loop stays (`cuda_graph=False`); both give
 the same bits.
 
-Not ported: the mesh-sharded tables (`configure(mesh=...)`) and the
-`lower_step` cost-model hook raise naming ROADMAP.md queue 1 item 20.
+`configure(mesh=...)` column-shards syn0 and syn1 (or syn1neg) over the
+mesh's "model" ranks (`parallel.sharding`): each rank holds every row's
+D/n columns, gathers and scatter-adds stay rank-local, and each chunk's
+pair dot products, partial sums over the columns, are all-reduced over
+"model" (the reference's GSPMD psum of the [C, T] logits). Every rank runs
+the same flushes on the same pairs. The tables come together again
+(all-gathered) when `finish` writes them back. A sharded flush runs
+eagerly: its all-reduces go through the host on a gloo group, which a CUDA
+graph cannot capture. `SkipGram.lower_step` is the mesh-cost hook: one
+flush of dummy pairs under `parallel.mesh_cost`'s recorder, the tables put
+back bit for bit.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -47,12 +58,6 @@ import torch
 from ...common.device import card_numerics, resolve_device
 
 _CHUNK = 64   # pairs applied simultaneously inside the sequential loop
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to deeplearning4j_tpu_torch yet: ROADMAP.md "
-        f"queue 1 item 20")
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +104,14 @@ def _sigmoid(x):
     return 1.0 / (1.0 + torch.exp(-torch.clamp(x, -6.0, 6.0)))  # MAX_EXP=6
 
 
-def _sg_chunk(syn0, syn1, c, t, l, m, lr):
+def _whole(logits):
+    return logits
+
+
+def _sg_chunk(syn0, syn1, c, t, l, m, lr, reduce=_whole):
     v = syn0[c]                                         # [C,D]
     u = syn1[t]                                         # [C,T,D]
-    logits = torch.bmm(u, v[:, :, None])[:, :, 0]       # [C,T]
+    logits = reduce(torch.bmm(u, v[:, :, None])[:, :, 0])   # [C,T]
     g = (l - _sigmoid(logits)) * m * lr
     dv = torch.bmm(g[:, None, :], u)[:, 0]              # [C,D]
     du = g[..., None] * v[:, None, :]
@@ -110,13 +119,13 @@ def _sg_chunk(syn0, syn1, c, t, l, m, lr):
     scatter_add_(syn1, t.reshape(-1), du.reshape(-1, du.shape[-1]))
 
 
-def _cbow_chunk(syn0, syn1, ctx_ids, cm, t, l, tm, lr):
+def _cbow_chunk(syn0, syn1, ctx_ids, cm, t, l, tm, lr, reduce=_whole):
     ctx = torch.clamp(ctx_ids, min=0)
     vc = syn0[ctx] * cm[..., None]                      # [C,W,D]
     counts = torch.clamp(cm.sum(1, keepdim=True), min=1.0)
     h = vc.sum(1) / counts                              # [C,D]
     u = syn1[t]                                         # [C,T,D]
-    logits = torch.bmm(u, h[:, :, None])[:, :, 0]
+    logits = reduce(torch.bmm(u, h[:, :, None])[:, :, 0])
     g = (l - _sigmoid(logits)) * tm * lr
     dh = torch.bmm(g[:, None, :], u)[:, 0]              # [C,D]
     du = g[..., None] * h[:, None, :]
@@ -130,22 +139,26 @@ def _chunks(B):
     return [slice(i, i + _CHUNK) for i in range(0, B, _CHUNK)]
 
 
-def sg_step(syn0, syn1, centers, targets, labels, mask, lr):
+def sg_step(syn0, syn1, centers, targets, labels, mask, lr,
+            reduce=_whole):
     """One batched skip-gram update, in place on syn0 [V,D] and syn1 [M,D]
     (syn1neg or HS syn1): centers [B]; targets [B,T] indices into syn1;
     labels [B,T] in {0,1}; mask [B,T] valid flags; lr a 0-d tensor. The
-    64-pair chunks run one after another, as the reference's scan."""
+    64-pair chunks run one after another, as the reference's scan.
+    `reduce` makes the column-sharded tables' partial logits whole."""
     for s in _chunks(centers.shape[0]):
-        _sg_chunk(syn0, syn1, centers[s], targets[s], labels[s], mask[s], lr)
+        _sg_chunk(syn0, syn1, centers[s], targets[s], labels[s], mask[s], lr,
+                  reduce)
 
 
-def cbow_step(syn0, syn1, context, cmask, targets, labels, tmask, lr):
+def cbow_step(syn0, syn1, context, cmask, targets, labels, tmask, lr,
+              reduce=_whole):
     """One batched CBOW update in place: h = mean(context vectors) predicts
     targets. context [B,C] ids (-1 padded), cmask [B,C];
     targets/labels/tmask [B,T]."""
     for s in _chunks(context.shape[0]):
         _cbow_chunk(syn0, syn1, context[s], cmask[s], targets[s], labels[s],
-                    tmask[s], lr)
+                    tmask[s], lr, reduce)
 
 
 class _CapturedFlush:
@@ -233,6 +246,8 @@ class BaseElementsLearning:
         self._max_code_len = 1
         self._rng = np.random.default_rng(0)
         self.device = None
+        self.mesh = None
+        self._group = None        # the "model" ranks the columns split over
         self._syn0 = None
         self._syn1 = None   # whichever of syn1 / syn1neg is in use
         self._graphs = {}
@@ -245,12 +260,23 @@ class BaseElementsLearning:
                   seed=12345, mesh=None, device=None):
         """Put the lookup table's syn0 and syn1 (or syn1neg) on `device`
         (None: the CUDA card) as f32 tensors, updated in place by every
-        flush until `finish` writes them back. `mesh` (the reference's
-        column-sharded tables) is not ported."""
-        if mesh is not None:
-            raise _not_ported("configure(mesh=...): mesh-sharded embedding "
-                              "tables")
+        flush until `finish` writes them back. With `mesh` (a
+        `parallel.sharding.Mesh`), this rank keeps its slice of the
+        columns over the mesh's "model" axis; the vector length must divide
+        by its size."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._group = None if mesh is None else mesh.axis_group("model")
+        n_model = 1 if mesh is None else mesh.axis_size("model")
+        D = int(np.shape(lookup.syn0)[1])
+        if D % n_model:
+            raise ValueError(f"a vector length of {D} does not divide over "
+                             f"the {n_model} model ranks")
+        cols = slice(None)
+        if n_model > 1:
+            c = D // n_model
+            cols = slice(mesh.index("model") * c,
+                         (mesh.index("model") + 1) * c)
         self.vocab = vocab
         self.lookup = lookup
         self.window = int(window)
@@ -260,8 +286,8 @@ class BaseElementsLearning:
         if self.use_hs:
             self._max_code_len = max(
                 (len(w.codes) for w in vocab.vocab_words()), default=1)
-        put = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
-                                     device=self.device)
+        put = lambda a: torch.tensor(  # noqa: E731
+            np.asarray(a)[:, cols], dtype=torch.float32, device=self.device)
         self._syn0 = put(lookup.syn0)
         self._syn1 = put(lookup.syn1 if self.use_hs else lookup.syn1neg)
         self._graphs = {}
@@ -292,9 +318,19 @@ class BaseElementsLearning:
         else:
             self.lookup.syn1neg = self._fetch(self._syn1)
 
-    @staticmethod
-    def _fetch(t):
+    def _fetch(self, t):
+        if self._group is not None:
+            from ...parallel.sharding import all_gather
+            t = all_gather(t, self._group, 1)
         return t.to("cpu", copy=True).numpy()
+
+    def _reduce(self):
+        """The partial logits' all-reduce over the "model" ranks, or
+        nothing (whole tables)."""
+        if self._group is None:
+            return _whole
+        from ...parallel.sharding import all_reduce_sum
+        return partial(all_reduce_sum, group=self._group)
 
     def _run(self, *arrays):
         """Apply one padded batch (numpy, in the step's argument order) to
@@ -307,7 +343,9 @@ class BaseElementsLearning:
         on_device = lambda: {n: v.to(dev) for n, v in values.items()}  # noqa
         tables = (self._syn0, self._syn1)
         with card_numerics(dev, torch.float32):
-            if dev.type != "cuda" or not self.cuda_graph:
+            if self._group is not None:
+                self._step(*tables, **on_device(), reduce=self._reduce())
+            elif dev.type != "cuda" or not self.cuda_graph:
                 self._step(*tables, **on_device())
             else:
                 key = tuple(v.shape for v in values.values())
@@ -351,7 +389,26 @@ class SkipGram(BaseElementsLearning):
     _inputs = ("centers", "targets", "labels", "mask", "lr")
 
     def lower_step(self):
-        raise _not_ported("lower_step (the mesh cost model's XLA lowering)")
+        """The mesh-cost hook of the model-sharded mode: one skip-gram
+        flush of `batch_pairs` dummy pairs at the configured shapes, run
+        under `parallel.mesh_cost`'s recorder (every model rank must call
+        it), the tables put back bit for bit. Returns a
+        `mesh_cost.Lowered`."""
+        from ...parallel.mesh_cost import run_recorded
+        B = self.batch_pairs
+        T = self._max_code_len if self.use_hs else self.negative + 1
+        dev = self.device
+        z = lambda *shape, dt=torch.int64: torch.zeros(  # noqa: E731
+            shape, dtype=dt, device=dev)
+
+        def step():
+            with card_numerics(dev, torch.float32):
+                sg_step(self._syn0, self._syn1, z(B), z(B, T),
+                        z(B, T, dt=torch.float32),
+                        torch.ones(B, T, device=dev),
+                        torch.tensor(0.025, device=dev), self._reduce())
+
+        return run_recorded(step, (self._syn0, self._syn1), dev)
 
     def learn_sequence(self, ids, lr):
         """ids: list of vocab indices for one sequence."""

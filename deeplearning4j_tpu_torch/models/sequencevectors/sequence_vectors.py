@@ -53,8 +53,8 @@ class SequenceVectors:
         self.seed = int(seed)
         self.elements_algo = str(elements_algo).lower()
         self.batch_pairs = int(batch_pairs)
-        # distributed mode (the reference's column-sharded tables) is
-        # ROADMAP.md queue 1 item 20: a mesh raises at fit
+        # distributed mode: the tables column-shard over the mesh's
+        # "model" ranks (embeddings.learning.configure)
         self.mesh = mesh
         self.device = device
         self.vocab = None

@@ -82,8 +82,9 @@ class Word2Vec(SequenceVectors):
             self._kw["batch_pairs"] = int(v); return self
 
         def mesh(self, m):
-            """Distributed training over a device mesh: ROADMAP.md queue 1
-            item 20; `fit` raises NotImplementedError naming it."""
+            """Distributed training over a `parallel.sharding.Mesh`: the
+            tables column-shard over its "model" ranks, every rank fitting
+            the same corpus (`embeddings.learning`)."""
             self._kw["mesh"] = m; return self
 
         def device(self, d):

@@ -186,6 +186,180 @@ def make_block_fn(n_heads, attention="dense"):
     return block_fn
 
 
+def init_tp_block(generator, d_model, n_heads, d_ff, dtype=torch.float32,
+                  device=None):
+    """Block parameters in the tensor-parallel layout: the attention
+    projections per head, wqkv [H, D, 3*hd] and wo [H, hd, D], so the head
+    dimension splits over "model" (the Megatron split); the MLP splits w1's
+    columns, b1 and w2's rows. The numerics are `init_block`'s; only the
+    storage axes differ. Drawn from `generator` (a CPU generator)."""
+    device = resolve_device(device)
+    hd = d_model // n_heads
+    s_attn = 1.0 / math.sqrt(d_model)
+    s_ff = 1.0 / math.sqrt(d_ff)
+    normal = lambda shape, std: _normal(generator, shape, std, dtype, device)
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
+    return Block(
+        _fresh_layer_norm(d_model, dtype, device),
+        Attention(normal((n_heads, d_model, 3 * hd), s_attn),
+                  normal((n_heads, hd, d_model), s_attn)),
+        _fresh_layer_norm(d_model, dtype, device),
+        MLP(normal((d_model, d_ff), s_attn), zeros(d_ff),
+            normal((d_ff, d_model), s_ff), zeros(d_model)))
+
+
+def tp_block_specs(pipe_axis="pipe", model_axis="model"):
+    """The Megatron layout of STACKED `init_tp_block` parameters (a leading
+    stage axis over `pipe_axis`), one axis name (or None) per dimension,
+    by the parameter's dotted name: the attention heads and the MLP hidden
+    dimension over `model_axis`, LayerNorms and b2 whole. What
+    `parallel.pipeline.PipelineParallel(param_specs=...)` slices by."""
+    return {"ln1.g": (pipe_axis,), "ln1.b": (pipe_axis,),
+            "attn.wqkv": (pipe_axis, model_axis),
+            "attn.wo": (pipe_axis, model_axis),
+            "ln2.g": (pipe_axis,), "ln2.b": (pipe_axis,),
+            "mlp.w1": (pipe_axis, None, model_axis),
+            "mlp.b1": (pipe_axis, model_axis),
+            "mlp.w2": (pipe_axis, model_axis, None),
+            "mlp.b2": (pipe_axis,)}
+
+
+def tp_block_from_jax(p, model_index=0, n_model=1, dtype=None, device=None):
+    """The weight bridge for one tensor-parallel block: the JAX package's
+    full `init_tp_block` tree (numpy arrays) -> the Block of model rank
+    `model_index` of `n_model`: heads [m*Hl, (m+1)*Hl) of wqkv and wo, the
+    same slice of w1's columns, b1 and w2's rows; LayerNorms and b2
+    whole."""
+    device = resolve_device(device)
+    specs = tp_block_specs(None, "model")
+
+    def t(name, a):
+        a = _from_numpy(a, dtype, device)
+        for dim, axis in enumerate(specs[name][1:]):
+            if axis is not None:
+                c = a.shape[dim] // n_model
+                a = a.narrow(dim, model_index * c, c).contiguous()
+        return a
+
+    ln = lambda n: LayerNorm(t(f"{n}.g", p[n]["g"]), t(f"{n}.b", p[n]["b"]))
+    a, m = p["attn"], p["mlp"]
+    return Block(ln("ln1"), Attention(t("attn.wqkv", a["wqkv"]),
+                                      t("attn.wo", a["wo"])),
+                 ln("ln2"), MLP(t("mlp.w1", m["w1"]), t("mlp.b1", m["b1"]),
+                                t("mlp.w2", m["w2"]), t("mlp.b2", m["b2"])))
+
+
+def tp_layout(named, n_heads):
+    """{dotted name: tensor} of a dense-layout block (`init_block`'s, or
+    its gradients) -> the same in `init_tp_block`'s layout: wqkv [D, 3D]
+    -> [H, D, 3*hd] (each head's q, k, v columns), wo [D, D] -> [H, hd,
+    D]; the rest as it is. The same function, other storage axes."""
+    out = dict(named)
+    wqkv, wo = named["attn.wqkv"], named["attn.wo"]
+    d = wo.shape[0]
+    hd = d // n_heads
+    per = lambda a: a.reshape(d, n_heads, hd).transpose(0, 1)  # [H, D, hd]
+    q, k, v = wqkv.split(d, -1)
+    out["attn.wqkv"] = torch.cat([per(q), per(k), per(v)], -1).contiguous()
+    out["attn.wo"] = wo.reshape(n_heads, hd, d).contiguous()
+    return out
+
+
+def tp_block_from_block(p, n_heads):
+    """A dense Block -> a whole Block in the tensor-parallel layout (copies;
+    `PipelineParallel(param_specs=tp_block_specs())` slices it)."""
+    t = tp_layout({n: a.detach() for n, a in p.named_parameters()}, n_heads)
+    ln = lambda n: LayerNorm(t[f"{n}.g"].clone(), t[f"{n}.b"].clone())
+    return Block(ln("ln1"), Attention(t["attn.wqkv"], t["attn.wo"]),
+                 ln("ln2"), MLP(t["mlp.w1"].clone(), t["mlp.b1"].clone(),
+                                t["mlp.w2"].clone(), t["mlp.b2"].clone()))
+
+
+def make_tp_block_fn(n_heads_local, model_axis="model", mesh=None):
+    """The tensor-parallel block, run by every rank of `mesh`'s
+    `model_axis` on its head group and MLP hidden slice (a Block from
+    `tp_block_from_jax` or sliced by `tp_block_specs`): two all-reduces a
+    block, after the attention output projection and after the MLP
+    down-projection (the Megatron recipe). Each all-reduce is paired with
+    its conjugate where the replicated activation enters the split
+    matmuls (`sharding.copy_to` after each LayerNorm), so every rank's
+    gradients are the true ones. mesh=None: one rank, no collective.
+
+    The numerics are the reference's: dense scores masked with the dtype's
+    finfo.min, softmax in f32 cast to x's dtype, tanh GeLU.
+    n_heads_local: heads per rank, asserted against the local slice."""
+    from ...parallel.sharding import copy_to, reduce_from
+    group = None if mesh is None else mesh.axis_group(model_axis)
+
+    def block_fn(p, x):
+        B, T, D = x.shape
+        assert p.attn.wqkv.shape[0] == n_heads_local, \
+            (tuple(p.attn.wqkv.shape), n_heads_local)
+        hd = p.attn.wqkv.shape[2] // 3
+        h = copy_to(_layer_norm(x, p.ln1.g, p.ln1.b), group)
+        qkv = torch.einsum("btd,hdk->bthk", h, p.attn.wqkv)
+        q, k, v = (a.transpose(1, 2) for a in qkv.split(hd, -1))
+        scores = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+        keep = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+        scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
+        att = torch.softmax(scores.float(), -1).to(x.dtype)
+        out = (att @ v).transpose(1, 2)                    # [B, T, Hl, hd]
+        o_part = torch.einsum("bthk,hkd->btd", out, p.attn.wo)
+        x = x + reduce_from(o_part, group)
+        h = copy_to(_layer_norm(x, p.ln2.g, p.ln2.b), group)
+        m = F.gelu(h @ p.mlp.w1 + p.mlp.b1, approximate="tanh")
+        return x + reduce_from(m @ p.mlp.w2, group) + p.mlp.b2
+
+    return block_fn
+
+
+class MoEBlock(nn.Module):
+    """One mixture-of-experts block's parameters: ln1, attn, ln2, moe."""
+
+    def __init__(self, ln1, attn, ln2, moe):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.moe = ln1, attn, ln2, moe
+
+
+def make_moe_block_fn(n_heads, moe_apply):
+    """A block whose MLP is a mixture of experts: dense causal attention
+    as `make_block_fn`, the FFN replaced by `moe_apply(p.moe, tokens)`
+    (`parallel.moe`'s dense or expert-parallel apply). Returns (y,
+    aux_loss) so the trainer can add the load-balance term."""
+
+    def block_fn(p, x):
+        B, T, D = x.shape
+        h = _layer_norm(x, p.ln1.g, p.ln1.b)
+        x = x + causal_attention(h, p.attn.wqkv, p.attn.wo, n_heads)
+        h = _layer_norm(x, p.ln2.g, p.ln2.b)
+        y, aux = moe_apply(p.moe, h.reshape(B * T, D))
+        return x + y.reshape(B, T, D), aux
+
+    return block_fn
+
+
+def init_moe_block(generator, d_model, n_heads, n_experts, d_ff,
+                   dtype=torch.float32, device=None):
+    """A MoEBlock: attention and LayerNorms as `init_block`, then the
+    experts from `parallel.moe.init_moe`, all from `generator`."""
+    from ...parallel.moe import init_moe
+    b = init_block(generator, d_model, n_heads, d_ff, dtype, device)
+    return MoEBlock(b.ln1, b.attn, b.ln2,
+                    init_moe(generator, d_model, n_experts, d_ff, dtype,
+                             resolve_device(device)))
+
+
+def moe_block_from_jax(p, dtype=None, device=None):
+    """The weight bridge for `init_moe_block`'s tree (numpy arrays)."""
+    from ...parallel.moe import MoE
+    device = resolve_device(device)
+    t = lambda a: _from_numpy(a, dtype, device)
+    ln = lambda n: LayerNorm(t(p[n]["g"]), t(p[n]["b"]))
+    return MoEBlock(ln("ln1"), Attention(t(p["attn"]["wqkv"]),
+                                         t(p["attn"]["wo"])),
+                    ln("ln2"), MoE(**{k: t(v) for k, v in p["moe"].items()}))
+
+
 def make_decode_block_fn(n_heads):
     """Single-token decode for one block with a KV cache:
     block_decode(p, x [B, D], cache {k, v: [B, L, H, hd]}, pos int)

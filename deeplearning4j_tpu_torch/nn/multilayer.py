@@ -476,18 +476,23 @@ class Network(nn.Module):
             self._lr_single_rows)
         return self._lr_views(self._lr_single[0])
 
-    def _step_body(self, loss_fn, lrs, reduce=None):
+    def _step_body(self, loss_fn, lrs, reduce=None, masters=None,
+                   update=None):
         """One optimizer step, as both the single step and each inner step
         of a fused group run it: the loss `loss_fn(rng)` -> (score, new
-        layer state, new carries), its gradients, `reduce(grads, score)`
-        when given (a data-parallel all-reduce, before the updaters'
-        normalization and clipping), the updaters with the learning rates
-        `lrs`, the new layer state. Armed, the health scalars gate the
+        layer state, new carries), its gradients (for `masters`, the
+        tensors the loss was evaluated on, when given), `reduce(grads,
+        score)` when given (a data-parallel all-reduce, before the
+        updaters' normalization and clipping), each layer's normalization,
+        the updaters with the learning rates `lrs`, the new layer state.
+        `update(key, layer, grads, lr, ok, minimize)`, when given, runs in
+        place of the layer's updater on its own parameters (the wrapper's
+        split state updates slices). Armed, the health scalars gate the
         update on the device. Touches no host counter and reads nothing on
         the host. Returns (score, new carries, health or None)."""
         with card_numerics(self._device, self.compute_dtype):
             score, new_state, new_carries = loss_fn(self._dropout_gen)
-            grads = self._grads(score)
+            grads = self._grads(score, masters)
             score = score.detach()
             if reduce is not None:
                 grads, score = reduce(grads, score)
@@ -497,9 +502,13 @@ class Network(nn.Module):
                 ok = health["all_finite"]
             minimize = self.conf.global_conf.get("minimize", True)
             for key, layer in self._keyed_layers():
-                U.apply_layer(layer, dict(self._slot(key).params), grads[key],
-                              self._updater_state[key], None, minimize,
-                              lr=lrs[key], ok=ok, inplace=True)
+                g = U.normalize_layer(layer, grads[key])
+                if update is not None:
+                    update(key, layer, g, lrs[key], ok, minimize)
+                else:
+                    U.apply_layer(layer, dict(self._slot(key).params), g,
+                                  self._updater_state[key], None, minimize,
+                                  lr=lrs[key], ok=ok, inplace=True)
             self._store_state(new_state, ok)
         return score, new_carries, health
 
@@ -704,9 +713,9 @@ class Network(nn.Module):
         minimize = self.conf.global_conf.get("minimize", True)
         new_ustate = {}
         for key, layer in self._keyed_layers():
-            new_ustate[key] = U.apply_layer(layer, dict(params[key]),
-                                            grads[key], ustate[key],
-                                            iteration, minimize)
+            new_ustate[key] = U.apply_layer(
+                layer, dict(params[key]), U.normalize_layer(layer, grads[key]),
+                ustate[key], iteration, minimize)
         return params, new_ustate
 
     def make_grad_fn(self):
@@ -746,17 +755,18 @@ class Network(nn.Module):
         self._ensure_init()
         return self._apply_updates
 
-    def _train_step(self, loss_fn, reduce=None):
+    def _train_step(self, loss_fn, reduce=None, masters=None, update=None):
         """One optimizer step on the loss `loss_fn(rng)` -> (score, new
         layer state, new carries), with the learning rates of
-        `iteration_count` (`_step_body`). `reduce(grads, score) -> (grads,
-        score)`, when given, runs between the gradients and the updaters.
+        `iteration_count` (`_step_body`, which takes `masters` and
+        `update`). `reduce(grads, score) -> (grads, score)`, when given,
+        runs between the gradients and the updaters.
         Disarmed, it records the score and advances `iteration_count`;
         armed (`training_health`), it leaves both to the caller's epilogue
         and keeps the step's score and health in `_step_score` /
         `_step_health`. Returns the new carries."""
         score, new_carries, health = self._step_body(
-            loss_fn, self._single_lr(), reduce)
+            loss_fn, self._single_lr(), reduce, masters, update)
         if self._health_policy is None:
             self._score = score
             self.conf.iteration_count += 1

@@ -253,14 +253,25 @@ def layer_lr(layer, name, iteration):
         max_iterations=layer.lr_policy_max_iterations)
 
 
+def normalize_layer(layer, grads):
+    """The layer's gradient normalization over its whole {param name:
+    gradient} (the first half of the reference's per-layer body of
+    `make_apply_fn`); a layer without parameters gets {} back."""
+    if not grads:
+        return grads
+    return normalize_gradients(grads, layer.gradient_normalization,
+                               layer.gradient_normalization_threshold or 1.0)
+
+
 @torch.no_grad()
 def apply_layer(layer, params, grads, ustate, iteration, minimize=True, *,
                 lr=None, ok=None, inplace=False):
     """One layer's update (the reference's per-layer body of
-    `make_apply_fn`): gradient normalization, the learning rate at
-    `iteration`, the updater. Updates `params` (a dict of tensors) in place
-    and returns the layer's new updater state, stored in each old state's
-    type.
+    `make_apply_fn` after the gradient normalization, which the caller
+    runs first on the layer's whole gradient, `normalize_layer`): the
+    learning rate at `iteration`, the updater. Updates `params` (a dict of
+    tensors, which may be slices of the parameters) in place and returns
+    the layer's new updater state, stored in each old state's type.
 
     `lr`, when given, maps each parameter name to its learning rate (a 0-d
     tensor, in place of the host's `schedule_lr` at `iteration`). `ok`, a
@@ -270,8 +281,6 @@ def apply_layer(layer, params, grads, ustate, iteration, minimize=True, *,
     state into the old state's tensors and returns `ustate` itself."""
     if not params:
         return {} if not inplace else ustate
-    grads = normalize_gradients(grads, layer.gradient_normalization,
-                                layer.gradient_normalization_threshold or 1.0)
     _, apply_fn = get(layer.updater or "sgd")
     hp = layer.updater_hp()
     new_state = {}

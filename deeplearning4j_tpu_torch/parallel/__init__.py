@@ -7,38 +7,39 @@ mesh, `distributed`, `MagicQueue`), the asynchronous parameter server
 `PSServer` / `PSClient` / `ps_worker_fit`, `ParameterServerTrainingHook`),
 the `TrainingMaster` and its facades, early stopping over the wrapper and
 the master (`early_stopping`), the time sources, ring attention (sequence
-parallelism) and `pipeline.sgd_momentum_update`.
+parallelism), and model parallelism: the named-axis mesh, tensor
+parallelism and the ZeRO-style updater state (`sharding`, the wrapper),
+GPipe (`pipeline`), expert-parallel MoE (`moe`) and the collective cost
+recorder (`mesh_cost`).
 
-Not ported yet: the names below raise NotImplementedError naming their
-ROADMAP.md queue 1 item: the pipeline schedule, MoE and the sharded
-updater state (item 20), and the ParallelWrapper command line (`main`,
-item 22, with `util/model_guesser.py` and `ui/`).
+Not ported yet: the ParallelWrapper command line (`main`, ROADMAP.md queue
+1 item 22, with `util/model_guesser.py` and `ui/`) raises
+NotImplementedError naming its item.
 """
 from . import distributed, early_stopping
 from .early_stopping import (EarlyStoppingParallelTrainer,
                              MasterDataSetLossCalculator,
                              SparkEarlyStoppingTrainer,
                              TpuEarlyStoppingTrainer)
+from . import mesh_cost, moe
 from .magic_queue import MagicQueue
+from .moe import (init_moe, make_expert_mesh, moe_mlp_dense, moe_mlp_sharded,
+                  shard_moe_params)
 from .parallel_wrapper import ParallelWrapper
 from .parameter_server import (GradientsAccumulator,
                                ParameterServerParallelWrapper)
 from .ps_transport import PSClient, PSServer, ps_worker_fit
+from .pipeline import PipelineParallel, gpipe, make_pipeline_mesh
 from .ring_attention import blockwise_attention, ring_self_attention
-from .sharding import make_mesh, not_ported, shard_params
+from .sharding import (make_mesh, not_ported, shard_params,
+                       zero_state_sharding)
 from .time_source import NTPTimeSource, SystemClockTimeSource, TimeSource
 from .training_hook import ParameterServerTrainingHook, TrainingHook
 from .training_master import (ParameterAveragingTrainingMaster,
                               TpuComputationGraph, TpuDl4jMultiLayer,
                               TrainingMasterStats)
 
-_NOT_PORTED = {
-    **dict.fromkeys(("PipelineParallel", "gpipe", "make_pipeline_mesh",
-                     "init_moe", "make_expert_mesh", "moe_mlp_dense",
-                     "moe_mlp_sharded", "shard_moe_params",
-                     "zero_state_sharding", "mesh_cost", "moe"), 20),
-    "main": 22,
-}
+_NOT_PORTED = {"main": 22}
 
 
 def __getattr__(name):
@@ -48,7 +49,10 @@ def __getattr__(name):
 
 
 __all__ = ["EarlyStoppingParallelTrainer", "GradientsAccumulator",
-           "MagicQueue", "MasterDataSetLossCalculator", "NTPTimeSource",
+           "MagicQueue", "PipelineParallel", "gpipe", "make_pipeline_mesh",
+           "init_moe", "make_expert_mesh", "moe_mlp_dense",
+           "moe_mlp_sharded", "shard_moe_params", "mesh_cost", "moe",
+           "zero_state_sharding", "MasterDataSetLossCalculator", "NTPTimeSource",
            "ParallelWrapper", "ParameterAveragingTrainingMaster",
            "ParameterServerParallelWrapper", "ParameterServerTrainingHook",
            "PSClient", "PSServer", "ps_worker_fit",

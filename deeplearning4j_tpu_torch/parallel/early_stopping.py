@@ -53,8 +53,8 @@ class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
     parallelism/EarlyStoppingParallelTrainer.java:46 (the reference wraps
     replicas+averaging around the model and routes scores back through a
     listener; here the wrapper's step over the process group is the
-    trainer's step). `tensor_parallel=True` raises, naming ROADMAP.md
-    queue 1 item 20, as the wrapper does.
+    trainer's step). `tensor_parallel=True` splits the big layers over
+    the mesh's "model" axis while each fit runs, as the wrapper does.
 
     averaging_frequency == 1: the inherited epoch loop feeds batches
     through the wrapper one at a time (per-batch termination checks).

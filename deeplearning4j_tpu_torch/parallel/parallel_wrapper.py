@@ -55,12 +55,41 @@ raises unless the group has n ranks: nothing ever trains on one rank in
 place of n. On one rank without a group the wrapper is plain `fit`, bit for
 bit, in both modes.
 
-Not ported yet (NotImplementedError naming the ROADMAP.md queue 1 item):
-`.tensor_parallel(True)`, `.sharded_updater_state(True)`, `lower_step` and
-`lower_kstep` (item 20).
+`.tensor_parallel(True)` and `.sharded_updater_state(True)` (all-reduce
+mode) split what each rank stores while a fit runs, over a ("data",
+"model") mesh (without a mesh: n_model = 2 when the worker count is even,
+as the reference picks):
+
+- tensor parallelism: each "model" rank keeps its slice of every parameter
+  the reference's table splits (`sharding.param_specs_for_layer`: dense,
+  output, autoencoder and embedding W's columns and b, convolution
+  out-channels; an axis that does not divide stays whole), and of those
+  parameters' updater state. Each step all-gathers the slices over "model"
+  into whole parameters, computes the loss and gradients on them (every
+  model rank of a data rank computes the same), averages the gradients
+  over "data", normalises them per layer as the updaters do, and updates
+  only its own slices. The compute is not split: only the storage is.
+- the ZeRO-1 analogue: each "data" rank keeps its slice of every updater
+  state leaf that divides (the first dimension that does,
+  `sharding.zero_state_sharding`), updates that slice of the parameter,
+  and all-gathers the updated slices over "data". The updaters are
+  elementwise, so the step is bit-equal to the replicated one.
+
+The parameters and the state are whole again at the end of each fit, so
+the network serves, saves and restores as usual. A round checkpoint taken
+while the state is split is written shard by shard by every rank
+(`util.sharded_checkpoint`, through torch.distributed.checkpoint), and any
+checkpoint restores into whatever layout the network has. The k-step mode runs on whole parameters
+(the reference's k-step program replicates them too), and
+`.sharded_updater_state(True)` with it raises ValueError, as the
+reference's does.
+
+`lower_step` / `lower_kstep` are the mesh-cost hooks: one step (or one
+k-step round) run under `mesh_cost`'s recorder on every rank, after which
+the parameters, the updater and layer state, the dropout generator and the
+counters are put back bit for bit; each returns a `mesh_cost.Lowered`.
 """
 from __future__ import annotations
-
 
 import numpy as np
 import torch
@@ -70,9 +99,11 @@ from .. import obs
 from ..common import health as H
 from ..datasets.dataset import DataSet, MultiDataSet
 from ..datasets.iterators import ListDataSetIterator, next_processed
+from ..nn.updater import updaters as U
 from ..util.sharded_checkpoint import RoundCheckpointer
-from .sharding import (all_reduce_mean, all_reduce_op, all_reduce_sum,
-                       make_mesh, not_ported, put_sharded, replicate)
+from .sharding import (all_gather, all_reduce_mean, all_reduce_op,
+                       all_reduce_sum, make_mesh, put_sharded, replicate,
+                       shard_params, shard_slice, zero_state_sharding)
 
 
 class ParallelWrapper:
@@ -83,6 +114,8 @@ class ParallelWrapper:
             self._avg_freq = 1
             self._prefetch = 2
             self._avg_updaters = True
+            self._tensor_parallel = False
+            self._sharded_updater_state = False
             self._mesh = None
             self._checkpoint = None
             self._fault_injector = None
@@ -140,24 +173,27 @@ class ParallelWrapper:
         reportScoreAfterAveraging = report_score_after_averaging
 
         def tensor_parallel(self, v):
-            if v:
-                raise not_ported("ParallelWrapper.tensor_parallel(True)", 20)
-            return self
+            """Split the big layers' parameters over the mesh's "model"
+            axis while a fit runs (all-reduce mode)."""
+            self._tensor_parallel = bool(v); return self
 
         def sharded_updater_state(self, v):
-            if v:
-                raise not_ported("ParallelWrapper.sharded_updater_state"
-                                 "(True) (ZeRO-style optimizer state)", 20)
-            return self
+            """The ZeRO-1 analogue: each data rank keeps and updates 1/n of
+            the updater state. Requires averaging_frequency == 1."""
+            self._sharded_updater_state = bool(v); return self
 
         def mesh(self, mesh):
-            """A `sharding.DataMesh` (`make_mesh`), in place of the world
-            group."""
+            """A ("data", "model") `sharding.Mesh` (`make_mesh`), in place
+            of the world group."""
             self._mesh = mesh; return self
 
         def build(self):
             return ParallelWrapper(self.model, self._workers, self._avg_freq,
-                                   self._avg_updaters, mesh=self._mesh,
+                                   self._avg_updaters,
+                                   tensor_parallel=self._tensor_parallel,
+                                   mesh=self._mesh,
+                                   sharded_updater_state=(
+                                       self._sharded_updater_state),
                                    checkpoint=self._checkpoint,
                                    fault_injector=self._fault_injector,
                                    health_policy=self._health_policy)
@@ -166,17 +202,19 @@ class ParallelWrapper:
                  average_updaters=True, tensor_parallel=False, mesh=None,
                  sharded_updater_state=False, checkpoint=None,
                  fault_injector=None, health_policy=None):
-        if tensor_parallel:
-            raise not_ported("ParallelWrapper tensor parallelism", 20)
-        if sharded_updater_state:
-            raise not_ported("ParallelWrapper's sharded updater state", 20)
         self.model = model
         model._ensure_init()
         if mesh is None:
-            mesh = make_mesh(n_data=workers, device=model.device)
-        elif workers is not None and int(workers) != mesh.size:
+            n = workers
+            if n is None:
+                n = (dist.get_world_size() if dist.is_available()
+                     and dist.is_initialized() else 1)
+            n_model = 2 if (tensor_parallel and n % 2 == 0) else 1
+            mesh = make_mesh(n_data=n // n_model, n_model=n_model,
+                             device=model.device)
+        elif workers is not None and int(workers) != mesh.n_ranks:
             raise ValueError(f"workers({workers}) but the mesh has "
-                             f"{mesh.size} ranks")
+                             f"{mesh.n_ranks} ranks")
         if mesh.device != model.device:
             raise ValueError(f"the mesh computes on {mesh.device}, the "
                              f"network on {model.device}")
@@ -184,6 +222,12 @@ class ParallelWrapper:
         self.workers = mesh.size
         self.averaging_frequency = int(averaging_frequency)
         self.average_updaters = bool(average_updaters)
+        self.tensor_parallel = bool(tensor_parallel)
+        self.sharded_updater_state = bool(sharded_updater_state)
+        if self.sharded_updater_state and self.averaging_frequency != 1:
+            raise ValueError(
+                "sharded_updater_state requires averaging_frequency=1 "
+                "(k-local-steps carries updater state rank-locally)")
         self.fault_injector = fault_injector
         self.checkpoint = checkpoint
         # the round counter (monotonic across fit() calls and epochs) and
@@ -201,17 +245,97 @@ class ParallelWrapper:
             H.install(model, health_policy)
         self._ext_rollback = None
         self._sharded = False
+        self._split = None     # the split layout while a fit runs
 
     # ------------------------------------------------------------------
     def _ensure_sharded(self):
         """Every rank starts from rank 0's parameters, updater state and
-        layer state (a broadcast; nothing on one rank)."""
-        if self._sharded:
+        layer state (a broadcast; nothing on one rank); then, with tensor
+        parallelism or the sharded updater state in all-reduce mode, each
+        rank keeps only its slices (`_split_state`)."""
+        if not self._sharded:
+            net = self.model
+            replicate(_params(net) + _updater_leaves(net) + _state(net),
+                      self.mesh)
+            self._sharded = True
+        if self._splits() and self._split is None:
+            self._split_state()
+
+    def _splits(self):
+        return (self.averaging_frequency == 1
+                and (self.sharded_updater_state
+                     or (self.tensor_parallel
+                         and self.mesh.axis_size("model") > 1)))
+
+    @torch.no_grad()
+    def _split_state(self):
+        """Keep this rank's slices: each tensor-parallel parameter and its
+        updater state over "model", then each updater state leaf over
+        "data" (ZeRO). Records the layout in `_split`, {(key, param):
+        (its "model" dim, {state name: its "data" dim})}, and for the
+        checkpoints in `net._shard_layout`."""
+        net, mesh = self.model, self.mesh
+        net._fused_cache = None     # a captured group holds the old tensors
+        nm, im = mesh.axis_size("model"), mesh.index("model")
+        tp = (shard_params(net, mesh, tensor_parallel=True)[1]
+              if self.tensor_parallel and nm > 1 else None)
+        layout = {}
+        for key, _ in net._keyed_layers():
+            slot, ust = net._slot(key), net._updater_state[key]
+            for name, p in slot.params.items():
+                md = None if tp is None else tp[key][name]
+                if md is not None:
+                    for s, t in ust[name].items():
+                        if _follows(t, p):
+                            ust[name][s] = shard_slice(t, md, im,
+                                                       nm).contiguous()
+                    p.data = shard_slice(p.data, md, im, nm).contiguous()
+                layout[(key, name)] = md
+        zero = (zero_state_sharding(net._updater_state, mesh)
+                if self.sharded_updater_state else None)
+        nd, idd = mesh.axis_size("data"), mesh.index("data")
+        split = {}
+        for key, _ in net._keyed_layers():
+            ust = net._updater_state[key]
+            for name in net._slot(key).params:
+                dims = {} if zero is None else zero[key][name]
+                for s, d in dims.items():
+                    if d is not None:
+                        ust[name][s] = shard_slice(ust[name][s], d, idd,
+                                                   nd).contiguous()
+                split[(key, name)] = (layout[(key, name)], dims)
+        self._split = split
+        # the layout checkpoints write and restore by (util.sharded_checkpoint)
+        leaves = {}
+        for (key, name), (md, dims) in split.items():
+            p = net._slot(key).params[name]
+            leaves[("params", str(key), name)] = (md, None)
+            for s, t in net._updater_state[key][name].items():
+                leaves[("updater_state", str(key), name, s)] = (
+                    md if _follows(t, p) else None, dims.get(s))
+        net._shard_layout = (mesh, leaves)
+
+    @torch.no_grad()
+    def _join_state(self):
+        """The whole parameters and updater state again on every rank."""
+        if self._split is None:
             return
-        net = self.model
-        replicate(_params(net) + _updater_leaves(net) + _state(net),
-                  self.mesh)
-        self._sharded = True
+        net, mesh = self.model, self.mesh
+        net._fused_cache = None
+        net._shard_layout = None
+        g_m, g_d = mesh.axis_group("model"), mesh.axis_group("data")
+        for (key, name), (md, dims) in self._split.items():
+            ust = net._updater_state[key][name]
+            for s, d in dims.items():
+                if d is not None:
+                    ust[s] = all_gather(ust[s], g_d, d)
+            if md is not None:
+                p = net._slot(key).params[name]
+                for s, t in ust.items():
+                    if _follows(t, p):
+                        ust[s] = all_gather(t, g_m, md)
+                p.data = all_gather(p.data, g_m, md)
+        self._split = None
 
     def _round_starts(self):
         """True when this averaging round must run; fires the fault
@@ -248,6 +372,7 @@ class ParallelWrapper:
         if mgr is None or mgr.latest_step() is None:
             return False
         last = mgr.latest_step()
+        self._join_state()
         mgr.restore(self.model, last)
         self._sharded = False
         self._ensure_sharded()
@@ -270,13 +395,48 @@ class ParallelWrapper:
         net = self.model
         return net._batch(net._dataset(self._local(ds)))
 
+    def _recorded(self, step):
+        """`mesh_cost.run_recorded` over the whole training state: the
+        parameters, the updater and layer state, the dropout generator and
+        the counters are put back after `step()`."""
+        from .mesh_cost import run_recorded
+        net = self.model
+        was_split = self._split is not None
+        self._ensure_sharded()
+        held = _params(net) + _updater_leaves(net) + _state(net)
+        counters = (net.conf.iteration_count, net._score,
+                    net._last_batch_size, net._step_score, net._step_health)
+        try:
+            return run_recorded(step, held, net.device,
+                                generators=(net._dropout_gen,))
+        finally:
+            (net.conf.iteration_count, net._score, net._last_batch_size,
+             net._step_score, net._step_health) = counters
+            if not was_split:
+                self._join_state()
+
     def lower_step(self, ds):
-        raise not_ported("ParallelWrapper.lower_step (the mesh-cost "
-                         "profiling hook)", 20)
+        """The mesh-cost hook of the all-reduce step: one step on `ds`
+        under the recorder, everything put back (`_recorded`)."""
+        net = self.model
+
+        def step():
+            batch = self._device_batch(ds)
+            with net.batch_stats_over(self.mesh.group):
+                self._one_step(batch)
+
+        return self._recorded(step)
 
     def lower_kstep(self, batches):
-        raise not_ported("ParallelWrapper.lower_kstep (the mesh-cost "
-                         "profiling hook)", 20)
+        """The mesh-cost hook of the k-local-steps round: one round on the
+        k DataSets `batches` under the recorder, everything put back."""
+        net = self.model
+        health = net._health_policy
+        net._health_policy = None
+        try:
+            return self._recorded(lambda: self._run_kstep(list(batches)))
+        finally:
+            net._health_policy = health
 
     # ------------------------------------------------------------------
     def fit(self, data, num_epochs=1):
@@ -285,13 +445,68 @@ class ParallelWrapper:
         self._ensure_sharded()
         if isinstance(data, (DataSet, MultiDataSet)):
             data = ListDataSetIterator([data])
-        for _ in range(num_epochs):
-            data.reset()
-            if self.averaging_frequency == 1:
-                self._fit_allreduce(data)
-            else:
-                self._fit_local_steps(data)
+        try:
+            for _ in range(num_epochs):
+                data.reset()
+                if self.averaging_frequency == 1:
+                    self._fit_allreduce(data)
+                else:
+                    self._fit_local_steps(data)
+        finally:
+            self._join_state()
         return self
+
+    def _one_step(self, batch):
+        """One all-reduce step: the network's own step with the
+        all-reduce in it, or the split step while the state is split."""
+        net = self.model
+        if self._split is None:
+            net._train_step(lambda rng: net._loss(*batch, True, rng),
+                            reduce=self._reduce)
+        else:
+            self._split_train_step(batch)
+
+    def _split_train_step(self, batch):
+        """`Network._train_step` on split state: the loss and gradients on
+        the whole parameters, gathered over "model"; the network's own
+        all-reduce over "data", health gate and gradient normalisation on
+        the whole gradient; then each rank's updater on its slice of each
+        parameter and state (over "model" by the tensor-parallel layout,
+        over "data" by the ZeRO one), the updated "data" slices
+        all-gathered into the parameters."""
+        net, mesh = self.model, self.mesh
+        g_m, g_d = mesh.axis_group("model"), mesh.axis_group("data")
+        nm, im = mesh.axis_size("model"), mesh.index("model")
+        nd, idd = mesh.axis_size("data"), mesh.index("data")
+        full = {}
+        for key, _ in net._keyed_layers():
+            full[key] = {}
+            for name, p in net._slot(key).params.items():
+                md = self._split[(key, name)][0]
+                w = p.detach() if md is None else all_gather(p.detach(), g_m,
+                                                             md)
+                full[key][name] = w.clone().requires_grad_()
+
+        @torch.no_grad()
+        def update(key, layer, grads, lr, ok, minimize):
+            params = net._slot(key).params
+            zero, sliced, sliced_grads = {}, {}, {}
+            for name, p in params.items():
+                md, dims = self._split[(key, name)]
+                zero[name] = _zero_dim(dims)
+                sliced[name] = shard_slice(p, zero[name], idd, nd)
+                sliced_grads[name] = shard_slice(
+                    shard_slice(grads[name], md, im, nm), zero[name], idd, nd)
+            U.apply_layer(layer, sliced, sliced_grads,
+                          net._updater_state[key], None, minimize, lr=lr,
+                          ok=ok, inplace=True)
+            for name, p in params.items():
+                if zero[name] is not None:
+                    p.copy_(all_gather(sliced[name].contiguous(), g_d,
+                                       zero[name]))
+
+        net._train_step(lambda rng: net._loss(*batch, True, rng, params=full),
+                        reduce=self._reduce, masters=full, update=update)
 
     # -- mode 1: per-step gradient all-reduce --------------------------
     def _reduce(self, grads, score):
@@ -319,8 +534,7 @@ class ParallelWrapper:
             with obs.TRACER.span("train.dispatch", cat="train",
                                  data_parallel=self.mesh.size), \
                     net.batch_stats_over(group):
-                net._train_step(lambda rng: net._loss(*batch, True, rng),
-                                reduce=self._reduce)
+                self._one_step(batch)
             net._last_batch_size = _num_rows(ds)
             if net._health_policy is not None:
                 # the reduced gradient's health: alike on every rank
@@ -445,6 +659,22 @@ class ParallelWrapper:
                        "all_finite": all_ok[0] > 0,
                        "bad_steps": bad,
                        "steps": k * self.mesh.size}
+
+
+def _follows(t, p):
+    """Whether updater state leaf `t` is laid out as its parameter `p` (a
+    moment; a scalar step counter is not)."""
+    return t.dim() > 0 and t.dim() == p.dim()
+
+
+def _zero_dim(dims):
+    """The data dimension a parameter's update is split on: its updater
+    state leaves' (all of its shape split on one), or None."""
+    split = {d for d in dims.values() if d is not None}
+    if len(split) > 1:
+        raise ValueError(f"updater state leaves split on different "
+                         f"dimensions {dims}")
+    return split.pop() if split else None
 
 
 def _params(net):

@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import flash_attention as fa
+from .sharding import record
 
 NEG_INF = -1e30
 
@@ -66,6 +67,8 @@ def _ppermute(tensors, group, shift=1):
               for tag, t in enumerate(recvs)])
     for work in dist.batch_isend_irecv(ops):
         work.wait()
+    record("collective-permute", sum(r.numel() * r.element_size()
+                                     for r in recvs))
     return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 

@@ -447,9 +447,16 @@ class InferenceServer(_RequestLoop):
                                                  device=self.device))
 
     def swap_from_checkpoint(self, directory, net_factory, step=None):
-        """Hot swap from a sharded checkpoint directory."""
-        from ..nn.multilayer import not_ported
-        raise not_ported("swap_from_checkpoint (sharded checkpoints)", 20)
+        """Hot swap from a `ShardedCheckpointManager` directory: a fresh
+        network from `net_factory()` (built on the serving device; `swap`
+        refuses another), restored from `step` (default: the latest), then
+        swapped in."""
+        from ..util.sharded_checkpoint import ShardedCheckpointManager
+        mgr = ShardedCheckpointManager(directory)
+        net = net_factory()
+        net._ensure_init()
+        mgr.restore(net, step if step is not None else mgr.latest_step())
+        self.swap(net)
 
     # -- batcher internals ---------------------------------------------
     @property

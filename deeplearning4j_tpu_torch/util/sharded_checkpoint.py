@@ -21,9 +21,21 @@ refuses a checkpoint whose shapes differ from the network's.
 
 With a torch.distributed process group, rank 0 writes and prunes, every
 rank waits at a barrier, and every rank restores the same file.
-Mesh-sharded state (tensor parallelism, ZeRO, `torch.distributed.
-checkpoint`) is ROADMAP.md queue 1 item 20. `ShardedModelSaver` is the
-early-stopping saver over these files.
+
+Mesh-sharded state: while a `ParallelWrapper` keeps its network split
+(tensor parallelism over "model", the ZeRO-style updater state over
+"data"), the network carries the layout (`_shard_layout`: the mesh and
+each split leaf's dimensions), and a checkpoint goes through
+`torch.distributed.checkpoint` instead: a directory, each rank writing its
+own shards as DTensors on a ("model", "data") CPU device mesh (the
+replicated leaves once), written under a temporary name and moved into
+place by rank 0. A restore places either format into the network's
+current layout: a sharded checkpoint into a whole network (on any number
+of ranks, or one process without a group) or into another split, a
+one-file checkpoint into a split network (each rank slicing its part).
+Shapes are checked against the network's global shapes first, so another
+architecture fails loudly, naming what differs. `ShardedModelSaver` is the
+early-stopping saver over these checkpoints.
 """
 from __future__ import annotations
 
@@ -81,31 +93,79 @@ def _state(net):
     }
 
 
-def _check_restore_shapes(net, doc):
-    """Refuse a checkpoint of another architecture, naming what differs."""
-    keyed = net._keyed_layers()
-    bad = []
+class _Leaf:
+    """One tensor of the training state: where it sits in the one-file
+    document (`path`), its name in a sharded checkpoint (`key`), the
+    network's tensor (`t`, this rank's slice when split), the dimensions
+    split over "model" and "data" (or None) and the global shape."""
 
-    def cmp(name, want, saved):
-        if saved is None:
-            bad.append(f"{name}: missing from the checkpoint")
-        elif tuple(saved.shape) != tuple(want.shape):
-            bad.append(f"{name}: saved {tuple(saved.shape)} vs net "
-                       f"{tuple(want.shape)}")
+    def __init__(self, path, t, md, zd, mesh):
+        self.path, self.t, self.md, self.zd = path, t, md, zd
+        self.key = "/".join(path)
+        shape = list(t.shape)
+        if md is not None:
+            shape[md] *= mesh.axis_size("model")
+        if zd is not None:
+            shape[zd] *= mesh.axis_size("data")
+        self.shape = tuple(shape)
+        self.split = md is not None or zd is not None
 
-    for key, _ in keyed:
+    def whole_to_local(self, whole, mesh):
+        from ..parallel.sharding import shard_slice
+        if self.md is not None:
+            whole = shard_slice(whole, self.md, mesh.index("model"),
+                                mesh.axis_size("model"))
+        if self.zd is not None:
+            whole = shard_slice(whole, self.zd, mesh.index("data"),
+                                mesh.axis_size("data"))
+        return whole
+
+
+def _leaves(net):
+    """Every `_Leaf` of `net`, in the document's order, laid out as the
+    network holds them now (`_shard_layout`, or whole)."""
+    layout = getattr(net, "_shard_layout", None)
+    mesh, dims = layout if layout is not None else (None, {})
+    out = []
+    for key, _ in net._keyed_layers():
         sk = str(key)
         for k, p in net._slot(key).params.items():
-            cmp(f"params[{sk}][{k}]", p,
-                doc["params"].get(sk, {}).get(k))
-        for n, b in net._slot(key).state().items():
-            cmp(f"model_state[{sk}][{n}]", b,
-                doc["model_state"].get(sk, {}).get(n))
+            out.append(_Leaf(("params", sk, k), p,
+                             *dims.get(("params", sk, k), (None, None)),
+                             mesh))
         for k, st in net._updater_state[key].items():
             for s, t in st.items():
-                cmp(f"updater_state[{sk}][{k}][{s}]", t,
-                    doc["updater_state"].get(sk, {}).get(k, {}).get(s))
-    extra = set(doc["params"]) - {str(key) for key, _ in keyed}
+                out.append(_Leaf(("updater_state", sk, k, s), t,
+                                 *dims.get(("updater_state", sk, k, s),
+                                           (None, None)), mesh))
+        for n, b in net._slot(key).state().items():
+            out.append(_Leaf(("model_state", sk, n), b, None, None, mesh))
+    return out, mesh
+
+
+def _lookup(doc, path):
+    node = doc
+    for part in path:
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _check_restore_shapes(net, saved_shape, saved_keys):
+    """Refuse a checkpoint of another architecture, naming what differs:
+    `saved_shape(leaf)` is the saved global shape (None: missing),
+    `saved_keys` the saved layers' keys."""
+    leaves, _ = _leaves(net)
+    bad = []
+    for leaf in leaves:
+        got = saved_shape(leaf)
+        name = leaf.path[0] + "".join(f"[{p}]" for p in leaf.path[1:])
+        if got is None:
+            bad.append(f"{name}: missing from the checkpoint")
+        elif tuple(got) != leaf.shape:
+            bad.append(f"{name}: saved {tuple(got)} vs net {leaf.shape}")
+    extra = set(saved_keys) - {str(key) for key, _ in net._keyed_layers()}
     bad.extend(f"params[{k}]: not in the net" for k in sorted(extra))
     if bad:
         detail = "; ".join(bad[:8])
@@ -113,13 +173,74 @@ def _check_restore_shapes(net, doc):
                          f" ({len(bad)} mismatched arrays): {detail}")
 
 
+def _meta(net):
+    score = getattr(net, "_score", None)
+    return {"meta/iteration_count": torch.tensor(
+                int(net.conf.iteration_count)),
+            "meta/epoch_count": torch.tensor(
+                int(getattr(net.conf, "epoch_count", 0))),
+            "meta/rng": net._dropout_gen.get_state(),
+            "meta/score": torch.tensor(float("nan") if score is None
+                                       else float(score),
+                                       dtype=torch.float64)}
+
+
+def _set_counters(net, iteration_count, epoch_count, rng, score):
+    net.conf.iteration_count = int(iteration_count)
+    if hasattr(net.conf, "epoch_count"):
+        net.conf.epoch_count = int(epoch_count)
+    net._dropout_gen.set_state(rng)
+    net._score = (None if score is None
+                  else torch.tensor(score, dtype=torch.float64))
+
+
+def _sharded(net):
+    layout = getattr(net, "_shard_layout", None)
+    return layout is not None and layout[0].n_ranks > 1
+
+
+def _save_sharded(net, path):
+    """Each rank writes its shards through torch.distributed.checkpoint
+    into `path` (a directory)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    leaves, mesh = _leaves(net)
+    dm = mesh.device_mesh()
+    sd = {}
+    for leaf in leaves:
+        local = leaf.t.detach().to("cpu", copy=True).contiguous()
+        if leaf.split:
+            local = DTensor.from_local(
+                local, dm, [Shard(leaf.md) if leaf.md is not None
+                            else Replicate(),
+                            Shard(leaf.zd) if leaf.zd is not None
+                            else Replicate()], run_check=False)
+        sd[leaf.key] = local
+    sd.update(_meta(net))
+    tmp = f"{path}.tmp-shards"
+    if _rank() == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        _remove(tmp)
+    _barrier()
+    dcp.save(sd, checkpoint_id=tmp)
+    _barrier()
+    if _rank() == 0:
+        _remove(path)
+        os.replace(tmp, path)
+    _barrier()
+
+
 def save_checkpoint(net, path, overwrite=True):
-    """Save `net`'s whole training state to the file `path` (rank 0 writes,
-    every rank of a process group waits at a barrier). `overwrite=False`
-    raises if `path` exists."""
+    """Save `net`'s whole training state at `path`: one file (rank 0
+    writes, every rank of a process group waits at a barrier), or, while
+    its wrapper keeps it split over several ranks, a directory of every
+    rank's shards. `overwrite=False` raises if `path` exists."""
     path = os.path.abspath(str(path))
     if not overwrite and os.path.exists(path):
         raise ValueError(f"checkpoint {path!r} exists (overwrite=False)")
+    if _sharded(net):
+        _save_sharded(net, path)
+        return path
     doc = _state(net)
     if _rank() == 0:
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -130,31 +251,69 @@ def save_checkpoint(net, path, overwrite=True):
     return path
 
 
+def _load_sharded(net, path):
+    """A torch.distributed.checkpoint directory into `net`'s current
+    layout: DTensors of this rank's slices when split over several ranks,
+    else whole tensors (any number of ranks, or none)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    leaves, mesh = _leaves(net)
+    sizes = {k: tuple(getattr(m, "size", ())) for k, m in meta.items()}
+    _check_restore_shapes(
+        net, lambda leaf: sizes.get(leaf.key),
+        {k.split("/")[1] for k in meta if k.startswith("params/")})
+    sharded = _sharded(net)
+    dm = mesh.device_mesh() if sharded else None
+    sd, bufs = {}, []
+    for leaf in leaves:
+        buf = torch.empty(tuple(leaf.t.shape), dtype=leaf.t.dtype)
+        bufs.append(buf)
+        if sharded and leaf.split:
+            sd[leaf.key] = DTensor.from_local(
+                buf, dm, [Shard(leaf.md) if leaf.md is not None
+                          else Replicate(),
+                          Shard(leaf.zd) if leaf.zd is not None
+                          else Replicate()], run_check=False)
+        else:
+            sd[leaf.key] = buf
+    extra = {k: torch.empty(sizes[k], dtype=torch.float64
+                            if k == "meta/score" else
+                            (torch.uint8 if k == "meta/rng"
+                             else torch.int64)) for k in _meta(net)}
+    sd.update(extra)
+    dcp.load(sd, checkpoint_id=path)
+    for leaf, buf in zip(leaves, bufs):
+        leaf.t.copy_(buf)
+    score = float(extra["meta/score"])
+    _set_counters(net, extra["meta/iteration_count"],
+                  extra["meta/epoch_count"], extra["meta/rng"],
+                  None if score != score else score)
+
+
 @torch.no_grad()
 def load_checkpoint(net, path):
-    """Restore the checkpoint at `path` into `net`, in place: parameters,
-    updater and layer state, the counters, the dropout generator and the
-    score. The architecture must match the saved one. Returns `net`."""
+    """Restore the checkpoint at `path` (a file or a sharded directory)
+    into `net`, in place and in its current layout: parameters, updater
+    and layer state, the counters, the dropout generator and the score.
+    The architecture must match the saved one. Returns `net`."""
     net._ensure_init()
-    doc = torch.load(os.path.abspath(str(path)), map_location="cpu",
-                     weights_only=True)
-    _check_restore_shapes(net, doc)
-    for key, _ in net._keyed_layers():
-        sk = str(key)
-        for k, p in net._slot(key).params.items():
-            p.copy_(doc["params"][sk][k])
-        for n, b in net._slot(key).state().items():
-            b.copy_(doc["model_state"][sk][n])
-        for k, st in net._updater_state[key].items():
-            for s, t in st.items():
-                t.copy_(doc["updater_state"][sk][k][s])
-    net.conf.iteration_count = int(doc["iteration_count"])
-    if hasattr(net.conf, "epoch_count"):
-        net.conf.epoch_count = int(doc["epoch_count"])
-    net._dropout_gen.set_state(doc["rng"])
-    score = doc["score"]
-    net._score = (None if score is None
-                  else torch.tensor(score, dtype=torch.float64))
+    path = os.path.abspath(str(path))
+    if os.path.isdir(path):
+        _load_sharded(net, path)
+        return net
+    doc = torch.load(path, map_location="cpu", weights_only=True)
+    _check_restore_shapes(
+        net, lambda leaf: (None if _lookup(doc, leaf.path) is None
+                           else _lookup(doc, leaf.path).shape),
+        doc["params"])
+    leaves, mesh = _leaves(net)
+    for leaf in leaves:
+        whole = _lookup(doc, leaf.path)
+        leaf.t.copy_(whole if mesh is None
+                     else leaf.whole_to_local(whole, mesh))
+    _set_counters(net, doc["iteration_count"], doc["epoch_count"],
+                  doc["rng"], doc["score"])
     return net
 
 

@@ -382,10 +382,24 @@ def test_parallel_trainer_is_the_trainer_on_one_rank(k):
 
 
 def test_parallel_trainer_tensor_parallel_raises_naming_item_20():
+    """tensor_parallel=True now builds and trains: on one rank the mesh has
+    no model axis to split over (n_model = 2 needs an even worker count),
+    so the trainer is the plain trainer, bit for bit."""
     train, _ = _iters()
-    es = EarlyStoppingConfiguration.Builder().build()
-    with pytest.raises(NotImplementedError, match="item 20$"):
-        EarlyStoppingParallelTrainer(es, _mln(), train, tensor_parallel=True)
+    es = (EarlyStoppingConfiguration.Builder()
+          .epoch_termination_conditions(MaxEpochsTerminationCondition(2))
+          .build())
+    net = _mln()
+    trainer = EarlyStoppingParallelTrainer(es, net, train,
+                                           tensor_parallel=True)
+    assert trainer.wrapper.tensor_parallel
+    assert trainer.wrapper.mesh.shape == {"data": 1, "model": 1}
+    got = trainer.fit()
+    train.reset()
+    want_net = _mln()
+    want = EarlyStoppingTrainer(es, want_net, train).fit()
+    assert got.score_vs_epoch == want.score_vs_epoch
+    np.testing.assert_array_equal(net.params(), want_net.params())
 
 
 @pytest.mark.gpu

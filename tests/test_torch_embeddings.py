@@ -654,16 +654,25 @@ def test_unported_and_cardless_calls_raise(monkeypatch):
     vocab.finish()
     table = InMemoryLookupTable(vocab, 4, negative=2,
                                 use_hs=False).reset_weights()
-    with pytest.raises(NotImplementedError, match="item 20"):
+    # item 20's mesh paths work: a one-rank mesh is the unsharded run; the
+    # vector length must divide over the model ranks; lower_step records
+    # no collective on one rank and puts the tables back
+    from deeplearning4j_tpu_torch.parallel.sharding import Mesh, make_mesh
+    with pytest.raises(ValueError, match="does not divide over the 3"):
         TL.SkipGram().configure(vocab, table, negative=2, use_hs=False,
-                                mesh=object(), device=CPU)
+                                mesh=Mesh(None, ("data", "model"), (1, 3),
+                                          0, CPU), device=CPU)
     sg = TL.SkipGram().configure(vocab, table, negative=2, use_hs=False,
-                                 device=CPU)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        sg.lower_step()
-    with pytest.raises(NotImplementedError, match="item 20"):
-        (Word2Vec.Builder().mesh(object()).device(CPU).build()
-         .fit(_toy_corpus(2)))
+                                 device=CPU, mesh=make_mesh(device=CPU))
+    before = sg._syn0.clone(), sg._syn1.clone()
+    assert sg.lower_step().footprint == {}
+    assert torch.equal(sg._syn0, before[0]) and \
+        torch.equal(sg._syn1, before[1])
+    corpus = _toy_corpus(2)
+    a = (Word2Vec.Builder().mesh(make_mesh(device=CPU)).device(CPU).seed(3)
+         .build().fit(corpus))
+    b = Word2Vec.Builder().device(CPU).seed(3).build().fit(corpus)
+    np.testing.assert_array_equal(a.lookup.syn0, b.lookup.syn0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for model in (Word2Vec.Builder().build(), Glove.Builder().build(),
                   ParagraphVectors.Builder().build()):

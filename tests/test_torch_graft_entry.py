@@ -8,6 +8,7 @@ only, the cheap guard the reference's test takes with `jax.eval_shape`
 `np.random.default_rng(0).random((8, 224, 224, 3))` as f32.
 """
 import numpy as np
+import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
@@ -40,3 +41,44 @@ def test_forward_runs_on_the_given_parameters():
     torch.testing.assert_close(out.float(), torch.full((1, 1000), 1e-3),
                                rtol=0, atol=1e-5)
     assert not torch.equal(fn(params, x), out)
+
+
+def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+    """`dryrun_multichip(4, device="cpu")` starts 4 gloo CPU ranks and runs
+    every parallel mode (each checked inside against its one-rank
+    computation), prints the reference's MULTICHIP_COST line, and passes
+    the committed 4-rank budget's 2x gate. Without a device it asks for
+    the card, and without one raises before starting a rank."""
+    import json
+
+    from deeplearning4j_tpu_torch.graft_entry import dryrun_multichip
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dryrun_multichip(4)
+    costs = dryrun_multichip(4, device="cpu")
+    out = capsys.readouterr().out
+    line = next(s for s in out.splitlines()
+                if s.startswith("MULTICHIP_COST "))
+    printed = json.loads(line[len("MULTICHIP_COST "):])
+    assert printed["collectives"] == costs
+    assert set(printed["timings_s"]) >= {"dp_tp_zero1", "gpipe_pp",
+                                         "dp_tp_pp_3axis", "moe_ep"}
+    assert "dryrun_multichip(4): ok" in out
+    assert costs["gpipe_pp"]["ops"]["collective-permute"]["count"] == 9
+    # three hops, each k and v [2, 4, 2, 16] f32 and the key mask [2, 4]
+    assert costs["ring_attention_sp"]["ops"] == {
+        "collective-permute": {"count": 3,
+                               "bytes": 3 * (2 * 2 * 4 * 2 * 16 * 4 + 32)}}
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_two_card_ranks():
+    """`dryrun_multichip(2, device="cuda")`: two gloo ranks on cuda:0 run
+    every mode (the checks inside hold); the ring's flash hops launch K3
+    twice on rank 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deeplearning4j_tpu_torch import graft_entry
+    costs = graft_entry.dryrun_multichip(2, device="cuda")
+    assert "gpipe_pp" in costs and "w2v_model_sharded" in costs
+    assert graft_entry.LAST_RUN["flash_launches"]["partial"] == 2

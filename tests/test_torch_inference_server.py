@@ -340,8 +340,20 @@ def test_swap_from_golden_zip(tmp_path):
         futs = [srv.submit(x) for x in io["x"]]
         got = np.stack([f.result(30) for f in futs])
     np.testing.assert_allclose(got, io["y"], rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        srv.swap_from_checkpoint(str(tmp_path), lambda: None)
+    # swap_from_checkpoint: a fresh net from the factory, restored from
+    # the manager's latest step, answers as the saved net
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import \
+        ShardedCheckpointManager
+    saved = lenet(device="cpu")
+    saved.fit(io["x"][:4], np.eye(10, dtype=np.float32)[:4])
+    ShardedCheckpointManager(str(tmp_path)).save(saved, 5)
+    with InferenceServer(lenet(device="cpu"), max_batch=8,
+                         max_wait_ms=20.0) as srv:
+        srv.swap_from_checkpoint(str(tmp_path),
+                                 lambda: lenet(device="cpu", seed=99))
+        got = np.stack([srv.submit(x).result(30) for x in io["x"][:3]])
+    np.testing.assert_allclose(got, np.asarray(saved.output(io["x"][:3])),
+                               rtol=0, atol=TOL)
 
 
 # ---------------------------------------------------------------------------

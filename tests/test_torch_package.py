@@ -1,8 +1,8 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
 `chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py`,
 `chip_embeddings.py`, `chip_parallel.py`, `chip_fused.py`,
-`chip_spec_kv.py`, `chip_fleet.py`, `chip_tools.py` and `chip_pretrain.py`
-import neither JAX, nor `ml_dtypes` (the card's machine has neither), nor
+`chip_spec_kv.py`, `chip_fleet.py`, `chip_tools.py`, `chip_pretrain.py`
+and `chip_model_parallel.py` import neither JAX, nor `ml_dtypes` (the card's machine has neither), nor
 anything of the JAX package `deeplearning4j_tpu`, and
 importing the
 port (its `models` package with the embeddings included, and the whole
@@ -140,7 +140,7 @@ _FORBIDDEN = re.compile(
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
        "chip_recurrent.py", "chip_embeddings.py", "chip_parallel.py",
        "chip_fused.py", "chip_spec_kv.py", "chip_fleet.py",
-       "chip_tools.py", "chip_pretrain.py"]))
+       "chip_tools.py", "chip_pretrain.py", "chip_model_parallel.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
@@ -174,9 +174,19 @@ def test_forbidden_pattern_catches_what_it_should():
     ("PipelineParallel", 20), ("moe_mlp_sharded", 20),
     ("zero_state_sharding", 20), ("main", 22)])
 def test_unported_parallel_names_raise_with_their_items(name, item):
+    """Item 20's names resolve to the ported modules' (model parallelism);
+    only `main` (item 22) still raises naming its item."""
     import deeplearning4j_tpu_torch.parallel as P
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
-        getattr(P, name)
+    from deeplearning4j_tpu_torch.parallel import moe, pipeline, sharding
+    if item == 22:
+        with pytest.raises(NotImplementedError, match=f"item {item}$"):
+            getattr(P, name)
+        assert P._NOT_PORTED == {"main": 22}
+    else:
+        home = {"PipelineParallel": pipeline, "moe_mlp_sharded": moe,
+                "zero_state_sharding": sharding}[name]
+        assert getattr(P, name) is getattr(home, name)
+        assert name in P.__all__
     with pytest.raises(AttributeError):
         P.no_such_name
 

@@ -495,17 +495,33 @@ def test_fault_sites_fire_as_the_reference(J, k):
 
 
 def test_unported_paths_raise_with_their_items(tmp_path):
+    """Item 20's paths work on one rank: the builder's tensor parallelism
+    and sharded updater state, `lower_step` / `lower_kstep` (no collective
+    on one rank, the network bit-unchanged), `shard_params`' layout; a
+    2-way model axis without a process group raises, as a data axis
+    does."""
     net = port_net_plain()
     b = ParallelWrapper.Builder(net)
-    for call, item in ((lambda: b.tensor_parallel(True), 20),
-                       (lambda: b.sharded_updater_state(True), 20),
-                       (lambda: b.build().lower_step(None), 20),
-                       (lambda: b.build().lower_kstep([]), 20),
-                       (lambda: make_mesh(n_model=2, device="cpu"), 20),
-                       (lambda: sharding.shard_params(net, make_mesh(
-                           device="cpu"), tensor_parallel=True), 20)):
-        with pytest.raises(NotImplementedError, match=f"item {item}$"):
-            call()
+    assert b.tensor_parallel(True) is b and b.sharded_updater_state(True) is b
+    before = net.params().copy()
+    pw = b.build()
+    assert pw.tensor_parallel and pw.sharded_updater_state
+    lowered = pw.lower_step(DataSet(np.zeros((8, 28, 28, 1), np.float32),
+                                    np.eye(10, dtype=np.float32)[:8]))
+    assert lowered.footprint == {} and lowered.memory is None
+    pw2 = ParallelWrapper.Builder(net).averaging_frequency(2).build()
+    ds = DataSet(np.zeros((4, 28, 28, 1), np.float32),
+                 np.eye(10, dtype=np.float32)[:4])
+    assert pw2.lower_kstep([ds, ds]).footprint == {}
+    np.testing.assert_array_equal(net.params(), before)
+    assert net.conf.iteration_count == 0
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
+        make_mesh(n_model=2, device="cpu")
+    _, dims = sharding.shard_params(net, make_mesh(device="cpu"),
+                                    tensor_parallel=True)
+    assert dims[0] == {"W": None, "b": None}        # one model rank
+    assert sharding.param_specs_for_layer(net.layers[0], True) == \
+        {"W": 0, "b": 0}
     assert b.tensor_parallel(False) is b
     # item 17 (the watchdog) and item 20a (replicated checkpoints) work
     pw = (b.checkpointing(str(tmp_path / "ck")).health_policy(True)
@@ -598,7 +614,8 @@ def test_distributed_helpers_without_a_group():
 
 
 def _native_threads():
-    return len(os.listdir("/proc/self/task"))
+    """The ids of this process's threads."""
+    return set(os.listdir("/proc/self/task"))
 
 
 @pytest.mark.skipif(not Path("/proc/self/task").is_dir(),
@@ -608,7 +625,8 @@ def test_a_mesh_does_not_keep_the_world_group_alive(tmp_path):
     form one) must not hold the world group: after destroy_process_group
     gloo's threads end at once, not at the interpreter's shutdown, where
     tearing them down can abort the process. (gloo names its threads only
-    once they run, so this counts every thread of the process.)"""
+    once they run, so this follows every thread the process started since
+    `before`; a thread of an earlier test that ends meanwhile is not one.)"""
     import gc
 
     import torch.distributed as dist
@@ -622,11 +640,11 @@ def test_a_mesh_does_not_keep_the_world_group_alive(tmp_path):
         mesh = make_mesh(device="cpu")
         mesh.cycle = mesh
         assert mesh.group is dist.group.WORLD and mesh.size == 1
-        assert mesh.via_host() and _native_threads() > before
+        assert mesh.via_host() and _native_threads() - before
     finally:
         dist.destroy_process_group()
     assert mesh.group is None and not mesh.via_host()
-    assert _native_threads() == before
+    assert not _native_threads() - before
     del mesh
     gc.collect()
 
