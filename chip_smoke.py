@@ -372,11 +372,43 @@ kernels and are counted apart.
      K3 launched once a ring hop (counted apart); K1, K2, K4, K5 held
      against their plain versions and timed at the stage shape (B=1,
      T=8192). Under 120 s.
+ 32. the training UI and the visualisation tools (`python3 chip_ui.py`
+     alone): (a) LeNet f32 batch 64, 20 `fit` steps with a full
+     StatsListener (histograms, activation stats armed in the step) bit-equal
+     to the same fit without it (cuDNN's deterministic algorithms), each
+     reported activation mean and mean magnitude within 1e-5 of
+     `feed_forward` on the step's parameters and batch, the grids' heights
+     and channels, the legacy listeners; (b) ResNet-50 bf16 at batch 128,
+     224x224x3: the step with no listener and with a StatsListener
+     reporting every 10 and every step into a SqliteStatsStorage, a
+     report's time and host bytes; a UIServer on 127.0.0.1 serves every page
+     and /api route from it (200, the session's updates), each timed, and a
+     RemoteUIStatsStorageRouter posts into it; VGG-16 bf16 at batch 64 (a
+     MultiLayerNetwork: a graph has no activation summaries) with the
+     step's summaries disarmed and armed, its step time and peak memory; (c) LeNet through the
+     wrapper in all-reduce mode on 4 gloo ranks of cuda:0, armed on every
+     rank, the listener on rank 0: the global batch's summaries against
+     one process's (1e-5); (d) k-means over config 4's table shape (10,000
+     x 100 f32, K 100, up to 100 Lloyd steps) card against CPU from the same
+     seed: centers and cost 1e-5, labels equal away from near-ties; (e) the
+     dense t-SNE loop at N=4096 card against CPU on the same P and y0 over
+     5 iterations (within twice the CPU's f32 loop's distance from its f64
+     loop; at 50 the card's f32 vs f64 distance is read: the loop is
+     chaotic), 500 iterations timed, `Tsne.fit` on the card; Barnes-Hut at
+     N=10,000: `_sparse_sym_p` card against CPU (CSR pattern equal, values
+     1e-5), the native forces' share of the fit; every embedding keeps its
+     clusters apart (the reference's pin); (f) CSVSequenceRecordReader
+     with prefetch=4 over 256 files equal to prefetch=0, rows/s; (g)
+     `python -m deeplearning4j_tpu_torch.parallel.main` on the card with
+     (b)'s server as its --ui-url: the written zip restores with finite,
+     changed parameters and the server holds its session. The flash
+     counters read 0 after it.
 Then it prints a {"training_core": ...} JSON line, a {"data_and_serving":
 ...} line, a {"decode_serving": ...} line, a {"recurrent": ...} line, an
 {"embeddings": ...} line, a {"parallel": ...} line, a {"fused": ...} line,
 a {"spec_kv": ...} line, a {"fleet": ...} line, a {"tools": ...} line, a
-{"pretrain": ...} line, a {"model_parallel": ...} line, one {"kernels":
+{"pretrain": ...} line, a {"model_parallel": ...} line, a {"ui": ...}
+line, one {"kernels":
 [...]} JSON line (K1, K2, K4 and K5 with their GPipe launches and stage-shape
 times) and, as the last line, {"ok": true, "device": {...}}. It imports
 nothing of JAX.
@@ -387,6 +419,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -892,6 +925,7 @@ def main():
     tools = tools_phase(fa)
     pretrain = pretrain_phase(fa)
     model_parallel = model_parallel_phase(fa)
+    ui = ui_phase(fa)
 
     shape = f"B={B} T={T} H={H} D={D} bf16 causal"
     src = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -937,6 +971,7 @@ def main():
     print(json.dumps({"tools": tools}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"model_parallel": model_parallel}))
+    print(json.dumps({"ui": ui}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2434,10 +2469,15 @@ def resnet_inference_server(net):
     # every dispatch against output() of the same padded batch under the
     # version that served it, on this thread: cuDNN searched its plans
     # here apart from the batcher thread, so the bits may differ
-    vs_output, vs_output_bits = 0.0, 0
+    vs_output, vs_output_bits, worst = 0.0, 0, None
     for pid, x, out, _ in first_pass:
         got, want = to_public(out[0]), versions[pid][1].output(x)[0]
-        vs_output = max(vs_output, _max_err(got, want))
+        err = _max_err(got, want)
+        if err > vs_output:
+            row = int(np.abs(np.asarray(got, np.float64)
+                             - np.asarray(want, np.float64)).max(1).argmax())
+            worst = (len(x), versions[pid][0], row, got[row], want[row])
+        vs_output = max(vs_output, err)
         vs_output_bits += bool(np.array_equal(got, want))
     lat = sorted(done_at)
     host_ms = [ms for *_, ms in first_pass]
@@ -2483,6 +2523,12 @@ def resnet_inference_server(net):
            CROSS_PLAN_RTOL)
     _check("probabilities across buckets, max abs diff",
            max(c["max_abs_diff"] for c in cross.values()), CROSS_PLAN_ATOL)
+    if vs_output > CROSS_PLAN_ATOL:
+        b, v, row, got_row, want_row = worst
+        print(f"  the dispatch over the limit: bucket {b}, model version "
+              f"{v}, row {row}")
+        print(f"    dispatch logits {np.asarray(got_row).tolist()}")
+        print(f"    output() logits {np.asarray(want_row).tolist()}")
     _check("server dispatches vs output() on another thread, max abs diff",
            vs_output, CROSS_PLAN_ATOL)
 
@@ -3692,7 +3738,6 @@ def _emb_segment(learner, chunk):
 
 def emb_full_width():
     """Phase 24(b): config 4 as bench.py runs it, graph and eager."""
-    import statistics
 
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -8254,6 +8299,862 @@ def model_parallel_phase(fa, nccl_only=False):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  stage shape: {json.dumps(out['stage_shape'])}")
     print(f"  phase 31 {out['phase_s']:.1f} s ({out['sub_phase_s']})")
+    return out
+
+
+# -- phase 32: the training UI and the visualisation tools -------------------
+
+UI_DEVICE = "cuda"
+UI_LENET_B, UI_LENET_STEPS = 64, 20
+UI_ACT_TOL = 1e-5           # activation summaries vs feed_forward, and the
+                            # wrapper's global summaries vs one process
+UI_R50_B, UI_R50_HW = 128, 224
+UI_R50_STEPS = {None: 8, 10: 10, 1: 3}      # report frequency: steps timed
+# the armed step at real width needs a MultiLayerNetwork (a graph, as
+# ResNet-50, has no activation summaries, here as in the reference):
+# VGG-16 bf16 at phase 29(g)'s batch; a small rate keeps its losses finite
+UI_VGG_B, UI_VGG_STEPS, UI_VGG_LR = 64, 5, 1e-4
+UI_RANKS = 4
+UI_GROUP_TIMEOUT_S, UI_JOIN_TIMEOUT_S = 60, 240
+UI_KM = dict(n=10000, d=100, k=100, steps=100)   # phase 24's EMB_V, EMB_D
+UI_KM_TOL = 1e-5
+# the dense loop: card vs CPU pinned over `pinned` iterations, at twice
+# the CPU's own f32 vs f64 distance; over `chaos` iterations that distance
+# has grown to the embedding's scale (rounding alone), so it is only read
+UI_TSNE_DENSE = dict(n=4096, d=100, iters=500, pinned=5, chaos=50,
+                     perplexity=30.0)
+UI_TSNE_FIT_N = 1000        # Tsne.fit (dense) through the entry point
+UI_TSNE_BH = dict(n=10000, d=50, iters=500, perplexity=30.0)
+UI_SYM_TOL = 1e-5
+UI_CSV = dict(files=256, rows=200, cols=16, prefetch=4)
+UI_MAIN_TIMEOUT_S = 180
+UI_PAGES = ["/", "/train/model", "/train/histogram", "/train/flow",
+            "/train/activations", "/train/system", "/tsne"]
+
+
+def _ui_sync():
+    if UI_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def ui_lenet_iterator():
+    """The iterator factory `python -m deeplearning4j_tpu_torch.parallel.
+    main --iterator-factory chip_smoke:ui_lenet_iterator` reads in 32(g):
+    five batches of 64 random 28x28x1 images."""
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    return ListDataSetIterator(_par_batches(5, 64, seed=327))
+
+
+def _ui_grid_shape(a, cfg):
+    """(height, channels) of the grid a [B, H, W, C] output gives."""
+    h, w, ch = a.shape[1:]
+    step = max(1, max(h, w) // cfg.max_activation_size)
+    return -(-h // step), min(ch, cfg.max_activation_channels)
+
+
+def ui_lenet():
+    """32(a): LeNet f32 (phase 15's), batch 64, 20 fit steps with a full
+    StatsListener (score, timing, memory, learning rates, histograms,
+    updates, activations armed in the step) against the same fit without
+    one; the summaries against feed_forward; the legacy listeners."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.ui import (ConvolutionalIterationListener,
+                                             FlowIterationListener,
+                                             HistogramIterationListener,
+                                             InMemoryStatsStorage,
+                                             StatsListener,
+                                             StatsUpdateConfiguration)
+    rng = np.random.default_rng(32)
+    x = rng.random((UI_LENET_B, 784), dtype=np.float32)
+    y = _one_hot(rng, UI_LENET_B, 10)
+    cfg = StatsUpdateConfiguration(collect_histograms=True,
+                                   collect_activations=True)
+    store = InMemoryStatsStorage()
+
+    def timed_fit(net):
+        _ui_sync()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        _ui_sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    with _cudnn_deterministic():
+        plain = lenet(device=UI_DEVICE, data_type="float32")
+        plain_ms = [timed_fit(plain) for _ in range(UI_LENET_STEPS)]
+        heard = lenet(device=UI_DEVICE, data_type="float32")
+        listener = StatsListener(store, cfg, session_id="lenet")
+        heard.set_listeners(listener)
+        report_ms = []
+        done = listener.iteration_done
+
+        def timed_report(model, iteration):
+            t0 = time.perf_counter()
+            done(model, iteration)
+            report_ms.append((time.perf_counter() - t0) * 1e3)
+
+        listener.iteration_done = timed_report
+        pre, heard_ms = [], []
+        for _ in range(UI_LENET_STEPS):
+            pre.append(heard.params())
+            heard_ms.append(timed_fit(heard))
+        if not np.array_equal(plain.params(), heard.params()):
+            raise SystemExit("32(a): the fit with a StatsListener is not "
+                             "bit-equal to the fit without one")
+        ups = store.get_all_updates("lenet")
+        if len(ups) != UI_LENET_STEPS:
+            raise SystemExit(f"32(a): {len(ups)} reports")
+        for key in ("score", "iterationTimeMs", "memory", "learningRates",
+                    "parameters", "updates"):
+            if key not in ups[-1]:
+                raise SystemExit(f"32(a): the last report lacks {key}")
+        if ups[-1]["memory"]["deviceBytesInUse"] <= 0 and \
+                UI_DEVICE == "cuda":
+            raise SystemExit("32(a): no device memory reported")
+        if "histogram" not in ups[-1]["parameters"]["0_W"]:
+            raise SystemExit("32(a): no histogram")
+        probe = lenet(device=UI_DEVICE, data_type="float32")
+        act_err, grids = 0.0, 0
+        with_stats = [u for u in ups if "activationStats" in u]
+        if [u["iteration"] for u in with_stats] != list(
+                range(1, UI_LENET_STEPS)):
+            raise SystemExit(f"32(a): activation stats at iterations "
+                             f"{[u['iteration'] for u in with_stats]}")
+        for u in with_stats:
+            probe.set_params(pre[u["iteration"]])
+            acts = probe.feed_forward(x)
+            for key, s in u["activationStats"].items():
+                a = np.asarray(acts[int(key) + 1], np.float64)
+                act_err = max(act_err, abs(s["mean"] - a.mean()),
+                              abs(s["meanMagnitude"] - np.abs(a).mean()))
+                if a.ndim == 4:
+                    g = u["activations"][key]
+                    if (g["height"], len(g["channels"])) != \
+                            _ui_grid_shape(a, cfg):
+                        raise SystemExit(
+                            f"32(a): layer {key} grid {g['height']} x "
+                            f"{len(g['channels'])}, want "
+                            f"{_ui_grid_shape(a, cfg)}")
+                    grids += 1
+    _check("32(a) activation summaries vs feed_forward, max abs err",
+           act_err, UI_ACT_TOL)
+    legacy = {}
+    for name, make, key in (
+            ("histogram", lambda: HistogramIterationListener(
+                session_id="h"), "parameters"),
+            ("convolutional", lambda: ConvolutionalIterationListener(
+                x[:1], session_id="c"), "activations"),
+            ("flow", lambda: FlowIterationListener(session_id="f"),
+             "score")):
+        net = lenet(device=UI_DEVICE, data_type="float32")
+        listener = make()
+        net.set_listeners(listener)
+        for _ in range(2):
+            net.fit(x, y)
+        lu = listener.router.get_all_updates(listener.session_id)
+        if len(lu) != 2 or key not in lu[-1]:
+            raise SystemExit(f"32(a): the {name} listener reported "
+                             f"{[sorted(u) for u in lu]}")
+        legacy[name] = sorted(lu[-1])
+    # medians past the first step (cuDNN's first call of each shape)
+    out = {"steps": UI_LENET_STEPS, "bit_equal_without_listener": True,
+           "activation_max_abs_err": act_err, "grids_checked": grids,
+           "fit_ms_without_listener": statistics.median(plain_ms[1:]),
+           "fit_ms_with_listener": statistics.median(heard_ms[1:]),
+           "report_ms": statistics.median(report_ms[1:]),
+           "legacy_report_keys": legacy}
+    print(f"  32(a) LeNet f32 x{UI_LENET_STEPS}: with a full StatsListener "
+          f"bit-equal to without; {len(with_stats)} reports of the step's "
+          f"activations vs feed_forward {act_err:.2e}, {grids} grids; a fit "
+          f"{out['fit_ms_without_listener']:.2f} ms without, "
+          f"{out['fit_ms_with_listener']:.2f} ms with the listener, of it "
+          f"the report {out['report_ms']:.2f} ms (medians)")
+    return out
+
+
+def _ui_get(url, data=None):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=30) as r:
+        body = r.read()
+        status = r.status
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def ui_resnet(storage):
+    """32(b): ResNet-50 bf16 at phase 17's width: the step with no
+    listener, with a StatsListener at report frequency 10 and 1 (reports
+    into the SqliteStatsStorage `storage`), and the host bytes a report
+    reads."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.resnet import resnet50
+    from deeplearning4j_tpu_torch.ui import (StatsListener,
+                                             StatsUpdateConfiguration)
+    torch.cuda.empty_cache()
+    net = resnet50(data_type="bfloat16", device=UI_DEVICE)
+    gen = torch.Generator(device=UI_DEVICE).manual_seed(32)
+    x = torch.rand((UI_R50_B, UI_R50_HW, UI_R50_HW, 3), generator=gen,
+                   device=UI_DEVICE)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (UI_R50_B,), generator=gen, device=UI_DEVICE), 1000).float()
+    ds = DataSet(x, y)
+    for _ in range(3):          # cuDNN's search, off the clock
+        net.fit(ds)
+    _ui_sync()
+    out = {"batch": UI_R50_B, "steps": {}, "step_ms": {}, "reports": {},
+           "report_ms": {}}
+    for freq, steps in UI_R50_STEPS.items():
+        name = "none" if freq is None else f"every_{freq}"
+        listener = None
+        if freq is not None:
+            listener = StatsListener(storage, StatsUpdateConfiguration(
+                report_frequency=freq), session_id=f"resnet50_{name}")
+            net.set_listeners(listener)
+            heard = listener.iteration_done
+            spent = [0.0]
+
+            def timed(model, iteration, heard=heard, spent=spent,
+                      freq=freq):
+                if iteration % freq:
+                    return heard(model, iteration)
+                _ui_sync()
+                t = time.perf_counter()
+                heard(model, iteration)
+                spent[0] += time.perf_counter() - t
+            listener.iteration_done = timed
+        else:
+            net.set_listeners()
+        before = len(storage.get_all_updates(f"resnet50_{name}"))
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            net.fit(ds)
+        _ui_sync()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        out["steps"][name] = steps
+        out["step_ms"][name] = ms
+        if listener is not None:
+            n = len(storage.get_all_updates(f"resnet50_{name}")) - before
+            out["reports"][name] = n
+            if n != steps // freq:
+                raise SystemExit(f"32(b): {n} reports at frequency {freq}")
+            # the listener's time over its reports (the other calls return
+            # at once), the step's queue drained first
+            out["report_ms"][name] = spent[0] * 1e3 / n
+            out["host_bytes_per_report"] = 4 + sum(
+                a.nbytes for a in listener._prev_params.values())
+    net.set_listeners()
+    out["num_params"] = net.num_params()
+    print(f"  32(b) ResNet-50 bf16 batch {UI_R50_B}: step "
+          f"{out['step_ms']['none']:.1f} ms without a listener, "
+          f"{out['step_ms']['every_10']:.1f} ms reporting every 10, "
+          f"{out['step_ms']['every_1']:.1f} ms every step; a report "
+          f"{out['report_ms']['every_1']:.0f} ms, "
+          f"{out['host_bytes_per_report'] / 2 ** 20:.1f} MiB read to the "
+          f"host")
+    del net, ds, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def ui_armed_vgg():
+    """32(b): the step with its activation summaries armed at real width:
+    VGG-16 bf16, batch 64, 224x224x3, disarmed then armed (the same
+    batches), each step timed by CUDA events, with the peak memory; the
+    armed step's summaries finite."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.zoo.classic_cnns import vgg16
+    torch.cuda.empty_cache()
+    net = vgg16(data_type="bfloat16", learning_rate=UI_VGG_LR,
+                device=UI_DEVICE)
+    gen = torch.Generator(device=UI_DEVICE).manual_seed(329)
+    x = torch.rand((UI_VGG_B, 224, 224, 3), generator=gen, device=UI_DEVICE)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (UI_VGG_B,), generator=gen, device=UI_DEVICE), 1000).float()
+    ds = DataSet(x, y)
+    out = {"batch": UI_VGG_B, "steps": UI_VGG_STEPS, "step_ms": {},
+           "peak_gib": {}}
+    for armed in (False, True):
+        name = "armed" if armed else "disarmed"
+        net.collect_activation_stats(armed)
+        net.fit(ds)             # cuDNN's search / the first armed step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(UI_VGG_STEPS + 1)]
+        ev[0].record()
+        for i in range(UI_VGG_STEPS):
+            net.fit(ds)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        out["step_ms"][name] = statistics.median(
+            a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = net._last_activation_stats
+    net.collect_activation_stats(False)
+    means = np.array([float(s["mean"]) for s in stats])
+    if len(stats) != len(net.layers) - 1 or not np.isfinite(means).all():
+        raise SystemExit(f"32(b): VGG-16's armed step left {len(stats)} "
+                         f"summaries, means {means}")
+    if not math.isfinite(float(net.score())):
+        raise SystemExit("32(b): VGG-16's loss is not finite")
+    out["armed_over_disarmed"] = (out["step_ms"]["armed"]
+                                  / out["step_ms"]["disarmed"])
+    print(f"  32(b) VGG-16 bf16 batch {UI_VGG_B}: step "
+          f"{out['step_ms']['disarmed']:.1f} ms disarmed, "
+          f"{out['step_ms']['armed']:.1f} ms with the activation summaries "
+          f"armed ({out['armed_over_disarmed']:.3f}x); peak memory "
+          f"{out['peak_gib']['disarmed']:.2f} vs "
+          f"{out['peak_gib']['armed']:.2f} GiB (medians of "
+          f"{UI_VGG_STEPS} steps, CUDA events)")
+    del net, ds, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def ui_server(storage, base):
+    """32(b): every page and /api route of the UIServer at `base` over
+    `storage` (200, with the session's updates), each timed; a
+    RemoteUIStatsStorageRouter posting into it; /metrics."""
+    from deeplearning4j_tpu_torch.ui import RemoteUIStatsStorageRouter
+    sid = "resnet50_every_1"
+    want = storage.get_all_updates(sid)
+    page_ms = {}
+    for path in UI_PAGES + ["/api/sessions", f"/api/static/{sid}",
+                            f"/api/updates/{sid}", "/metrics"]:
+        status, body, ms = _ui_get(base + path)
+        if status != 200:
+            raise SystemExit(f"32(b): {path} answered {status}")
+        page_ms[path] = ms
+        if path.startswith("/api/updates/") and json.loads(body) != want:
+            raise SystemExit("32(b): /api/updates differs from the storage")
+        if path == "/api/sessions" and sid not in json.loads(body):
+            raise SystemExit(f"32(b): /api/sessions lacks {sid}")
+    coords = {"coords": [[0.0, 1.0], [2.0, 3.0]], "labels": ["a", "b"]}
+    status, body, page_ms["POST /api/tsne"] = _ui_get(
+        f"{base}/api/tsne/{sid}", json.dumps(coords).encode())
+    status, body, page_ms["/api/tsne"] = _ui_get(f"{base}/api/tsne/{sid}")
+    if json.loads(body)["coords"] != coords["coords"]:
+        raise SystemExit("32(b): the t-SNE upload did not come back")
+    router = RemoteUIStatsStorageRouter(base)
+    t0 = time.perf_counter()
+    router.put_static_info({"sessionId": "remote_probe",
+                            "model": {"class": "probe", "numParams": 1}})
+    router.put_update({"sessionId": "remote_probe", "iteration": 0,
+                       "score": 1.5})
+    remote_ms = (time.perf_counter() - t0) * 1e3 / 2
+    if storage.get_all_updates("remote_probe") != [
+            {"sessionId": "remote_probe", "iteration": 0, "score": 1.5}]:
+        raise SystemExit("32(b): the remote router's update did not land")
+    print(f"  32(b) UIServer: {len(page_ms)} routes 200; ms "
+          f"{json.dumps({k: round(v, 2) for k, v in page_ms.items()})}; "
+          f"a remote POST {remote_ms:.2f} ms")
+    return {"route_ms": page_ms, "remote_post_ms": remote_ms,
+            "updates_served": len(want)}
+
+
+def ui_rank(rank, world, store, out_dir):
+    """One rank of 32(c), started by spawn: LeNet f32 through the wrapper
+    in all-reduce mode on cuda:0 in a gloo group, activation stats armed
+    on every rank (the summaries are collective), a StatsListener on rank
+    0; then rank 0 runs the same batches in one process, armed."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage,
+                                             StatsListener,
+                                             StatsUpdateConfiguration)
+    if UI_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=UI_GROUP_TIMEOUT_S))
+    torch.backends.cudnn.deterministic = True
+    batches = _par_batches(3, 64, seed=323)
+    cfg = StatsUpdateConfiguration(collect_activations=True)
+
+    def reports(net, fit):
+        storage = InMemoryStatsStorage()
+        net.collect_activation_stats(True, cfg.max_activation_channels,
+                                     cfg.max_activation_size)
+        if rank == 0:
+            net.set_listeners(StatsListener(storage, cfg, session_id="s"))
+        fit(net)
+        return [{"iteration": u["iteration"],
+                 "activationStats": u.get("activationStats"),
+                 "activations": u.get("activations")}
+                for u in storage.get_all_updates("s")]
+
+    res = {"wrapper": reports(
+        lenet(device=UI_DEVICE, data_type="float32"),
+        lambda net: ParallelWrapper.Builder(net).averaging_frequency(1)
+        .build().fit(ListDataSetIterator(batches)))}
+    dist.barrier()
+    if rank == 0:
+        def one(net):
+            for ds in batches:
+                net.fit(ds)
+        res["one_process"] = reports(
+            lenet(device=UI_DEVICE, data_type="float32"), one)
+        torch.save(res, Path(out_dir) / "rank0.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ui_wrapper():
+    """32(c): the wrapper's global-batch summaries on UI_RANKS gloo ranks
+    against one process's summaries of the whole batch."""
+    import tempfile
+    work = Path(tempfile.mkdtemp(prefix="phase32c_", dir=str(
+        Path(__file__).resolve().parent / "build")))
+    store = str(work / "store")
+    t0 = time.perf_counter()
+    _par_spawn(ui_rank, lambda i: (i, UI_RANKS, store, str(work)),
+               UI_RANKS, UI_JOIN_TIMEOUT_S, "32(c) ranks")
+    spawn_s = time.perf_counter() - t0
+    res = torch.load(work / "rank0.pt", weights_only=False)
+    shutil.rmtree(work, ignore_errors=True)
+    wrap, one = res["wrapper"], res["one_process"]
+    if [u["iteration"] for u in wrap] != [u["iteration"] for u in one] \
+            or not any(u["activationStats"] for u in wrap):
+        raise SystemExit("32(c): the reports differ in their iterations")
+    err, grids = 0.0, 0
+    for a, b in zip(wrap, one):
+        if bool(a["activationStats"]) != bool(b["activationStats"]):
+            raise SystemExit(f"32(c): iteration {a['iteration']} has stats "
+                             f"on one side only")
+        for key, s in (a["activationStats"] or {}).items():
+            t = b["activationStats"][key]
+            err = max(err, *(abs(s[k] - t[k]) for k in s))
+        for key, g in (a["activations"] or {}).items():
+            h = b["activations"][key]
+            if (g["height"], len(g["channels"])) != (h["height"],
+                                                     len(h["channels"])):
+                raise SystemExit(f"32(c): layer {key}'s grid shape differs")
+            grids += 1
+    _check(f"32(c) {UI_RANKS} ranks' global summaries vs one process, max "
+           f"abs err", err, UI_ACT_TOL)
+    return {"ranks": UI_RANKS, "reports": len(wrap),
+            "max_abs_err": err, "grids": grids, "spawn_s": spawn_s}
+
+
+def ui_kmeans():
+    """32(d): k-means over config 4's table shape on the card against the
+    port on the CPU from the same seed."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering import kmeans as K
+    n, d, k = UI_KM["n"], UI_KM["d"], UI_KM["k"]
+    rng = np.random.default_rng(324)
+    centers = 4.0 * rng.standard_normal((k, d))
+    x = (centers[rng.integers(0, k, n)]
+         + rng.standard_normal((n, d))).astype(np.float32)
+    card = KMeansClustering(k, max_iterations=UI_KM["steps"], seed=324,
+                            device=UI_DEVICE)
+    init = {}
+    pp = card._init_pp
+
+    def cached(x, r):
+        init["c"] = pp(x, r)
+        return init["c"]
+
+    card._init_pp = cached
+    steps_ms = {UI_DEVICE: [], "cpu": []}
+    step = K._lloyd_step
+
+    def fit(km, device):
+        """km.fit(x), each Lloyd step timed (the queue drained around)."""
+        def timed(*a):
+            _ui_sync()
+            t0 = time.perf_counter()
+            r = step(*a)
+            _ui_sync()
+            steps_ms[device].append((time.perf_counter() - t0) * 1e3)
+            return r
+        K._lloyd_step = timed
+        try:
+            km.fit(x)
+        finally:
+            K._lloyd_step = step
+
+    t0 = time.perf_counter()
+    fit(card, UI_DEVICE)
+    fit_s = time.perf_counter() - t0
+    cpu = KMeansClustering(k, max_iterations=UI_KM["steps"], seed=324,
+                           device="cpu")
+    cpu._init_pp = lambda x, r: init["c"]
+    fit(cpu, "cpu")
+    n_steps = len(steps_ms[UI_DEVICE])
+    if n_steps != len(steps_ms["cpu"]):
+        raise SystemExit(f"32(d): {n_steps} steps on the card, "
+                         f"{len(steps_ms['cpu'])} on the CPU")
+    center_err = _max_err(card.centers, cpu.centers)
+    xc = torch.from_numpy(x).double()
+    dist2 = torch.cdist(xc, torch.from_numpy(cpu.centers).double()) ** 2
+    two = dist2.topk(2, largest=False).values.numpy()
+    near_tie = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 1]
+    differ = card.labels != cpu.labels
+    if np.any(differ & ~near_tie):
+        raise SystemExit(f"32(d): {int((differ & ~near_tie).sum())} labels "
+                         f"differ away from a near-tie")
+    cost_rel = abs(card.cost - cpu.cost) / abs(cpu.cost)
+    _check("32(d) k-means centers card vs CPU, max abs err", center_err,
+           UI_KM_TOL)
+    _check("32(d) k-means cost card vs CPU, relative", cost_rel, UI_KM_TOL)
+    card_ms = steps_ms[UI_DEVICE]
+    out = {"n": n, "d": d, "k": k, "steps": n_steps,
+           "fit_s": fit_s, "step_ms": card_ms,
+           "mean_step_ms": sum(card_ms[1:]) / max(1, n_steps - 1),
+           "center_max_abs_err": center_err, "cost_rel_err": cost_rel,
+           "labels_differing": int(differ.sum()),
+           "near_ties": int(near_tie.sum())}
+    print(f"  32(d) k-means {n}x{d}, K={k}: {n_steps} Lloyd steps "
+          f"of {out['mean_step_ms']:.3f} ms on the card (fit {fit_s:.1f} s "
+          f"with the kmeans++ seeding on the host); labels differing "
+          f"{out['labels_differing']}, near-ties {out['near_ties']}")
+    return out
+
+
+def _ui_blobs(n, d, c, scale, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(np.arange(c), n // c)
+    centers = scale * rng.standard_normal((c, d))
+    return (centers[labels] + rng.standard_normal((n, d))), labels
+
+
+def _ui_spread(emb, labels):
+    """The reference's pin: mean inter- over mean intra-cluster distance
+    on its sample of pairs (i every 7th, j every 11th after it)."""
+    import numpy as np
+    n = emb.shape[0]
+    ii, jj = [], []
+    for i in range(0, n, 7):
+        j = np.arange(i + 1, n, 11)
+        ii.append(np.full(j.shape, i))
+        jj.append(j)
+    ii, jj = np.concatenate(ii), np.concatenate(jj)
+    dd = np.linalg.norm(emb[ii] - emb[jj], axis=1)
+    same = labels[ii] == labels[jj]
+    return float(dd[~same].mean() / dd[same].mean())
+
+
+def ui_tsne():
+    """32(e): the dense loop card vs CPU on the same P and y0 (the first
+    iterations pinned against the CPU's f32 vs f64 distance, a longer run
+    read, the whole loop timed), `Tsne.fit` (dense) through the
+    entry point, Barnes-Hut at 10,000 points: `_sparse_sym_p` card vs CPU,
+    the native forces' share, the fit; the separation pins."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common import native_ops
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne, Tsne
+    from deeplearning4j_tpu_torch.plot import tsne as T
+    cfg = UI_TSNE_DENSE
+    n, pinned = cfg["n"], cfg["pinned"]
+    x, labels = _ui_blobs(n, cfg["d"], 8, 4.0, 325)
+    # P: the kNN P, symmetrised, densified (the dense fit's _cond_probs
+    # holds an [N, N, D] f64 array, 13 GB at this N)
+    row_ptr, cols, vals = T._sparse_sym_p(x, cfg["perplexity"],
+                                          device=UI_DEVICE)
+    P = np.zeros((n, n), np.float32)
+    P[np.repeat(np.arange(n), np.diff(row_ptr)), cols] = vals
+    gen = torch.Generator().manual_seed(325)
+    y0 = 1e-2 * torch.randn((n, 2), generator=gen)
+    Pc = torch.from_numpy(P)
+    Pd = Pc.to(UI_DEVICE)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    # the CPU's f32 loop against its f64 loop: how far rounding alone
+    # carries the loop in this many iterations
+    t0 = time.perf_counter()
+    cpu = T._tsne_loop(Pc, y0, pinned)
+    cpu_s = time.perf_counter() - t0
+    cpu64 = T._tsne_loop(Pc.double(), y0.double(), pinned)
+    card = T._tsne_loop(Pd, y0.to(UI_DEVICE), pinned).cpu()
+    spread, err = rel(cpu, cpu64), rel(card, cpu)
+    _check(f"32(e) dense t-SNE loop card vs CPU f32 over {pinned} "
+           f"iterations, relative (limit 2x the CPU's f32 vs f64 "
+           f"{spread:.3e})", err, 2 * spread)
+    # how far rounding alone has carried the loop after `chaos`
+    # iterations: the card's f32 loop against its f64 loop
+    chaos = {"iterations": cfg["chaos"],
+             "card_f32_vs_f64_rel": rel(
+                 T._tsne_loop(Pd, y0.to(UI_DEVICE), cfg["chaos"]).cpu(),
+                 T._tsne_loop(Pd.double(), y0.double().to(UI_DEVICE),
+                              cfg["chaos"]).cpu())}
+    _ui_sync()
+    t0 = time.perf_counter()
+    emb = T._tsne_loop(Pd, y0.to(UI_DEVICE), cfg["iters"])
+    _ui_sync()
+    loop_s = time.perf_counter() - t0
+    dense_spread = _ui_spread(emb.cpu().numpy(), labels)
+    xs, ls = _ui_blobs(UI_TSNE_FIT_N, 10, 5, 4.0, 326)
+    t0 = time.perf_counter()
+    fit_emb = Tsne(perplexity=30, max_iter=300, seed=3,
+                   device=UI_DEVICE).fit(xs)
+    fit_s = time.perf_counter() - t0
+    fit_spread = _ui_spread(fit_emb, ls)
+    # Barnes-Hut
+    bh = UI_TSNE_BH
+    xb, lb = _ui_blobs(bh["n"], bh["d"], 10, 8.0, 327)
+    xb = np.round(4.0 * xb) / 4.0     # exact f32 products on both devices
+    t0 = time.perf_counter()
+    card_p = T._sparse_sym_p(xb, bh["perplexity"], device=UI_DEVICE)
+    sym_card_s = time.perf_counter() - t0
+    cpu_p = T._sparse_sym_p(xb, bh["perplexity"], device="cpu")
+    if not (np.array_equal(card_p[0], cpu_p[0])
+            and np.array_equal(card_p[1], cpu_p[1])):
+        raise SystemExit("32(e) _sparse_sym_p: the CSR patterns differ")
+    sym_err = float(np.abs(card_p[2] - cpu_p[2]).max() / cpu_p[2].max())
+    _check("32(e) _sparse_sym_p card vs CPU values, relative to the "
+           "largest", sym_err, UI_SYM_TOL)
+    force_s = {"attraction": 0.0, "repulsion": 0.0}
+    calls = {"attraction": 0, "repulsion": 0}
+    orig = {"attraction": native_ops.bh_attraction,
+            "repulsion": native_ops.bh_repulsion}
+
+    def timed(kind):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            r = orig[kind](*a, **kw)
+            force_s[kind] += time.perf_counter() - t
+            calls[kind] += r is not None
+            return r
+        return call
+
+    native_ops.bh_attraction = timed("attraction")
+    native_ops.bh_repulsion = timed("repulsion")
+    try:
+        t0 = time.perf_counter()
+        bh_emb = BarnesHutTsne(perplexity=bh["perplexity"],
+                               max_iter=bh["iters"], seed=4,
+                               device=UI_DEVICE).fit(xb)
+        bh_s = time.perf_counter() - t0
+    finally:
+        native_ops.bh_attraction = orig["attraction"]
+        native_ops.bh_repulsion = orig["repulsion"]
+    if calls != {"attraction": bh["iters"], "repulsion": bh["iters"]}:
+        raise SystemExit(f"32(e): the native forces ran {calls}")
+    bh_spread = _ui_spread(bh_emb, lb)
+    for label, s in (("dense loop", dense_spread), ("Tsne.fit", fit_spread),
+                     ("Barnes-Hut", bh_spread)):
+        if not s > 2:
+            raise SystemExit(f"32(e) {label}: inter/intra {s:.2f}, the "
+                             f"clusters did not stay separated")
+    out = {"dense": {"n": n, "pinned_iterations": pinned,
+                     "card_vs_cpu_rel": err, "cpu_f32_vs_f64_rel": spread,
+                     "card_vs_cpu_f64_rel": rel(card, cpu64),
+                     "cpu_loop_s": cpu_s, "chaos": chaos,
+                     "iterations": cfg["iters"],
+                     "loop_s": loop_s,
+                     "ms_per_iteration": loop_s * 1e3 / cfg["iters"],
+                     "inter_over_intra": dense_spread},
+           "fit_dense": {"n": UI_TSNE_FIT_N, "fit_s": fit_s,
+                         "inter_over_intra": fit_spread},
+           "barnes_hut": {"n": bh["n"], "iterations": bh["iters"],
+                          "sparse_sym_p_card_s": sym_card_s,
+                          "sparse_sym_p_rel_err": sym_err,
+                          "nnz": int(card_p[0][-1]), "fit_s": bh_s,
+                          "force_s": force_s,
+                          "force_share": sum(force_s.values()) / bh_s,
+                          "inter_over_intra": bh_spread}}
+    print(f"  32(e) dense t-SNE N={n}: {pinned} iterations card vs CPU "
+          f"{err:.2e} (CPU f32 vs f64 {spread:.2e}), {cfg['chaos']} "
+          f"iterations the card's f32 vs f64 "
+          f"{chaos['card_f32_vs_f64_rel']:.2e} (read, not held: chaotic); "
+          f"{cfg['iters']} "
+          f"iterations {loop_s:.2f} s on the card "
+          f"({out['dense']['ms_per_iteration']:.2f} ms each); inter/intra "
+          f"{dense_spread:.2f}; Tsne.fit N={UI_TSNE_FIT_N} {fit_s:.1f} s "
+          f"({fit_spread:.2f})")
+    print(f"  32(e) Barnes-Hut N={bh['n']}: _sparse_sym_p card vs CPU "
+          f"pattern equal, values {sym_err:.2e}; fit {bh_s:.1f} s, native "
+          f"forces {out['barnes_hut']['force_share']:.0%} of it; "
+          f"inter/intra {bh_spread:.2f}")
+    return out
+
+
+def ui_prefetch():
+    """32(f): CSVSequenceRecordReader(prefetch=4) over 256 numeric files
+    equals prefetch=0, row for row; rows/s both ways."""
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.records import \
+        CSVSequenceRecordReader
+    c = UI_CSV
+    work = Path(tempfile.mkdtemp(prefix="phase32f_", dir=str(
+        Path(__file__).resolve().parent / "build")))
+    rng = np.random.default_rng(328)
+    paths = []
+    for i in range(c["files"]):
+        p = work / f"s{i:04d}.csv"
+        np.savetxt(p, rng.random((c["rows"], c["cols"])), delimiter=",",
+                   fmt="%.6f")
+        paths.append(str(p))
+    seqs, rate = {}, {}
+    for prefetch in (0, c["prefetch"]):
+        r = CSVSequenceRecordReader(files=paths, prefetch=prefetch)
+        t0 = time.perf_counter()
+        got = []
+        while r.has_next():
+            got.append(r.next_sequence())
+        rate[prefetch] = c["files"] * c["rows"] / (time.perf_counter() - t0)
+        if prefetch and r._loader is None:
+            raise SystemExit("32(f): prefetch did not use the native loader")
+        seqs[prefetch] = got
+    shutil.rmtree(work, ignore_errors=True)
+    plain = [[[float(np.float32(v)) for v in row] for row in s]
+             for s in seqs[0]]
+    if plain != seqs[c["prefetch"]]:
+        raise SystemExit("32(f): prefetch differs from prefetch=0")
+    print(f"  32(f) {c['files']} CSV files of {c['rows']} rows: prefetch="
+          f"{c['prefetch']} equal to prefetch=0 row for row; "
+          f"{rate[c['prefetch']]:.0f} rows/s against {rate[0]:.0f}")
+    return {"files": c["files"], "rows_per_file": c["rows"],
+            "rows_per_s_prefetch": rate[c["prefetch"]],
+            "rows_per_s_plain": rate[0]}
+
+
+def ui_main_start(base):
+    """32(g), started: `python -m deeplearning4j_tpu_torch.parallel.main`
+    on the card, a LeNet zip, one epoch, the model written and the stats
+    posted to the server at `base`. Returns what ui_main_check needs."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models.zoo.lenet import lenet
+    from deeplearning4j_tpu_torch.util import model_serializer as ms
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="phase32g_", dir=str(root / "build")))
+    src, dst = str(work / "lenet.zip"), str(work / "trained.zip")
+    ms.write_model(lenet(device=UI_DEVICE, data_type="float32"), src)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.parallel.main",
+         "--model-path", src, "--iterator-factory",
+         "chip_smoke:ui_lenet_iterator", "--epochs", "1",
+         "--model-output-path", dst, "--ui-url", base, "--report-score",
+         "--device", UI_DEVICE],
+        cwd=str(root), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    return {"proc": proc, "work": work, "src": src, "dst": dst,
+            "t0": time.perf_counter()}
+
+
+def ui_main_check(started, storage, sessions_before):
+    """32(g), finished: the zip restores, its parameters are finite and
+    changed, and the server holds the run's session."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.util import model_serializer as ms
+    proc = started["proc"]
+    try:
+        text, _ = proc.communicate(timeout=UI_MAIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+        raise SystemExit(f"32(g) timed out: {text.decode()[-2000:]}")
+    wall_s = time.perf_counter() - started["t0"]
+    if proc.returncode != 0:
+        raise SystemExit(f"32(g) exited {proc.returncode}: "
+                         f"{text.decode()[-3000:]}")
+    before = ms.restore_model(started["src"], device=UI_DEVICE).params()
+    after = ms.restore_model(started["dst"], device=UI_DEVICE)
+    p = after.params()
+    if not np.all(np.isfinite(p)) or np.array_equal(p, before):
+        raise SystemExit("32(g): the written parameters are not finite or "
+                         "did not change")
+    new = [s for s in storage.list_session_ids() if s not in sessions_before
+           and s.startswith("session_")]
+    if len(new) != 1:
+        raise SystemExit(f"32(g): the server holds sessions {new}")
+    static = storage.get_static_info(new[0])
+    ups = storage.get_all_updates(new[0])
+    if static["model"]["numParams"] != after.num_params() or len(ups) != 5:
+        raise SystemExit(f"32(g): session {new[0]}: {static['model']}, "
+                         f"{len(ups)} updates")
+    shutil.rmtree(started["work"], ignore_errors=True)
+    print(f"  32(g) parallel.main on the card: {wall_s:.1f} s with its "
+          f"start; the zip restores, parameters finite and changed; "
+          f"session {new[0]} with {len(ups)} updates on the server "
+          f"({text.decode().strip().splitlines()[-1]})")
+    return {"wall_s": wall_s, "session": new[0], "updates": len(ups),
+            "iterations": after.conf.iteration_count}
+
+
+def ui_phase(fa):
+    """Phase 32. Returns its readings. The UI and the visualisation tools
+    run no kernel of the port: the counters are set to 0 first and must
+    read 0 after it."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ui import SqliteStatsStorage, UIServer
+    t_phase = time.perf_counter()
+    fa.reset_launches()
+    out = {"card": card_line() if UI_DEVICE == "cuda" else "cpu",
+           "sub_phase_s": {}}
+    print(f"phase 32: the training UI and the visualisation tools "
+          f"({out['card']})")
+    work = Path(tempfile.mkdtemp(prefix="phase32_", dir=str(
+        Path(__file__).resolve().parent / "build")))
+    storage = SqliteStatsStorage(str(work / "stats.db"))
+    server = UIServer(port=0).attach(storage)
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        t = time.perf_counter()
+        out["a"] = ui_lenet()
+        out["sub_phase_s"]["a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["b"] = ui_resnet(storage)
+        out["b"]["server"] = ui_server(storage, base)
+        if UI_DEVICE == "cuda":         # CUDA events and peak memory
+            out["b"]["armed_vgg16"] = ui_armed_vgg()
+        out["sub_phase_s"]["b"] = time.perf_counter() - t
+        # (g) runs in its own process while (c) and (d) run here
+        sessions = storage.list_session_ids()
+        started = ui_main_start(base)
+        for key, fn in (("c", ui_wrapper), ("d", ui_kmeans)):
+            t = time.perf_counter()
+            out[key] = fn()
+            out["sub_phase_s"][key] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["g"] = ui_main_check(started, storage, sessions)
+        out["sub_phase_s"]["g_wait"] = time.perf_counter() - t
+        for key, fn in (("e", ui_tsne), ("f", ui_prefetch)):
+            t = time.perf_counter()
+            out[key] = fn()
+            out["sub_phase_s"][key] = time.perf_counter() - t
+    finally:
+        server.stop()
+        storage.close()
+        shutil.rmtree(work, ignore_errors=True)
+    if UI_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    launched = dict(fa.launches)
+    if any(launched.values()):
+        raise SystemExit(f"phase 32 launched flash kernels: {launched}")
+    out["flash_launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 32 launched no kernel of the port: {launched}; "
+          f"{out['phase_s']:.1f} s ({out['sub_phase_s']})")
     return out
 
 

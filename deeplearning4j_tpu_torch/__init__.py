@@ -33,7 +33,12 @@ the training tools: listeners, the profiler and the full-batch solvers
 (`optimize`), early stopping (`earlystopping`, and over the wrapper and
 the master in `parallel`), gradient checks (`gradientcheck`); the classic
 CNNs of the zoo (AlexNet, VGG-16, GoogLeNet) and `graft_entry`, the
-ResNet-50 inference forward. ROADMAP.md queues the rest.
+ResNet-50 inference forward; layerwise pretraining and Keras import; model
+parallelism; the training UI (`ui`: the stats listener over the step's own
+activation summaries, the storages, `UIServer`), t-SNE (`plot`), k-means
+and the spatial trees (`clustering`), the model guesser and the
+ParallelWrapper command line (`parallel.main`). ROADMAP.md queues the
+rest.
 
 The package exports the reference's six names beside `resolve_device`.
 """

@@ -1,10 +1,12 @@
 """ctypes binding to the native runtime library (native/dl4j_tpu_native.cpp).
 
 The port's own loader for the C++ source the JAX package's
-`common/native_ops.py` binds: IDX parsing, numeric CSV parsing, and the host
-halves of the embeddings path (word2vec skip-gram pairs, CBOW context rows,
-GloVe co-occurrence counts). The argument types and the ABI check are the
-reference's; the wrappers return the same arrays (tests/test_torch_native_ops.py).
+`common/native_ops.py` binds: IDX parsing, numeric CSV parsing and its
+threaded prefetcher, the staging-buffer pool, the host halves of the
+embeddings path (word2vec skip-gram pairs, CBOW context rows, GloVe
+co-occurrence counts) and the Barnes-Hut t-SNE forces. The argument types
+and the ABI check are the reference's; the wrappers return the same arrays
+(tests/test_torch_native_ops.py).
 
 The library is compiled at first use, from the source in the checkout, with
 `$CXX` (default `g++`) and the flags of `native/Makefile`, into the ignored
@@ -13,10 +15,9 @@ source and the flags. Each build writes a name of its own (the process id)
 and renames it into place, so processes that build at once (test workers,
 the reference's loader building into `native/`) never load a half-written
 library. Every caller has a Python fallback (the reference's): without a
-compiler the wrappers return None and the caller takes it.
-
-Not bound here: the staging pool, the threaded CSV loader and the t-SNE
-forces (ROADMAP.md queue 1 item 22).
+compiler the wrappers return None and the caller takes it. The prefetcher
+and the pool have none: they raise without the library, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -127,6 +128,28 @@ def get_lib():
         lib.dl4j_skipgram_pairs.argtypes = [
             _i32p, _i64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint64,
             _i32p, _i32p]
+        lib.dl4j_pool_create.restype = ctypes.c_void_p
+        lib.dl4j_pool_create.argtypes = [ctypes.c_size_t]
+        lib.dl4j_pool_acquire.restype = ctypes.c_void_p
+        lib.dl4j_pool_acquire.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        lib.dl4j_pool_release.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_size_t]
+        lib.dl4j_pool_stats.restype = ctypes.c_int64
+        lib.dl4j_pool_stats.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.dl4j_pool_destroy.argtypes = [ctypes.c_void_p]
+        lib.dl4j_loader_create.restype = ctypes.c_void_p
+        lib.dl4j_loader_create.argtypes = [
+            ctypes.c_char_p, ctypes.c_char, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32]
+        lib.dl4j_loader_next.restype = _f32p
+        lib.dl4j_loader_next.argtypes = [ctypes.c_void_p, _i64p, _i64p]
+        lib.dl4j_loader_destroy.argtypes = [ctypes.c_void_p]
+        lib.dl4j_bh_repulsion.restype = ctypes.c_double
+        lib.dl4j_bh_repulsion.argtypes = [
+            _f32p, ctypes.c_int64, ctypes.c_float, _f32p]
+        lib.dl4j_bh_attraction.restype = None
+        lib.dl4j_bh_attraction.argtypes = [
+            _f32p, ctypes.c_int64, _i64p, _i32p, _f32p, _f32p]
         _lib = lib
         return _lib
 
@@ -261,3 +284,143 @@ def glove_cooc(ids, offsets, window, symmetric):
     for p in (pi, pj, px):
         lib.dl4j_free(p)
     return out
+
+
+def bh_repulsion(y, theta=0.5):
+    """Barnes-Hut repulsive t-SNE forces (quadtree + theta traversal in
+    C++, threaded). y: [n, 2] float32. Returns (rep [n, 2], Z) or None
+    when the library is missing (caller falls back)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    y = np.ascontiguousarray(y, np.float32)
+    rep = np.empty_like(y)
+    z = lib.dl4j_bh_repulsion(y.ctypes.data_as(_f32p), int(y.shape[0]),
+                              float(theta), rep.ctypes.data_as(_f32p))
+    return rep, float(z)
+
+
+def bh_attraction(y, row_ptr, cols, vals):
+    """Sparse attractive t-SNE forces from a CSR neighbor matrix in C++.
+    Returns attr [n, 2] or None when the library is missing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    y = np.ascontiguousarray(y, np.float32)
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    cols = np.ascontiguousarray(cols, np.int32)
+    vals = np.ascontiguousarray(vals, np.float32)
+    attr = np.empty_like(y)
+    lib.dl4j_bh_attraction(
+        y.ctypes.data_as(_f32p), int(y.shape[0]),
+        row_ptr.ctypes.data_as(_i64p), cols.ctypes.data_as(_i32p),
+        vals.ctypes.data_as(_f32p), attr.ctypes.data_as(_f32p))
+    return attr
+
+
+class PrefetchCsvLoader:
+    """Multi-threaded native CSV prefetcher: worker threads parse files
+    into float32 matrices off the GIL; `next()` yields them in submission
+    order. Context-manage or call close()."""
+
+    def __init__(self, paths, delimiter=",", skip_lines=0, n_threads=4,
+                 capacity=8):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._handle = None
+        joined = "\n".join(str(p) for p in paths).encode()
+        self._handle = lib.dl4j_loader_create(
+            joined, ctypes.c_char(delimiter.encode()), int(skip_lines),
+            int(n_threads), int(capacity))
+        if not self._handle:
+            raise RuntimeError("loader creation failed")
+
+    def next(self):
+        """Next file's float32 [rows, cols] array; None when exhausted.
+        Raises IOError on a file that failed to parse."""
+        if self._handle is None:
+            return None
+        rows = ctypes.c_int64()
+        cols = ctypes.c_int64()
+        ptr = self._lib.dl4j_loader_next(self._handle, ctypes.byref(rows),
+                                         ctypes.byref(cols))
+        if not ptr:
+            if rows.value == -1:
+                return None
+            raise IOError("native CSV parse failed for next file")
+        n = rows.value * cols.value
+        if n == 0:        # empty-but-valid file sentinel
+            self._lib.dl4j_free(ptr)
+            return np.zeros((0, 0), np.float32)
+        arr = np.ctypeslib.as_array(ptr, shape=(n,)).reshape(
+            rows.value, cols.value).copy()
+        self._lib.dl4j_free(ptr)
+        return arr
+
+    def __iter__(self):
+        while True:
+            a = self.next()
+            if a is None:
+                return
+            yield a
+
+    def close(self):
+        if self._handle is not None:
+            self._lib.dl4j_loader_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class StagingBufferPool:
+    """Aligned reusable host buffers for staging batches to the device."""
+
+    def __init__(self, alignment=4096):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._pool = lib.dl4j_pool_create(alignment)
+
+    def acquire(self, nbytes):
+        ptr = self._lib.dl4j_pool_acquire(self._pool, int(nbytes))
+        if not ptr:
+            raise MemoryError(f"pool acquire({nbytes}) failed")
+        return ptr
+
+    def release(self, ptr, nbytes):
+        self._lib.dl4j_pool_release(self._pool, ptr, int(nbytes))
+
+    def as_array(self, ptr, shape, dtype=np.float32):
+        n = int(np.prod(shape))
+        ctype = np.ctypeslib.as_ctypes_type(np.dtype(dtype))
+        buf = ctypes.cast(ptr, ctypes.POINTER(ctype * n)).contents
+        return np.frombuffer(buf, dtype=dtype).reshape(shape)
+
+    def stats(self):
+        return {"allocated": self._lib.dl4j_pool_stats(self._pool, 0),
+                "reused": self._lib.dl4j_pool_stats(self._pool, 1),
+                "free": self._lib.dl4j_pool_stats(self._pool, 2)}
+
+    def close(self):
+        if self._pool:
+            self._lib.dl4j_pool_destroy(self._pool)
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -4,10 +4,10 @@ The port's copy of deeplearning4j_tpu/datasets/records.py (numpy and csv).
 As in the reference, `CSVRecordReader` parses a numeric file with the native
 C++ parser through the port's own loader (common/native_ops.py; float
 values) and falls back to Python's csv module (strings; the iterators
-convert them with float()) for other content or without the library. The
-reference's threaded native prefetch loader is not bound yet (ROADMAP.md
-queue 1 item 22): `prefetch` > 0 keeps its contract (float values) on the
-Python parser.
+convert them with float()) for other content or without the library.
+`CSVSequenceRecordReader(prefetch>0)` parses on the native loader's worker
+threads (`PrefetchCsvLoader`), and on the Python parser, with the same
+float contract, only without the library.
 
 TPU-native equivalent of the reference's DataVec integration:
 - RecordReader SPI (DataVec's CSVRecordReader / CSVSequenceRecordReader /
@@ -113,10 +113,13 @@ class CSVSequenceRecordReader(RecordReader):
     """One CSV file per sequence (DataVec CSVSequenceRecordReader). Files are
     visited in sorted order under `directory` (or from an explicit list).
 
-    prefetch > 0 declares the files numeric and yields float values
-    (ValueError on non-numeric content); prefetch == 0 yields raw strings.
-    The reference parses prefetched files on native threads; the port
-    parses them here, in file order."""
+    prefetch > 0 (numeric files only): that many native worker threads
+    parse files concurrently off the GIL (`common/native_ops
+    PrefetchCsvLoader`); sequences still arrive in file order. Type
+    contract: prefetch > 0 declares the files numeric and always yields
+    float values, also on the Python route taken when the native library
+    is unavailable (which raises ValueError on non-numeric content).
+    prefetch == 0 yields raw strings."""
 
     def __init__(self, directory=None, files=None, skip_lines=0,
                  delimiter=",", prefetch=0):
@@ -131,11 +134,30 @@ class CSVSequenceRecordReader(RecordReader):
         else:
             self.files = []
         self._pos = 0
+        self._loader = None
 
     def has_next(self):
         return self._pos < len(self.files)
 
+    def _native_loader(self):
+        if self._loader is None:
+            from ..common import native_ops
+            if not native_ops.available():
+                return None
+            self._loader = native_ops.PrefetchCsvLoader(
+                self.files, delimiter=self.delimiter,
+                skip_lines=self.skip_lines, n_threads=self.prefetch,
+                capacity=max(2 * self.prefetch, 4))
+        return self._loader
+
     def next_sequence(self):
+        if self.prefetch > 0:
+            loader = self._native_loader()
+            if loader is not None:
+                # advance before the native call: the loader's cursor moves
+                # even when a file fails to parse, so _pos must too
+                self._pos += 1
+                return loader.next().tolist()
         path = self.files[self._pos]
         self._pos += 1
         with open(path, "r", encoding="utf-8", newline="") as fh:
@@ -155,6 +177,9 @@ class CSVSequenceRecordReader(RecordReader):
 
     def reset(self):
         self._pos = 0
+        if self._loader is not None:
+            self._loader.close()
+            self._loader = None
 
 
 class RecordReaderDataSetIterator(DataSetIterator):

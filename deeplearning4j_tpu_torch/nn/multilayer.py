@@ -80,8 +80,15 @@ parameter vector (`gradientcheck`, `optimize.solvers`).
 RBM, VariationalAutoencoder) greedily, each on the frozen activations below
 it, with the raw updater rule; `fit` never calls them.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-`collect_activation_stats` (22).
+`collect_activation_stats` arms the MultiLayerNetwork's step to also
+summarise the activations of its training forward (`ui.stats.
+StatsListener` reads them): per interior layer the mean, the stdev and the
+mean magnitude in f32 (from f64 sums of x, x^2 and |x|, which a
+data-parallel step all-reduces into the global batch's), and for a 4-D
+output a downsampled grid of the first example, [h, w, ch] as the
+reference's NHWC. They stay on the device in `_last_activation_stats`
+until a listener reads them. An armed network runs single steps; a
+disarmed step computes nothing more.
 """
 from __future__ import annotations
 
@@ -104,12 +111,6 @@ from .conf.neural_net_configuration import MultiLayerConfiguration
 from .updater import updaters as U
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
-
-
-def not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to deeplearning4j_tpu_torch yet: ROADMAP.md "
-        f"queue 1 item {item}")
 
 
 def _param_sort_key(k):
@@ -190,6 +191,14 @@ class Network(nn.Module):
         self._lr_single_rows = None  # and the rates it holds
         self.fused_counts = {"groups": 0, "graph_replays": 0, "captures": 0,
                              "fused_steps": 0, "single_steps": {}}
+        # activation stats (collect_activation_stats): (max channels, max
+        # size) while armed, the toggle's generation, the armed step's
+        # sink and what its last step left
+        self._act_stats_cfg = None
+        self._act_stats_gen = 0
+        self._act_sink = None
+        self._last_activation_stats = None
+        self._last_activation_stats_iter = None
 
     # -- what a subclass provides ------------------------------------------
     def _keyed_layers(self):
@@ -294,12 +303,37 @@ class Network(nn.Module):
         if self.conf.backprop_type == "tbptt":
             return self._fit_tbptt(batch)
         for _ in range(int(self.conf.global_conf.get("num_iterations", 1))):
-            with obs.TRACER.span("train.dispatch", cat="train"):
+            with obs.TRACER.span("train.dispatch", cat="train"), \
+                    self._act_stats_step():
                 self._train_step(lambda rng: self._loss(*batch, True, rng))
             if self._health_policy is None:
                 self._fire_iteration_done()
             elif self._finish_armed() == H.ROLLBACK:
                 break           # counters and generator restored
+
+    @contextlib.contextmanager
+    def _act_stats_step(self, reduce=None):
+        """Around one training step. Armed (`collect_activation_stats`),
+        the step's training forward leaves its layers' moments in the sink
+        (`_act_moments`); afterwards `_last_activation_stats` holds their
+        summaries, tagged with the step's iteration. `reduce(moments,
+        grids)`, when given, turns the rank's moments and grids into the
+        global batch's (`parallel.ParallelWrapper`). Disarmed, a no-op."""
+        if self._act_stats_cfg is None:
+            yield
+            return
+        it0 = self.conf.iteration_count
+        sink = self._act_sink = []
+        try:
+            yield
+        finally:
+            self._act_sink = None
+        if sink:
+            moments, grids = sink[-1]
+            if reduce is not None:
+                moments, grids = reduce(moments, grids)
+            self._last_activation_stats = _act_summaries(moments, grids)
+            self._last_activation_stats_iter = it0
 
     def _fire_iteration_done(self):
         """Tell every listener that the optimizer step (or a data-parallel
@@ -349,7 +383,8 @@ class Network(nn.Module):
                     continue
                 self._count_single("tbptt_tail")
             seg = self._segment(batch, t0, L)
-            with obs.TRACER.span("train.dispatch", cat="train", tbptt=True):
+            with obs.TRACER.span("train.dispatch", cat="train",
+                                 tbptt=True), self._act_stats_step():
                 new = self._train_step(
                     lambda rng: self._loss(*seg, True, rng, carries))
             if self._health_policy is None:
@@ -418,9 +453,11 @@ class Network(nn.Module):
     # ------------------------------------------------------------------
     def _fused_k(self):
         """The fused depth for the current batch: 1 (the single step)
-        unless fused_steps(K > 1) is set and num_iterations == 1."""
+        unless fused_steps(K > 1) is set, activation stats are disarmed
+        and num_iterations == 1."""
         k = self._fused_steps
-        if k <= 1 or int(self.conf.global_conf.get("num_iterations", 1)) != 1:
+        if (k <= 1 or self._act_stats_cfg is not None
+                or int(self.conf.global_conf.get("num_iterations", 1)) != 1):
             return 1
         return k
 
@@ -1091,6 +1128,51 @@ def _memory_format(t):
     return torch.contiguous_format
 
 
+@torch.no_grad()
+def _act_moments(acts, max_channels, max_size):
+    """(moments, grids) of a training forward's interior activations:
+    moments [L, 4] f64 on the device, per layer the sum of x, of x^2, of
+    |x| and the element count: per-example partials in f32 (f64 for an
+    f64 layer; a bf16 output is read as it is, never copied), summed in
+    f64; grids {layer: [h, w, ch] f32}, for each 4-D (NCHW) output the first example, permuted to the reference's NHWC,
+    every step-th row and column, the first max_channels channels."""
+    rows, grids, f64 = [], {}, torch.float64
+    for i, a in enumerate(acts):
+        a = a.detach()
+        acc = f64 if a.dtype == f64 else torch.float32
+        dims = tuple(range(1, a.ndim))
+        parts = torch.stack([
+            a.sum(dims, dtype=acc),
+            torch.linalg.vector_norm(a, 2, dims, dtype=acc).square(),
+            torch.linalg.vector_norm(a, 1, dims, dtype=acc)])
+        rows.append(torch.cat([parts.to(f64).sum(1), torch.full(
+            (1,), a.numel(), dtype=f64, device=a.device)]))
+        if a.ndim == 4:
+            g = a[0].permute(1, 2, 0)
+            step = max(1, max(g.shape[0], g.shape[1]) // max_size)
+            grids[i] = g[::step, ::step, :max_channels].float().clone()
+    return torch.stack(rows), grids
+
+
+@torch.no_grad()
+def _act_summaries(moments, grids):
+    """The per-layer summaries of `_act_moments`' moments: {"mean",
+    "stdev", "meanMagnitude"} as 0-d f32 tensors on the device (the
+    population stdev, as jnp.std), and "grid" for a 4-D output."""
+    total, squares, absolute, n = moments.unbind(1)
+    mean = total / n
+    stdev = (squares / n - mean * mean).clamp_min(0).sqrt()
+    stats = torch.stack([mean, stdev, absolute / n], 1).float()
+    out = []
+    for i in range(stats.shape[0]):
+        s = {"mean": stats[i, 0], "stdev": stats[i, 1],
+             "meanMagnitude": stats[i, 2]}
+        if i in grids:
+            s["grid"] = grids[i]
+        out.append(s)
+    return out
+
+
 class MultiLayerNetwork(Network):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         super().__init__(conf, device)
@@ -1159,9 +1241,11 @@ class MultiLayerNetwork(Network):
         and layer state, or on `params` (masters, {key: {name: tensor}})
         and `state` in their place."""
         cast = self._cast_params(params)
-        h, new_state, new_carries, _ = self._output_layer_input(
+        h, new_state, new_carries, acts = self._output_layer_input(
             cast, self._states() if state is None else state, features,
             train=train, rng=rng, fmask=fmask, carries=carries)
+        if self._act_sink is not None:
+            self._act_sink.append(_act_moments(acts, *self._act_stats_cfg))
         i = len(self.layers) - 1
         per_ex = self.layers[i].compute_score_per_example(
             cast[i], h, labels, train=train, rng=rng, mask=lmask)
@@ -1292,9 +1376,24 @@ class MultiLayerNetwork(Network):
                 p.sub_(upd)
         return loss.detach()
 
-    def collect_activation_stats(self, *args, **kwargs):
-        raise not_ported("collect_activation_stats (the activation "
-                         "summaries of ui/stats.py)", 22)
+    def collect_activation_stats(self, enabled=True, max_channels=8,
+                                 max_size=48):
+        """Make the training step also summarise the activations of its
+        own forward (reference BaseStatsListener.java:273-420 /
+        ConvolutionalIterationListener: the live batch, no extra probe
+        forward): each step of `fit` (the single step, each TBPTT segment,
+        a ParallelWrapper all-reduce round) leaves per-layer summaries in
+        `_last_activation_stats` (`_last_activation_stats_iter` its
+        iteration) for `ui.stats.StatsListener`. Fused groups run as single
+        steps while armed. Toggling bumps `_act_stats_gen`; disarming
+        drops the last summaries. Returns self."""
+        cfg = (int(max_channels), int(max_size)) if enabled else None
+        if cfg != self._act_stats_cfg:
+            self._act_stats_cfg = cfg
+            self._act_stats_gen += 1
+            if not enabled:
+                self._last_activation_stats = None
+        return self
 
     def add_listener(self, listener):
         """Append one iteration listener. Returns self."""

@@ -10,11 +10,8 @@ the master (`early_stopping`), the time sources, ring attention (sequence
 parallelism), and model parallelism: the named-axis mesh, tensor
 parallelism and the ZeRO-style updater state (`sharding`, the wrapper),
 GPipe (`pipeline`), expert-parallel MoE (`moe`) and the collective cost
-recorder (`mesh_cost`).
-
-Not ported yet: the ParallelWrapper command line (`main`, ROADMAP.md queue
-1 item 22, with `util/model_guesser.py` and `ui/`) raises
-NotImplementedError naming its item.
+recorder (`mesh_cost`), and the ParallelWrapper command line (`main`:
+`python -m deeplearning4j_tpu_torch.parallel.main`).
 """
 from . import distributed, early_stopping
 from .early_stopping import (EarlyStoppingParallelTrainer,
@@ -31,22 +28,12 @@ from .parameter_server import (GradientsAccumulator,
 from .ps_transport import PSClient, PSServer, ps_worker_fit
 from .pipeline import PipelineParallel, gpipe, make_pipeline_mesh
 from .ring_attention import blockwise_attention, ring_self_attention
-from .sharding import (make_mesh, not_ported, shard_params,
-                       zero_state_sharding)
+from .sharding import make_mesh, shard_params, zero_state_sharding
 from .time_source import NTPTimeSource, SystemClockTimeSource, TimeSource
 from .training_hook import ParameterServerTrainingHook, TrainingHook
 from .training_master import (ParameterAveragingTrainingMaster,
                               TpuComputationGraph, TpuDl4jMultiLayer,
                               TrainingMasterStats)
-
-_NOT_PORTED = {"main": 22}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise not_ported(f"parallel.{name}", _NOT_PORTED[name])
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 __all__ = ["EarlyStoppingParallelTrainer", "GradientsAccumulator",
            "MagicQueue", "PipelineParallel", "gpipe", "make_pipeline_mesh",

@@ -26,6 +26,16 @@ the collectives are explicit (`sharding.all_reduce_mean`):
   the group's batch size B by wrapping its rows (`_pad_to`), and a short
   last round runs only the batches that remain, as the reference does.
 
+In all-reduce mode the step honours the network's activation-stats
+arming (`collect_activation_stats`), re-read every batch, so a listener
+that arms it mid-fit takes effect on the next batch: each rank sums its
+rows' activations (x, x^2, |x| and the count per layer, in f64), one
+all-reduce makes them the global batch's, and the grids are rank 0's first
+row, the global batch's first. Those are collectives, so every rank arms
+alike (`collect_activation_stats` on each; a listener may sit on rank 0
+alone). The k-local-steps mode does not collect them (k batches a round),
+as the reference's does not.
+
 Counters: `iteration_count` advances by 1 a batch (by k a round), and
 `_last_batch_size` is the global batch size. The network's listeners hear
 `iteration_done` once a round (a batch, or k local steps), as the
@@ -75,7 +85,10 @@ as the reference picks):
   and all-gathers the updated slices over "data". The updaters are
   elementwise, so the step is bit-equal to the replicated one.
 
-The parameters and the state are whole again at the end of each fit, so
+Listeners hear each round with the parameters whole: while some rank's
+network has listeners, every rank all-gathers the "model" slices around
+`iteration_done` and puts them back after. The parameters and the state
+are whole again at the end of each fit, so
 the network serves, saves and restores as usual. A round checkpoint taken
 while the state is split is written shard by shard by every rank
 (`util.sharded_checkpoint`, through torch.distributed.checkpoint), and any
@@ -246,6 +259,7 @@ class ParallelWrapper:
         self._ext_rollback = None
         self._sharded = False
         self._split = None     # the split layout while a fit runs
+        self._whole = False    # listeners see split parameters whole
 
     # ------------------------------------------------------------------
     def _ensure_sharded(self):
@@ -314,6 +328,10 @@ class ParallelWrapper:
                 leaves[("updater_state", str(key), name, s)] = (
                     md if _follows(t, p) else None, dims.get(s))
         net._shard_layout = (mesh, leaves)
+        # while listeners see the parameters whole (`_iteration_done`)
+        self._whole_layout = (mesh, {
+            k: (None, None) if k[0] == "params" else v
+            for k, v in leaves.items()})
 
     @torch.no_grad()
     def _join_state(self):
@@ -443,6 +461,7 @@ class ParallelWrapper:
         net = self.model
         self._gate.maybe_resume(net)
         self._ensure_sharded()
+        self._whole = self._listeners_see_whole()
         if isinstance(data, (DataSet, MultiDataSet)):
             data = ListDataSetIterator([data])
         try:
@@ -453,6 +472,7 @@ class ParallelWrapper:
                 else:
                     self._fit_local_steps(data)
         finally:
+            self._whole = False
             self._join_state()
         return self
 
@@ -522,6 +542,54 @@ class ParallelWrapper:
             out[key][k] = m
         return out, means[-1].reshape(())
 
+    def _act_reduce(self, moments, grids):
+        """The global batch's activation moments and grids from this
+        rank's: the moments (sums and counts) summed over "data", the grids
+        (the first row's) broadcast from rank 0, whose first row is the
+        global batch's."""
+        if self.mesh.n_ranks == 1:
+            return moments, grids
+        moments = all_reduce_sum(moments, self.mesh.axis_group("data"))
+        replicate(list(grids.values()), self.mesh)
+        return moments, grids
+
+    def _listeners_see_whole(self):
+        """Whether listeners must hear each round with the parameters split
+        over "model" gathered whole: the state is so split and some rank's
+        network has listeners. One all-reduce a fit, so that every rank
+        takes part in the gathers that follow."""
+        split = self._split or {}
+        if all(md is None for md, _ in split.values()):
+            return False
+        net = self.model
+        flag = torch.tensor([float(bool(net.listeners))], device=net.device)
+        return bool(all_reduce_op(flag, self.mesh.base_group,
+                                  dist.ReduceOp.MAX).item())
+
+    def _iteration_done(self):
+        """The network's `iteration_done`. With `_whole` (set by `fit`,
+        alike on every rank), each parameter split over "model" is
+        all-gathered for the listeners, which so read the whole arrays the
+        reference's global ones hold, and put back to its slice after."""
+        net = self.model
+        if not (self._whole and self._split):
+            net._fire_iteration_done()
+            return
+        g_m, slices = self.mesh.axis_group("model"), []
+        with torch.no_grad():
+            for (key, name), (md, _) in self._split.items():
+                if md is not None:
+                    p = net._slot(key).params[name]
+                    slices.append((p, p.data))
+                    p.data = all_gather(p.data, g_m, md)
+        layout, net._shard_layout = net._shard_layout, self._whole_layout
+        try:
+            net._fire_iteration_done()
+        finally:
+            net._shard_layout = layout
+            for p, part in slices:
+                p.data = part
+
     def _fit_allreduce(self, it):
         net = self.model
         group = self.mesh.group
@@ -533,7 +601,8 @@ class ParallelWrapper:
             batch = self._device_batch(ds)
             with obs.TRACER.span("train.dispatch", cat="train",
                                  data_parallel=self.mesh.size), \
-                    net.batch_stats_over(group):
+                    net.batch_stats_over(group), \
+                    net._act_stats_step(self._act_reduce):
                 self._one_step(batch)
             net._last_batch_size = _num_rows(ds)
             if net._health_policy is not None:
@@ -545,11 +614,11 @@ class ParallelWrapper:
                 if action != H.SKIP:
                     net._score = net._step_score
                 net.conf.iteration_count += 1
-                net._fire_iteration_done()
+                self._iteration_done()
                 if action != H.OK:
                     continue    # a skipped or diverged round is never saved
             else:
-                net._fire_iteration_done()
+                self._iteration_done()
             self._round_done()
 
     # -- mode 2: k local steps, then averaging -------------------------

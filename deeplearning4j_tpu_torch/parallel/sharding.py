@@ -56,12 +56,6 @@ import torch.distributed as dist
 from ..common.device import resolve_device
 
 
-def not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to deeplearning4j_tpu_torch yet: ROADMAP.md "
-        f"queue 1 item {item}")
-
-
 # -- the recorder (mesh_cost.recording) ---------------------------------------
 
 _RECORDERS = []

@@ -1,3 +1,4 @@
-"""Utilities: port of deeplearning4j_tpu/util/ (so far the model zips,
-`model_serializer`, and the training-state checkpoints of replicated
-state, `sharded_checkpoint`)."""
+"""Utilities: port of deeplearning4j_tpu/util/ (the model zips,
+`model_serializer`, the training-state checkpoints of replicated state,
+`sharded_checkpoint`, and `model_guesser`, which loads whichever model or
+configuration a file holds)."""

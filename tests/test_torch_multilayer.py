@@ -473,10 +473,30 @@ def test_entry_points_run_on_the_card_or_raise():
             MultiLayerNetwork(lenet_conf())
 
 
-def test_unported_paths_raise_with_their_roadmap_items():
+def test_unported_paths_raise_with_their_roadmap_items(lenet_runs, J):
     net = lenet(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22$"):
-        net.collect_activation_stats()
+    # item 22's collect_activation_stats is ported: LeNet's armed step
+    # leaves the reference's summaries of its training forward (1e-5), the
+    # grids in the reference's [h, w, ch] layout
+    run = lenet_runs["nesterovs"]
+    armed = _port_lenet(run).collect_activation_stats(True, 3, 8)
+    jnet = _reference_net(J, run)
+    jnet.collect_activation_stats(True, 3, 8)
+    x, y = _batch(seed=2, n=8)
+    armed.fit(x, y)
+    jnet.fit(x, y)
+    ours, ref = armed._last_activation_stats, jnet._last_activation_stats
+    assert armed._last_activation_stats_iter == \
+        jnet._last_activation_stats_iter == 0
+    assert len(ours) == len(ref) == len(armed.layers) - 1
+    for s, r in zip(ours, ref):
+        assert set(s) == set(r)
+        for k in ("mean", "stdev", "meanMagnitude"):
+            assert abs(float(s[k]) - float(r[k])) <= TOL, k
+        if "grid" in r:
+            assert tuple(s["grid"].shape) == tuple(r["grid"].shape)
+            np.testing.assert_allclose(s["grid"].numpy(),
+                                       np.asarray(r["grid"]), atol=TOL)
     # item 18b is ported: LeNet has no pretrainable layer, and a toy RBM
     # net pretrains (one CD-1 step a batch) and returns itself
     with pytest.raises(ValueError, match="not pretrainable"):

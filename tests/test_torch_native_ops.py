@@ -13,7 +13,15 @@ reference's into `native/`. Held, on the CPU:
     readers equal the reference's;
   - with the library forced off in both packages (both `get_lib` return
     None), the numpy fallbacks of the skip-gram and CBOW corpus routes and
-    GloVe's dict counting give equal results in both packages.
+    GloVe's dict counting give equal results in both packages;
+  - the Barnes-Hut t-SNE forces equal the reference's (and the exact numpy
+    forces at theta 0); `PrefetchCsvLoader` yields files in submission
+    order (more threads than files too), raises IOError on a parse failure
+    and gives the empty-file sentinel, as the reference's;
+    `StagingBufferPool` reuses a freed buffer as the reference's does; and
+    `CSVSequenceRecordReader(prefetch>0)` reads through the loader, equal
+    to the reference's reader and to prefetch=0, and without the library
+    keeps the float contract on the Python route.
 """
 import os
 import struct
@@ -202,3 +210,140 @@ def test_glove_cooc_fallback_equal(no_library):
         out.append(g._cooc_arrays(seqs))
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
+
+
+# -- the t-SNE forces, the prefetcher and the staging pool ------------------
+
+def test_bh_forces_equal_the_reference(JN):
+    from deeplearning4j_tpu_torch.plot.tsne import _np_repulsion
+    rng = np.random.default_rng(5)
+    y = rng.standard_normal((400, 2)).astype(np.float32)
+    for theta in (0.0, 0.5):
+        rep, z = TN.bh_repulsion(y, theta)
+        jrep, jz = JN.bh_repulsion(y, theta)
+        np.testing.assert_array_equal(rep, jrep)
+        assert z == jz
+    rep_e, z_e = _np_repulsion(y)
+    rep_n, z_n = TN.bh_repulsion(y, theta=0.0)
+    assert abs(z_n - z_e) / z_e < 1e-5
+    np.testing.assert_allclose(rep_n, rep_e, atol=1e-4)
+    n, k = 400, 5
+    row_ptr = np.arange(0, n * k + 1, k, dtype=np.int64)
+    cols = rng.integers(0, n, n * k).astype(np.int32)
+    vals = rng.random(n * k).astype(np.float32)
+    np.testing.assert_array_equal(TN.bh_attraction(y, row_ptr, cols, vals),
+                                  JN.bh_attraction(y, row_ptr, cols, vals))
+
+
+def _csv_files(tmp_path, n=7, seed=1):
+    rng = np.random.default_rng(seed)
+    paths, mats = [], []
+    for i in range(n):
+        m = rng.random((15 + i, 4)).astype(np.float32).round(4)
+        p = str(tmp_path / f"f{i:02d}.csv")
+        np.savetxt(p, m, delimiter=",", fmt="%.4f")
+        paths.append(p)
+        mats.append(m)
+    return paths, mats
+
+
+@pytest.mark.parametrize("n_files,threads,capacity",
+                         [(7, 3, 3), (2, 8, 8), (12, 1, 4)])
+def test_prefetch_loader_equals_the_reference(JN, tmp_path, n_files,
+                                              threads, capacity):
+    paths, mats = _csv_files(tmp_path, n=n_files)
+    with TN.PrefetchCsvLoader(paths, n_threads=threads,
+                              capacity=capacity) as ld:
+        outs = list(ld)
+        assert ld.next() is None
+    with JN.PrefetchCsvLoader(paths, n_threads=threads,
+                              capacity=capacity) as jld:
+        jouts = list(jld)
+    assert len(outs) == len(jouts) == n_files
+    for a, b, m in zip(outs, jouts, mats):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(a, m, atol=1e-4)
+
+
+def test_prefetch_loader_failure_and_empty_file(JN, tmp_path):
+    bad = str(tmp_path / "bad.csv")
+    with open(bad, "w") as fh:
+        fh.write("1,2,3\nnot,numbers,here_x\n4\n")
+    empty = str(tmp_path / "empty.csv")
+    open(empty, "w").close()
+    good = str(tmp_path / "good.csv")
+    np.savetxt(good, np.ones((3, 2)), delimiter=",", fmt="%.1f")
+    for mod in (TN, JN):
+        with mod.PrefetchCsvLoader([good, bad, empty]) as ld:
+            assert ld.next().shape == (3, 2)
+            with pytest.raises(IOError):
+                ld.next()
+            e = ld.next()
+            assert e.shape == (0, 0) and e.dtype == np.float32
+            assert ld.next() is None
+    ld = TN.PrefetchCsvLoader([good])
+    ld.close()
+    assert ld.next() is None
+
+
+def test_staging_pool_reuse_as_the_reference(JN):
+    stats = []
+    for mod in (TN, JN):
+        pool = mod.StagingBufferPool()
+        p1 = pool.acquire(1 << 16)
+        arr = pool.as_array(p1, (128, 128), np.float32)
+        arr[:] = 7.0
+        assert arr.sum() == 7.0 * 128 * 128
+        pool.release(p1, 1 << 16)
+        p2 = pool.acquire(1 << 14)   # a smaller request reuses the buffer
+        assert p2 == p1
+        pool.release(p2, 1 << 14)
+        stats.append(pool.stats())
+        pool.close()
+    assert stats[0] == stats[1] and stats[0]["allocated"] == 1
+
+
+def test_prefetch_and_pool_raise_without_the_library(monkeypatch):
+    monkeypatch.setattr(TN, "get_lib", lambda: None)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        TN.PrefetchCsvLoader(["x.csv"])
+    with pytest.raises(RuntimeError, match="unavailable"):
+        TN.StagingBufferPool()
+    assert TN.bh_repulsion(np.zeros((3, 2), np.float32)) is None
+    assert TN.bh_attraction(np.zeros((3, 2), np.float32),
+                            np.zeros(4, np.int64), np.zeros(0, np.int32),
+                            np.zeros(0, np.float32)) is None
+
+
+@pytest.mark.parametrize("library", [True, False])
+def test_sequence_reader_prefetch_equals_the_reference(JN, tmp_path,
+                                                       monkeypatch, library):
+    """prefetch=3 reads through the native loader (its `_loader` is set),
+    in file order over two passes with a reset, equal to the reference's
+    reader and to prefetch=0; without the library both packages take the
+    Python route with float values."""
+    from deeplearning4j_tpu.datasets.records import \
+        CSVSequenceRecordReader as JSeq
+    if not library:
+        monkeypatch.setattr(TN, "get_lib", lambda: None)
+        monkeypatch.setattr(JN, "get_lib", lambda: None)
+    paths, _ = _csv_files(tmp_path, n=6)
+    empty = str(tmp_path / "zz.csv")
+    open(empty, "w").close()
+    paths.append(empty)
+    plain = TR.CSVSequenceRecordReader(files=paths)
+    fast = TR.CSVSequenceRecordReader(files=paths, prefetch=3)
+    ref = JSeq(files=paths, prefetch=3)
+    for _ in range(2):
+        while plain.has_next():
+            a = plain.next_sequence()
+            b = fast.next_sequence()
+            assert b == ref.next_sequence()
+            assert all(isinstance(v, float) for r in b for v in r)
+            as_float = (lambda v: float(np.float32(v))) if library else float
+            assert [[as_float(v) for v in r] for r in a] == b
+            assert (fast._loader is not None) == library
+        assert not fast.has_next()
+        plain.reset()
+        fast.reset()
+        ref.reset()

@@ -175,13 +175,16 @@ def test_forbidden_pattern_catches_what_it_should():
     ("zero_state_sharding", 20), ("main", 22)])
 def test_unported_parallel_names_raise_with_their_items(name, item):
     """Item 20's names resolve to the ported modules' (model parallelism);
-    only `main` (item 22) still raises naming its item."""
+    item 22's `main` is the command line's module, importable, and nothing
+    in the package raises naming an item any more."""
     import deeplearning4j_tpu_torch.parallel as P
     from deeplearning4j_tpu_torch.parallel import moe, pipeline, sharding
     if item == 22:
-        with pytest.raises(NotImplementedError, match=f"item {item}$"):
-            getattr(P, name)
-        assert P._NOT_PORTED == {"main": 22}
+        import importlib
+        main = importlib.import_module("deeplearning4j_tpu_torch.parallel.main")
+        assert callable(main.run) and callable(main.build_parser)
+        assert not hasattr(P, "_NOT_PORTED")
+        assert not hasattr(sharding, "not_ported")
     else:
         home = {"PipelineParallel": pipeline, "moe_mlp_sharded": moe,
                 "zero_state_sharding": sharding}[name]
@@ -204,7 +207,7 @@ def test_early_stopping_names_resolve_in_parallel():
     for name in ("EarlyStoppingParallelTrainer", "MasterDataSetLossCalculator",
                  "SparkEarlyStoppingTrainer", "TpuEarlyStoppingTrainer",
                  "early_stopping"):
-        assert name in P.__all__ and name not in P._NOT_PORTED
+        assert name in P.__all__
 
 
 def test_package_exports_the_reference_s_names():
@@ -244,8 +247,10 @@ def test_unported_training_options_raise_with_their_items():
     with pytest.raises(ValueError, match="not pretrainable"):
         net.pretrain_layer(0, None)
     assert net.pretrain(None) is net
-    with pytest.raises(NotImplementedError, match="item 22$"):
-        net.collect_activation_stats()
+    # item 22 is ported: collect_activation_stats arms and disarms
+    assert net.collect_activation_stats(True, 4, 16)._act_stats_cfg == \
+        (4, 16)
+    assert net.collect_activation_stats(False)._act_stats_cfg is None
     # items 17 and 20a are ported: the options build
     b = ParallelWrapper.Builder(net).health_policy(True).checkpointing("d")
     assert b._health_policy is True and b._checkpoint["directory"] == "d"

@@ -11,10 +11,9 @@ Two parts:
     server's streams, fixed and paged.
   * The reference's own pins, their bodies copied from
     tests/test_speculative.py and tests/test_paged.py (paged speculation)
-    and run on the port's classes (torch's CPU, f32). The reference's
-    `test_spec_metrics_reach_ui_storage` waits for the port of `ui/`
-    (ROADMAP.md queue 1 item 22); the metrics it reads are pinned here by
-    `test_metrics_record_speculation_shape`.
+    and run on the port's classes (torch's CPU, f32), the metrics through
+    the port's `ui.stats.ServingStatsReporter` into its UI storage
+    included.
 """
 import time
 
@@ -556,6 +555,27 @@ class TestSpeculationFaults:
             got = srv.generate(p, 6, timeout=60)
         assert got == lm.generate(p, 6, use_cache=True)
         assert srv.metrics.snapshot().get("failed") == 1
+
+
+def test_spec_metrics_reach_ui_storage():
+    from deeplearning4j_tpu_torch.ui.stats import ServingStatsReporter
+    from deeplearning4j_tpu_torch.ui.storage import InMemoryStatsStorage
+    lm = _lm()
+    storage = InMemoryStatsStorage()
+    rep = ServingStatsReporter(storage, session_id="spec_serve",
+                               model_info={"model": "lm-spec"})
+    with ContinuousDecodeServer(
+            lm, slots=2, prompt_buckets=(8,), stats_reporter=rep,
+            report_every=1,
+            speculate=Speculator(NGramDraft(), k=4)) as srv:
+        srv.generate(_prompt(), 12, timeout=60)
+    serving = storage.get_latest_update("spec_serve")["serving"]
+    assert serving["spec_accepted_per_dispatch_mean"] >= 1.0
+    assert 0.0 <= serving["spec_acceptance_rate_mean"] <= 1.0
+    assert 0.0 < serving["dispatches_per_token"] <= 1.0
+    assert serving["spec_tokens"] == serving["tokens_out"]
+    assert storage.get_static_info("spec_serve")["serving"] == \
+        {"model": "lm-spec"}
 
 
 def test_metrics_record_speculation_shape():

@@ -23,6 +23,8 @@ Held:
   after the first batch at 1e-5 and after 3 epochs at rtol 2e-4 / atol
   2e-5 against the reference's wrapper on the same mesh; each rank holds
   half of every split leaf during the fit and the whole network after it;
+  a StatsListener on rank 0 alone reads the whole parameters during the
+  TP + ZeRO fit (its reports those of the replicated fit, 1e-5);
 - inside the port: ZeRO on 4 data ranks bit-equal to the replicated run,
   TP on (2, 2) within 1e-5 of it; `lower_step` leaves the network bit-
   unchanged and records what a real step records.
@@ -155,6 +157,25 @@ def _wrap_rank(name, spec):
                          "score": float(net._score), "shapes": shapes,
                          "ushapes": ushapes}
 
+    def listened(nm):
+        """A fit on (data 4 / nm, model nm), TP + ZeRO when nm = 2, with a
+        StatsListener on rank 0 alone: its static info and reports."""
+        import torch.distributed as dist
+
+        from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage,
+                                                 StatsListener,
+                                                 StatsUpdateConfiguration)
+        net, store = port_net(spec), InMemoryStatsStorage()
+        if dist.get_rank() == 0:
+            net.set_listeners(StatsListener(store, StatsUpdateConfiguration(
+                collect_histograms=True), session_id="tp"))
+        (ParallelWrapper.Builder(net)
+         .mesh(make_mesh(n_data=WORLD // nm, n_model=nm, device="cpu"))
+         .tensor_parallel(nm > 1).sharded_updater_state(nm > 1).build()
+         .fit(ListDataSetIterator(batches), num_epochs=2))
+        return {"static": store.get_static_info("tp"),
+                "updates": store.get_all_updates("tp")}
+
     out = {}
     net, pw, out["tp"] = run(2, tp, zero)
     out["whole"] = {f"{k}.{n}": tuple(p.shape)
@@ -174,6 +195,7 @@ def _wrap_rank(name, spec):
     if zero:
         out["rep4"] = run(1, False, False)[2]
         out["zero4"] = run(1, False, True)[2]
+        out["listened"] = {nm: listened(nm) for nm in (1, 2)}
     return out
 
 
@@ -471,6 +493,36 @@ def test_zero_is_the_replicated_run_bit_for_bit(runs):
         assert w["zero4"]["ushapes"]["2.W.m"][0] == \
             w["rep4"]["ushapes"]["2.W.m"][0] // 4
         C.close(w["tp"]["params"], w["rep4"]["params"], 0, C.TOL, "TP")
+
+
+def test_listeners_read_whole_parameters_under_tensor_parallelism(runs):
+    """A StatsListener on rank 0 alone hears the TP + ZeRO fit with the
+    whole parameters, as the reference's listener reads its global arrays:
+    the replicated fit's parameter count and names, histograms over every
+    element, and its parameter and update summaries within 1e-5 (the TP
+    run is within 1e-5 of the replicated one). The other ranks hear
+    nothing and still take part in the gathers."""
+    _, _, ranks = runs
+    rep, tp = (ranks[0]["wrap"]["tp_zero_adam"]["listened"][nm]
+               for nm in (1, 2))
+    assert tp["static"]["model"]["numParams"] == \
+        rep["static"]["model"]["numParams"]
+    assert len(tp["updates"]) == len(rep["updates"]) == 6
+    for got, want in zip(tp["updates"], rep["updates"]):
+        for part in ("parameters", "updates"):
+            if part not in want:
+                continue
+            assert set(got[part]) == set(want[part])
+            for name, s in got[part].items():
+                w = want[part][name]
+                for k in ("mean", "stdev", "meanMagnitude"):
+                    assert abs(s[k] - w[k]) <= C.TOL, (part, name, k)
+                assert sum(s["histogram"]["counts"]) == \
+                    sum(w["histogram"]["counts"])
+    assert sum(tp["updates"][-1]["parameters"]["0_W"]["histogram"]
+               ["counts"]) == 4 * 2 * 3 * 3
+    for r in ranks[1:]:
+        assert r["wrap"]["tp_zero_adam"]["listened"][2]["updates"] == []
 
 
 @pytest.mark.parametrize("name", list(WRAP_CASES))
