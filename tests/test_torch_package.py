@@ -1,8 +1,9 @@
 """The port stands alone: `deeplearning4j_tpu_torch`, `chip_smoke.py`,
 `chip_bwd_ab.py`, `chip_fwd_ab.py`, `chip_recurrent.py`,
 `chip_embeddings.py`, `chip_parallel.py`, `chip_fused.py`,
-`chip_spec_kv.py`, `chip_fleet.py`, `chip_tools.py`, `chip_pretrain.py`
-and `chip_model_parallel.py` import neither JAX, nor `ml_dtypes` (the card's machine has neither), nor
+`chip_spec_kv.py`, `chip_fleet.py`, `chip_tools.py`, `chip_pretrain.py`,
+`chip_model_parallel.py`, `chip_ui.py` and `chip_graph_stream.py` import
+neither JAX, nor `ml_dtypes` (the card's machine has neither), nor
 anything of the JAX package `deeplearning4j_tpu`, and
 importing the
 port (its `models` package with the embeddings included, and the whole
@@ -14,7 +15,10 @@ neither torch nor numpy themselves, as the reference's layering rules
 demand of theirs (tools/analyze/layers_torch.toml holds the same). The names
 the port does not have yet raise NotImplementedError naming their
 ROADMAP.md queue 1 item. The package exports the reference's six names
-beside `resolve_device`."""
+beside `resolve_device`, and `text`, `graph`, `streaming` and `cloud` the
+reference's `__all__`, in its order. Every `.py` file of the reference has
+a port file at the same path, except `common/jax_compat.py` (a JAX version
+shim)."""
 import os
 import re
 import subprocess
@@ -86,6 +90,13 @@ import deeplearning4j_tpu_torch.models.sequencevectors
 import deeplearning4j_tpu_torch.models.paragraphvectors
 import deeplearning4j_tpu_torch.models.glove
 import deeplearning4j_tpu_torch.text
+import deeplearning4j_tpu_torch.text.treeparser
+import deeplearning4j_tpu_torch.text.ja_lattice
+import deeplearning4j_tpu_torch.text.ja_dictionary
+import deeplearning4j_tpu_torch.text.ko_morph
+import deeplearning4j_tpu_torch.graph
+import deeplearning4j_tpu_torch.streaming
+import deeplearning4j_tpu_torch.cloud
 import deeplearning4j_tpu_torch.optimize
 import deeplearning4j_tpu_torch.optimize.listeners
 import deeplearning4j_tpu_torch.optimize.solvers
@@ -140,7 +151,8 @@ _FORBIDDEN = re.compile(
     + ["chip_smoke.py", "chip_bwd_ab.py", "chip_fwd_ab.py",
        "chip_recurrent.py", "chip_embeddings.py", "chip_parallel.py",
        "chip_fused.py", "chip_spec_kv.py", "chip_fleet.py",
-       "chip_tools.py", "chip_pretrain.py", "chip_model_parallel.py"]))
+       "chip_tools.py", "chip_pretrain.py", "chip_model_parallel.py",
+       "chip_ui.py", "chip_graph_stream.py"]))
 def test_no_jax_import_in_source(path):
     found = _FORBIDDEN.search((REPO / path).read_text())
     assert found is None, f"{path}: {found and found.group(0)}"
@@ -233,6 +245,33 @@ def test_package_exports_the_reference_s_names():
     names = re.search(r"__all__ = \[(.*?)\]", reference, re.S).group(1)
     assert sorted(re.findall(r'"(\w+)"', names)) == sorted(
         n for n in D.__all__ if n != "resolve_device")
+
+
+def _reference_all(rel):
+    """The names of the reference's `__all__` in `rel`, in order, read
+    from its source (importing it would import JAX)."""
+    text = (REPO / "deeplearning4j_tpu" / rel).read_text()
+    return re.findall(r'"(\w+)"', re.search(r"__all__ = \[(.*?)\]", text,
+                                            re.S).group(1))
+
+
+@pytest.mark.parametrize("package", ["text", "graph", "streaming", "cloud"])
+def test_subpackages_export_the_reference_s_names(package):
+    import importlib
+    mod = importlib.import_module(f"deeplearning4j_tpu_torch.{package}")
+    names = _reference_all(f"{package}/__init__.py")
+    assert mod.__all__ == names
+    assert all(hasattr(mod, n) for n in names)
+
+
+def test_every_reference_file_has_a_port_file():
+    """Both packages' `.py` files, by relative path: the one reference file
+    without a port file is the JAX version shim."""
+    def files(root):
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")
+                if "__pycache__" not in p.parts}
+    missing = files(REPO / "deeplearning4j_tpu") - files(PORT)
+    assert missing == {"common/jax_compat.py"}
 
 
 def test_unported_training_options_raise_with_their_items():
