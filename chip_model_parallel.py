@@ -18,9 +18,12 @@ blocks in the rotation on (data 1, model 2, pipe 2), f32 and bf16, against
 the dense blocks, then 10 steps; (c) expert-parallel MoE against the dense
 layer at k=1, 2 with and without a capacity that drops, dp x ep top-2 and
 a MoE block's step; (d) LeNet with Adam through ParallelWrapper's tensor
-parallelism and sharded updater state against the replicated run, its
-checkpoint restored into 4 ranks and into one, and swapped into an
-InferenceServer, and its step time against data parallelism on (data 4);
+parallelism (each split layer computing its columns) and sharded updater
+state against the replicated run, each rank's FLOPs in one step against
+data parallelism's and against the replicated step on the same rows (1/2),
+its checkpoint restored into 4 ranks and into one, and swapped into an
+InferenceServer, and its step time and peak memory per rank against data
+parallelism on (data 4);
 (f) `graft_entry.dryrun_multichip(4)` on cuda:0 ranks
 with its budget gate; (e) config 4's skip-gram with its tables
 column-sharded over the 4 ranks against the whole tables; K1, K2, K4 and

@@ -359,13 +359,16 @@ kernels and are counted apart.
      d_ff 2048, 4,096 tokens: sharded against dense at k=1, 2, with and
      without a capacity that drops, dp x ep top-2, a MoE block's step
      (1e-5, expert ids equal); (d) LeNet with Adam at batch 128 through
-     the wrapper's tensor parallelism and sharded updater state on (data
-     2, model 2) against the replicated run (1e-5), each rank holding half
-     (a quarter) of every split leaf, `lower_step`'s footprint, a
-     checkpoint saved shard by shard and restored bit-equal into a split
+     the wrapper's tensor parallelism (each split layer computing its
+     columns) and sharded updater state on (data 2, model 2) against the
+     replicated run (1e-5), each rank holding half (a quarter) of every
+     split leaf, `lower_step`'s footprint, each rank's FLOPs counted over
+     one step (FlopCounterMode) against data parallelism's on (data 4)
+     and against the replicated step on the same 64 rows (1/2 within 1%),
+     a checkpoint saved shard by shard and restored bit-equal into a split
      layout and into one net, `swap_from_checkpoint` into an
-     InferenceServer, and its step time against data parallelism on
-     (data 4); (e) config 4's skip-gram with its tables
+     InferenceServer, and its step time and peak memory per rank against
+     data parallelism on (data 4); (e) config 4's skip-gram with its tables
      column-sharded over the 4 ranks against the whole tables (1e-5); the
      flash counters read 0 after (b)-(e); (f)
      `graft_entry.dryrun_multichip(4)` on cuda:0 ranks with its budget gate,
@@ -7915,6 +7918,17 @@ def _mp_wrapper(rank, out_dir):
         rpw.fit(ListDataSetIterator(batches))
         out["param_err"] = float(np.abs(net.params() - rep.params()).max())
         out["lowered"] = pw.lower_step(batches[0]).footprint
+        # each rank's FLOPs in one step (lower_step puts everything back):
+        # split on (data 2, model 2), data parallel on (data 4), and
+        # replicated on (data 2, model 2), each rank the same 64 rows whole
+        from torch.utils.flop_counter import FlopCounterMode
+        flops = {}
+        for key, run in (("tp_zero", pw), ("data_parallel", rpw),
+                         ("replicated_same_rows", build(2, False)[1])):
+            with FlopCounterMode(display=False) as fc:
+                run.lower_step(batches[0])
+            flops[key] = int(fc.get_total_flops())
+        out["flops"] = flops
     # a parameter that divides keeps 1/2 (over "model"); an updater state
     # leaf 1/2 (over "data") or, when its parameter is split too, 1/4
     split = {"params_half": 0, "state_half": 0, "state_quarter": 0,
@@ -7947,17 +7961,22 @@ def _mp_wrapper(rank, out_dir):
     # parallelism on (data 4): fits of the 3 batches, each timed twice in
     # turn (the state split and joined at each fit's ends), the least
     import torch.distributed as dist
+    # and this rank's peak device memory over each such fit
     times = {"tp_zero": [], "data_parallel": []}
+    peak = {"tp_zero": 0, "data_parallel": 0}
     for _ in range(2):
         for key, run in (("tp_zero", pw), ("data_parallel", rpw)):
             dist.barrier()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             run.fit(ListDataSetIterator(batches))
             torch.cuda.synchronize()
             times[key].append(1e3 * (time.perf_counter() - t0)
                               / len(batches))
+            peak[key] = max(peak[key], torch.cuda.max_memory_allocated())
     out["step_ms"] = {key: min(v) for key, v in times.items()}
+    out["peak_mib"] = {key: v / 2 ** 20 for key, v in peak.items()}
     return out
 
 
@@ -8316,7 +8335,12 @@ def model_parallel_phase(fa, nccl_only=False):
                                           for res in ranks),
              "sharded_dir": d0["sharded_dir"],
              "step_ms": {key: max(res["d"]["step_ms"][key] for res in ranks)
-                         for key in d0["step_ms"]}}
+                         for key in d0["step_ms"]},
+             "flops_per_rank": [res["d"]["flops"] for res in ranks],
+             "peak_mib_per_rank": [res["d"]["peak_mib"] for res in ranks]}
+    halves = [f["tp_zero"] / f["replicated_same_rows"]
+              for f in d_out["flops_per_rank"]]
+    d_out["flops_split_over_replicated"] = halves
     with _cudnn_deterministic():
         one = lenet(device="cuda", updater="adam", learning_rate=1e-3,
                     seed=7)
@@ -8343,13 +8367,25 @@ def model_parallel_phase(fa, nccl_only=False):
           f"vs output {d_out['swap_err']:.3e} (1e-5); a step (fit of 3, "
           f"slowest rank): TP + ZeRO on (data 2, model 2) "
           f"{d_out['step_ms']['tp_zero']:.2f} ms, data parallel on (data 4) "
-          f"{d_out['step_ms']['data_parallel']:.2f} ms")
+          f"{d_out['step_ms']['data_parallel']:.2f} ms ({card_line()})")
+    f0 = d_out["flops_per_rank"][0]
+    print(f"  31(d) FLOPs a rank in one step (FlopCounterMode): TP + ZeRO "
+          f"{f0['tp_zero']:,}, data parallel on (data 4) "
+          f"{f0['data_parallel']:,}, replicated on the same 64 rows "
+          f"{f0['replicated_same_rows']:,}; split / replicated per rank "
+          f"{', '.join(f'{h:.6f}' for h in halves)} (1/2 within 1%); peak "
+          f"memory per rank, MiB: TP + ZeRO "
+          f"{[round(m['tp_zero'], 1) for m in d_out['peak_mib_per_rank']]}"
+          f", data parallel "
+          f"{[round(m['data_parallel'], 1) for m in d_out['peak_mib_per_rank']]}"
+          f" ({card_line()})")
     if not (d_out["param_err"] <= 1e-5 and d_out["split"]["other"] == 0
             and d_out["split"]["params_half"] > 0
             and d_out["split"]["state_half"] > 0
             and d_out["restore_4_ranks_equal"] and d_out["sharded_dir"]
             and d_out["restore_1_rank_equal"]
-            and d_out["swap_err"] <= 1e-5):
+            and d_out["swap_err"] <= 1e-5
+            and all(abs(h / 0.5 - 1.0) <= 0.01 for h in halves)):
         raise SystemExit("31(d): the wrapper's TP / ZeRO run disagrees")
     shutil.rmtree(work, ignore_errors=True)
     e_out = {"err": max(res["e"]["err"] for res in ranks),

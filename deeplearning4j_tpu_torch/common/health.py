@@ -59,10 +59,12 @@ class TrainingDivergedError(RuntimeError):
 # Device side, inside the training step
 # ---------------------------------------------------------------------------
 
-def grad_health(grads, score):
+def grad_health(grads, score, sums=None):
     """The step's health scalars, on the device: {"score", "grad_norm",
     "layer_grad_norms": {layer key: norm}, "all_finite"}. `grads` is the
-    container's {layer key: {param name: gradient}}.
+    container's {layer key: {param name: gradient}}; `sums`, when given, the
+    same tree of each whole gradient's sum of squares, read in place of
+    the gradients (the tensor-parallel step's are slices).
 
     The squared norms accumulate in f32, per layer and in total. Squares
     are not negative, so the total is non-finite iff some gradient element
@@ -73,8 +75,9 @@ def grad_health(grads, score):
     total_sq = None
     for key, group in grads.items():
         sq = None
-        for g in group.values():
-            s = torch.sum(torch.square(g.float()))
+        for name, g in group.items():
+            s = (torch.sum(torch.square(g.float())) if sums is None
+                 else sums[key][name].float())
             sq = s if sq is None else sq + s
         if sq is None:
             sq = torch.zeros((), dtype=torch.float32, device=score.device)

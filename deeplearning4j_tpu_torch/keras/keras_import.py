@@ -532,3 +532,8 @@ def _build_functional(model_cfg, weights, device=None):
                 flat_type = t
         _copy_layer(lc, layer, w, params[name], state[name], flat_type)
     return net.from_jax_params(params, state)
+
+
+def dim_ordering_of(lc):
+    """A Keras layer config's `dim_ordering` ("tf" when it names none)."""
+    return lc["config"].get("dim_ordering", "tf")

@@ -57,7 +57,11 @@ class OutputLayer(DenseLayer):
 
     def compute_score_per_example(self, params, x, labels, *, train=False,
                                   rng=None, mask=None):
-        pre = self.preout(params, x, train=train, rng=rng)
+        return self.score_of_preout(
+            self.preout(params, x, train=train, rng=rng), labels, mask)
+
+    def score_of_preout(self, pre, labels, mask=None):
+        """The per-example loss of the pre-activation `pre`."""
         return losses.get(self.loss_function)(labels, pre, self.activation, mask)
 
 
@@ -78,12 +82,10 @@ class RnnOutputLayer(OutputLayer):
     def get_output_type(self, input_type):
         return InputType.recurrent(self.n_out)
 
-    def compute_score_per_example(self, params, x, labels, *, train=False,
-                                  rng=None, mask=None):
+    def score_of_preout(self, pre, labels, mask=None):
         if mask is not None and mask.ndim == 2:
             mask = mask[:, :, None]
-        return super().compute_score_per_example(
-            params, x, labels, train=train, rng=rng, mask=mask)
+        return super().score_of_preout(pre, labels, mask)
 
 
 @register_layer("loss")
@@ -150,12 +152,14 @@ class EmbeddingLayer(LayerConf):
     def init_params(self, gen, dtype=torch.float32):
         return _dense_params(self, gen, dtype)
 
-    def forward(self, params, x, *, train=False, rng=None, mask=None, state=None):
+    def preout(self, params, x, *, train=False, rng=None):
         idx = x
         if idx.ndim == 2 and idx.shape[-1] == 1:
             idx = idx[:, 0]
-        emb = params["W"][idx.long()] + params["b"]
-        return activations.get(self.activation)(emb)
+        return params["W"][idx.long()] + params["b"]
+
+    def forward(self, params, x, *, train=False, rng=None, mask=None, state=None):
+        return activations.get(self.activation)(self.preout(params, x))
 
 
 @register_layer("autoencoder")
@@ -185,8 +189,11 @@ class AutoEncoder(LayerConf):
         return {"W": w, "b": torch.zeros(self.n_out, dtype=dtype),
                 "vb": torch.zeros(self.n_in, dtype=dtype)}
 
+    def preout(self, params, x, *, train=False, rng=None):
+        return x @ params["W"] + params["b"]
+
     def encode(self, params, x):
-        return activations.get(self.activation)(x @ params["W"] + params["b"])
+        return activations.get(self.activation)(self.preout(params, x))
 
     def decode(self, params, h):
         return activations.get(self.activation)(

@@ -41,6 +41,7 @@ from the network's one generator, whose state checkpoint does not keep and
 which cannot be read on the host inside a CUDA graph capture (a fused
 group): a segment's keep masks are drawn in its first forward, in the
 plain path's order, and its recompute reuses them (`_DropoutTape`).
+Inside ParallelWrapper's tensor-parallel step it raises, naming both.
 """
 from __future__ import annotations
 
@@ -141,8 +142,8 @@ class ComputationGraph(Network):
                                                mask=in_masks[0],
                                                group=self._stats_group)
             return out, st, None
-        return (layer.forward(p, x, train=train, rng=rng, mask=in_masks[0]),
-                None, None)
+        return (self._layer_forward(spec.name, layer, p, x, train=train,
+                                    rng=rng, mask=in_masks[0]), None, None)
 
     def _remat_plan(self):
         """The topological order cut after each element-wise (residual-add)
@@ -163,7 +164,15 @@ class ComputationGraph(Network):
         non-reentrant checkpoint: only the activations a later segment or
         an output head reads are kept; the interior is recomputed in the
         backward. Returns what `_apply_graph` returns (masks all None, no
-        carries)."""
+        carries). Inside the wrapper's tensor-parallel step it raises: a
+        recompute would run the split layers' collectives again in the
+        backward."""
+        if self._column_parallel is not None:
+            raise ValueError(
+                "remat_segments=True and ParallelWrapper's "
+                "tensor_parallel(True) do not combine: build the "
+                "ComputationGraph without remat_segments to split it over "
+                "\"model\"")
         seg_of, n_seg = self._remat_plan()
         order = self.conf.topological_order
         segments = [[] for _ in range(n_seg)]
@@ -276,9 +285,9 @@ class ComputationGraph(Network):
             if spec.preprocessor is not None:
                 x = spec.preprocessor.pre_process(x)
             lmask = lmasks[oi] if lmasks else None
-            per_ex = layer.compute_score_per_example(
-                params[out_name], x, labels[oi], train=train, rng=rng,
-                mask=lmask)
+            per_ex = self._layer_score(out_name, layer, params[out_name], x,
+                                       labels[oi], train=train, rng=rng,
+                                       mask=lmask)
             total = total + mean_score(per_ex)
         return total + self._reg_score(masters), new_state, new_carries
 

@@ -175,6 +175,9 @@ class Network(nn.Module):
         # the process group BatchNorm's training statistics span
         # (batch_stats_over); None: this rank's batch
         self._stats_group = None
+        # inside the wrapper's split step, how the layers split over its
+        # "model" axis compute (split_over); None: every layer whole
+        self._column_parallel = None
         self.listeners = []          # iteration listeners
         self._last_batch_size = 0    # rows of the last batch fit took
         # the training-health watchdog (common.health.install)
@@ -278,6 +281,39 @@ class Network(nn.Module):
             yield
         finally:
             self._stats_group = prev
+
+    @contextlib.contextmanager
+    def _split_over(self, column_parallel):
+        """Inside it, the layers a `parallel.sharding.ColumnParallel` splits
+        compute their slices of their output columns from this rank's
+        parameter slices (`_layer_forward`, `_layer_score`), their L1/L2
+        penalty and gradient norms are summed over its "model" group
+        (`_reg_score`, `_step_body`); the wrapper's split step."""
+        prev, self._column_parallel = self._column_parallel, column_parallel
+        try:
+            yield
+        finally:
+            self._column_parallel = prev
+
+    def _layer_forward(self, key, layer, params, x, *, train, rng,
+                       mask=None):
+        """`layer.forward`, or the column-parallel forward of a layer split
+        over "model" (`_split_over`)."""
+        cp = self._column_parallel
+        if cp is not None and cp.splits(key):
+            return cp.forward(layer, params, x, train=train, rng=rng)
+        return layer.forward(params, x, train=train, rng=rng, mask=mask)
+
+    def _layer_score(self, key, layer, params, x, labels, *, train, rng,
+                     mask=None):
+        """An output layer's per-example loss (`_layer_forward`'s route)."""
+        cp = self._column_parallel
+        if cp is not None and cp.splits(key):
+            return cp.score_per_example(layer, params, x, labels,
+                                        train=train, rng=rng, mask=mask)
+        return layer.compute_score_per_example(params, x, labels,
+                                               train=train, rng=rng,
+                                               mask=mask)
 
     def _states(self):
         return {key: self._slot(key).state() for key, _ in self._keyed_layers()}
@@ -513,14 +549,14 @@ class Network(nn.Module):
             self._lr_single_rows)
         return self._lr_views(self._lr_single[0])
 
-    def _step_body(self, loss_fn, lrs, reduce=None, masters=None,
-                   update=None):
+    def _step_body(self, loss_fn, lrs, reduce=None, update=None):
         """One optimizer step, as both the single step and each inner step
         of a fused group run it: the loss `loss_fn(rng)` -> (score, new
-        layer state, new carries), its gradients (for `masters`, the
-        tensors the loss was evaluated on, when given), `reduce(grads,
-        score)` when given (a data-parallel all-reduce, before the
-        updaters' normalization and clipping), each layer's normalization,
+        layer state, new carries), its gradients for the masters,
+        `reduce(grads, score)` when given (a data-parallel all-reduce,
+        before the updaters' normalization and clipping; inside
+        `_split_over`, the split layers' gradients are this rank's slices
+        and their norms are summed over "model"), each layer's normalization,
         the updaters with the learning rates `lrs`, the new layer state.
         `update(key, layer, grads, lr, ok, minimize)`, when given, runs in
         place of the layer's updater on its own parameters (the wrapper's
@@ -529,17 +565,24 @@ class Network(nn.Module):
         the host. Returns (score, new carries, health or None)."""
         with card_numerics(self._device, self.compute_dtype):
             score, new_state, new_carries = loss_fn(self._dropout_gen)
-            grads = self._grads(score, masters)
+            grads = self._grads(score)
             score = score.detach()
             if reduce is not None:
                 grads, score = reduce(grads, score)
+            sq = None      # split gradients: the whole ones' sums of squares
+            if self._column_parallel is not None and (
+                    self._health_policy is not None
+                    or any(U.reads_norms(layer)
+                           for _, layer in self._keyed_layers())):
+                sq = self._column_parallel.grad_sq(grads)
             health = ok = None
             if self._health_policy is not None:
-                health = H.grad_health(grads, score)
+                health = H.grad_health(grads, score, sq)
                 ok = health["all_finite"]
             minimize = self.conf.global_conf.get("minimize", True)
             for key, layer in self._keyed_layers():
-                g = U.normalize_layer(layer, grads[key])
+                g = U.normalize_layer(layer, grads[key],
+                                      None if sq is None else sq[key])
                 if update is not None:
                     update(key, layer, g, lrs[key], ok, minimize)
                 else:
@@ -721,11 +764,14 @@ class Network(nn.Module):
         return data
 
     def _reg_score(self, masters=None):
+        layers = [(key, layer, dict(self._slot(key).params if masters is None
+                                    else masters[key]))
+                  for key, layer in self._keyed_layers()]
+        if self._column_parallel is not None:
+            return self._column_parallel.reg_score(layers)
         total = 0.0
-        for key, layer in self._keyed_layers():
-            p = (self._slot(key).params if masters is None
-                 else masters[key])
-            total = total + layer.reg_score(dict(p))
+        for _, layer, p in layers:
+            total = total + layer.reg_score(p)
         return total
 
     def _grads(self, score, masters=None):
@@ -792,18 +838,18 @@ class Network(nn.Module):
         self._ensure_init()
         return self._apply_updates
 
-    def _train_step(self, loss_fn, reduce=None, masters=None, update=None):
+    def _train_step(self, loss_fn, reduce=None, update=None):
         """One optimizer step on the loss `loss_fn(rng)` -> (score, new
         layer state, new carries), with the learning rates of
-        `iteration_count` (`_step_body`, which takes `masters` and
-        `update`). `reduce(grads, score) -> (grads, score)`, when given,
+        `iteration_count` (`_step_body`, which takes `update`).
+        `reduce(grads, score) -> (grads, score)`, when given,
         runs between the gradients and the updaters.
         Disarmed, it records the score and advances `iteration_count`;
         armed (`training_health`), it leaves both to the caller's epilogue
         and keeps the step's score and health in `_step_score` /
         `_step_health`. Returns the new carries."""
         score, new_carries, health = self._step_body(
-            loss_fn, self._single_lr(), reduce, masters, update)
+            loss_fn, self._single_lr(), reduce, update)
         if self._health_policy is None:
             self._score = score
             self.conf.iteration_count += 1
@@ -1213,8 +1259,8 @@ class MultiLayerNetwork(Network):
                     params[i], x, state[i], train=train, rng=rng, mask=fmask,
                     group=self._stats_group)
             else:
-                x = layer.forward(params[i], x, train=train, rng=rng,
-                                  mask=fmask)
+                x = self._layer_forward(i, layer, params[i], x, train=train,
+                                        rng=rng, mask=fmask)
             acts.append(x)
         return acts, new_state, new_carries
 
@@ -1247,8 +1293,8 @@ class MultiLayerNetwork(Network):
         if self._act_sink is not None:
             self._act_sink.append(_act_moments(acts, *self._act_stats_cfg))
         i = len(self.layers) - 1
-        per_ex = self.layers[i].compute_score_per_example(
-            cast[i], h, labels, train=train, rng=rng, mask=lmask)
+        per_ex = self._layer_score(i, self.layers[i], cast[i], h, labels,
+                                   train=train, rng=rng, mask=lmask)
         return (mean_score(per_ex) + self._reg_score(params), new_state,
                 new_carries)
 

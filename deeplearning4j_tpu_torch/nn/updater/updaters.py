@@ -253,14 +253,26 @@ def layer_lr(layer, name, iteration):
         max_iterations=layer.lr_policy_max_iterations)
 
 
-def normalize_layer(layer, grads):
+def normalize_layer(layer, grads, sq=None):
     """The layer's gradient normalization over its whole {param name:
     gradient} (the first half of the reference's per-layer body of
-    `make_apply_fn`); a layer without parameters gets {} back."""
+    `make_apply_fn`); a layer without parameters gets {} back. `sq`, when
+    given, is {param name: the sum of squares of its whole gradient}, for
+    gradients that are slices (`normalize_gradients`)."""
     if not grads:
         return grads
     return normalize_gradients(grads, layer.gradient_normalization,
-                               layer.gradient_normalization_threshold or 1.0)
+                               layer.gradient_normalization_threshold or 1.0,
+                               sq)
+
+
+_NORM_MODES = ("renormalizel2perlayer", "renormalizel2perparamtype",
+               "clipl2perlayer", "clipl2perparamtype")
+
+
+def reads_norms(layer):
+    """Whether the layer's gradient normalization reads gradient norms."""
+    return str(layer.gradient_normalization).lower() in _NORM_MODES
 
 
 @torch.no_grad()
@@ -309,32 +321,44 @@ def apply_layer(layer, params, grads, ustate, iteration, minimize=True, *,
 # Gradient normalization — reference LayerUpdater.preApply
 # ---------------------------------------------------------------------------
 
-def normalize_gradients(grads, mode, threshold=1.0):
+def normalize_gradients(grads, mode, threshold=1.0, sq=None):
     """DL4J GradientNormalization over one layer's {param_name: gradient}.
 
     Modes: None, RenormalizeL2PerLayer, RenormalizeL2PerParamType,
-    ClipElementWiseAbsoluteValue, ClipL2PerLayer, ClipL2PerParamType."""
+    ClipElementWiseAbsoluteValue, ClipL2PerLayer, ClipL2PerParamType.
+    `sq`, when given, holds each parameter's sum of squares of its whole
+    gradient, which the norms read in place of the gradients given (the
+    tensor-parallel step's, each a rank's slice)."""
     if mode is None or str(mode).lower() in ("none", "nogradientnormalization"):
         return grads
     mode_l = str(mode).lower()
     eps = 1e-8
+
+    def layer_sq():
+        if sq is None:
+            return sum((g * g).sum() for g in grads.values())
+        return sum(sq[k] for k in grads)
+
+    def norm(k, g):
+        return (torch.linalg.vector_norm(g) if sq is None
+                else torch.sqrt(sq[k]))
+
     if mode_l == "renormalizel2perlayer":
-        total = torch.sqrt(sum((g * g).sum() for g in grads.values()) + eps)
+        total = torch.sqrt(layer_sq() + eps)
         return {k: g / total for k, g in grads.items()}
     if mode_l == "renormalizel2perparamtype":
-        return {k: g / (torch.linalg.vector_norm(g) + eps)
-                for k, g in grads.items()}
+        return {k: g / (norm(k, g) + eps) for k, g in grads.items()}
     if mode_l == "clipelementwiseabsolutevalue":
         return {k: torch.clamp(g, -threshold, threshold)
                 for k, g in grads.items()}
     if mode_l == "clipl2perlayer":
-        total = torch.sqrt(sum((g * g).sum() for g in grads.values()) + eps)
+        total = torch.sqrt(layer_sq() + eps)
         scale = torch.clamp(threshold / total, max=1.0)
         return {k: g * scale for k, g in grads.items()}
     if mode_l == "clipl2perparamtype":
         out = {}
         for k, g in grads.items():
-            n = torch.linalg.vector_norm(g) + eps
+            n = norm(k, g) + eps
             out[k] = g * torch.clamp(threshold / n, max=1.0)
         return out
     raise ValueError(f"Unknown gradient normalization '{mode}'")

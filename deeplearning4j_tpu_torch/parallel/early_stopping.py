@@ -10,6 +10,7 @@ cluster-shaped (the template-method seam `_fit_epoch`).
 from __future__ import annotations
 
 from ..earlystopping.early_stopping import (DataSetLossCalculator,
+                                            EarlyStoppingResult,  # noqa: F401
                                             EarlyStoppingTrainer)
 
 

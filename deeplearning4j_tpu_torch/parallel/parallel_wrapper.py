@@ -74,11 +74,20 @@ as the reference picks):
   the reference's table splits (`sharding.param_specs_for_layer`: dense,
   output, autoencoder and embedding W's columns and b, convolution
   out-channels; an axis that does not divide stays whole), and of those
-  parameters' updater state. Each step all-gathers the slices over "model"
-  into whole parameters, computes the loss and gradients on them (every
-  model rank of a data rank computes the same), averages the gradients
-  over "data", normalises them per layer as the updaters do, and updates
-  only its own slices. The compute is not split: only the storage is.
+  parameters' updater state, and computes only its columns of those
+  layers, as the reference's GSPMD step partitions their products
+  (`sharding.ColumnParallel`, Megatron column parallelism with a gathered
+  output): the layer's whole input, its slice of the pre-activation from
+  this rank's slices of W and b, an all-gather of the pre-activation over
+  "model" forward, the activation (or the loss) on the whole of it; in
+  the backward each rank keeps its slice of dY, and dX is all-reduced
+  over "model". No weight is gathered: the gradients come out sliced.
+  Every other layer (pooling, BatchNorm, LSTM, a layer whose axis does
+  not divide) runs whole on every model rank. The gradient norms that
+  the per-layer normalisation and the health watchdog read, and the
+  L1/L2 penalty, are summed over "model" (one all-reduce each). The
+  gradients are then averaged over "data" and each rank updates its own
+  slices. `ComputationGraph(remat_segments=True)` under it raises.
 - the ZeRO-1 analogue: each "data" rank keeps its slice of every updater
   state leaf that divides (the first dimension that does,
   `sharding.zero_state_sharding`), updates that slice of the parameter,
@@ -114,9 +123,10 @@ from ..datasets.dataset import DataSet, MultiDataSet
 from ..datasets.iterators import ListDataSetIterator, next_processed
 from ..nn.updater import updaters as U
 from ..util.sharded_checkpoint import RoundCheckpointer
-from .sharding import (all_gather, all_reduce_mean, all_reduce_op,
-                       all_reduce_sum, make_mesh, put_sharded, replicate,
-                       shard_params, shard_slice, zero_state_sharding)
+from .sharding import (ColumnParallel, all_gather, all_reduce_mean,
+                       all_reduce_op, all_reduce_sum, make_mesh, put_sharded,
+                       replicate, shard_params, shard_slice,
+                       zero_state_sharding)
 
 
 class ParallelWrapper:
@@ -487,36 +497,28 @@ class ParallelWrapper:
             self._split_train_step(batch)
 
     def _split_train_step(self, batch):
-        """`Network._train_step` on split state: the loss and gradients on
-        the whole parameters, gathered over "model"; the network's own
-        all-reduce over "data", health gate and gradient normalisation on
-        the whole gradient; then each rank's updater on its slice of each
-        parameter and state (over "model" by the tensor-parallel layout,
-        over "data" by the ZeRO one), the updated "data" slices
-        all-gathered into the parameters."""
+        """`Network._train_step` on split state. The masters are this
+        rank's own slices; the layers split over "model" compute their
+        columns (`sharding.ColumnParallel`, installed with the network's
+        `_split_over`), so their gradients come out sliced over "model"
+        and the norms, the health gate and the L1/L2 penalty are summed
+        over it. Then the network's own all-reduce over "data", and each
+        rank's updater on its slice of each parameter and state (the ZeRO
+        layout's slice over "data" of a "model" slice), the updated "data"
+        slices all-gathered into the parameters."""
         net, mesh = self.model, self.mesh
-        g_m, g_d = mesh.axis_group("model"), mesh.axis_group("data")
-        nm, im = mesh.axis_size("model"), mesh.index("model")
+        g_d = mesh.axis_group("data")
         nd, idd = mesh.axis_size("data"), mesh.index("data")
-        full = {}
-        for key, _ in net._keyed_layers():
-            full[key] = {}
-            for name, p in net._slot(key).params.items():
-                md = self._split[(key, name)][0]
-                w = p.detach() if md is None else all_gather(p.detach(), g_m,
-                                                             md)
-                full[key][name] = w.clone().requires_grad_()
 
         @torch.no_grad()
         def update(key, layer, grads, lr, ok, minimize):
             params = net._slot(key).params
             zero, sliced, sliced_grads = {}, {}, {}
             for name, p in params.items():
-                md, dims = self._split[(key, name)]
-                zero[name] = _zero_dim(dims)
+                zero[name] = _zero_dim(self._split[(key, name)][1])
                 sliced[name] = shard_slice(p, zero[name], idd, nd)
-                sliced_grads[name] = shard_slice(
-                    shard_slice(grads[name], md, im, nm), zero[name], idd, nd)
+                sliced_grads[name] = shard_slice(grads[name], zero[name],
+                                                 idd, nd)
             U.apply_layer(layer, sliced, sliced_grads,
                           net._updater_state[key], None, minimize, lr=lr,
                           ok=ok, inplace=True)
@@ -525,8 +527,13 @@ class ParallelWrapper:
                     p.copy_(all_gather(sliced[name].contiguous(), g_d,
                                        zero[name]))
 
-        net._train_step(lambda rng: net._loss(*batch, True, rng, params=full),
-                        reduce=self._reduce, masters=full, update=update)
+        dims = {}
+        for (key, name), (md, _) in self._split.items():
+            dims.setdefault(key, {})[name] = md
+        cp = ColumnParallel(mesh.axis_group("model"), dims)
+        with net._split_over(cp if cp.dims else None):
+            net._train_step(lambda rng: net._loss(*batch, True, rng),
+                            reduce=self._reduce, update=update)
 
     # -- mode 1: per-step gradient all-reduce --------------------------
     def _reduce(self, grads, score):

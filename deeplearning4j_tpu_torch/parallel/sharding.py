@@ -38,8 +38,10 @@ is a process group, a tuple of named axes, and this rank's place in it:
     ways). Each parameter's gradient then is the true one on every rank.
   * `param_specs_for_layer` / `shard_params(tensor_parallel=True)` give the
     reference's tensor-parallel table: which dimension of which parameter
-    splits over "model". `zero_state_sharding` gives each updater-state
-    leaf's dimension split over "data" (the first that divides).
+    splits over "model"; `ColumnParallel` is how the wrapper's split step
+    computes those layers (each rank its output columns, from the whole
+    input). `zero_state_sharding` gives each updater-state leaf's
+    dimension split over "data" (the first that divides).
 
 Every collective a helper here (or `ring_attention._ppermute`) runs is
 reported to `mesh_cost`'s recorder when one is active, by the reference's
@@ -54,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from ..common.device import resolve_device
+from ..nn import activations
 
 
 # -- the recorder (mesh_cost.recording) ---------------------------------------
@@ -252,7 +255,9 @@ def param_specs_for_layer(layer, tensor_parallel=False):
     table: dense, output, autoencoder and embedding split W's output
     columns (dim 1) and b; convolution splits the out-channels, OIHW dim 0
     here (HWIO dim 3 in the reference); LSTM and SimpleRnn stay
-    replicated, as does every other layer."""
+    replicated, as does every other layer. Every split parameter is cut on
+    the layer's output features, so a split layer computes its slice of
+    the output from the whole input (`ColumnParallel`)."""
     if not tensor_parallel:
         return None
     lt = getattr(layer, "layer_type", "")
@@ -312,6 +317,102 @@ def zero_state_sharding(ustate, mesh, axis="data"):
     return {key: {p: {s: leaf(t) for s, t in st.items()}
                   for p, st in per.items()}
             for key, per in ustate.items()}
+
+
+class ColumnParallel:
+    """How the wrapper's split step computes the layers split over "model"
+    (Megatron column parallelism with a gathered output): `dims` is {layer
+    key: {parameter name: the dimension split over "model", or None}}, of
+    which the layers with a split parameter are the split ones, `group`
+    the "model" group. Each model rank holds its slice of a split layer's
+    output columns (W's and b's, or a convolution's out-channels) and:
+
+      * the whole input goes through `copy_to` (identity forward; backward,
+        the sum over "model" of the ranks' partial dX);
+      * the layer's own `preout` runs on this rank's slice of W and b
+        (input dropout included: every model rank of a data index holds
+        the same generator state and the same input, so draws the same
+        mask);
+      * `gather_from` concatenates the slices of the pre-activation on the
+        output's feature dimension (the channels, dim 1 of NCHW, for a
+        convolution; the last for the others); backward, each rank keeps
+        its slice of dY, so the gradients of W and b come out sliced;
+      * the activation, or for an output layer the loss, runs on the whole
+        pre-activation, as in the replicated forward.
+
+    So per split layer the step sends an all-gather of the pre-activation
+    forward and an all-reduce of dX backward (none for the network's
+    input, which needs no gradient), and never gathers a weight. The
+    L1/L2 penalty of the split parameters is summed over "model"
+    (`reg_score`), and the gradient norms that the updaters' normalization
+    and the health watchdog read are those of the whole gradients
+    (`grad_sq`)."""
+
+    def __init__(self, group, dims):
+        self.group = group
+        self.dims = {key: d for key, d in dims.items()
+                     if any(v is not None for v in d.values())}
+
+    def splits(self, key):
+        return key in self.dims
+
+    def preout(self, layer, params, x, *, train, rng):
+        """The whole pre-activation of a split layer from the whole input
+        `x` and this rank's slices `params`."""
+        if x.is_floating_point():
+            x = copy_to(x, self.group)
+        pre = layer.preout(params, x, train=train, rng=rng)
+        dim = 1 if layer.layer_type == "convolution" else pre.ndim - 1
+        return gather_from(pre, self.group, dim)
+
+    def forward(self, layer, params, x, *, train, rng):
+        return activations.get(layer.activation)(
+            self.preout(layer, params, x, train=train, rng=rng))
+
+    def score_per_example(self, layer, params, x, labels, *, train, rng,
+                          mask=None):
+        """An output layer's per-example loss on the whole pre-activation."""
+        return layer.score_of_preout(
+            self.preout(layer, params, x, train=train, rng=rng), labels,
+            mask)
+
+    def reg_score(self, layers):
+        """The L1/L2 penalty of `layers`, [(key, layer, {name: tensor})]:
+        the split parameters' penalties (each rank's slices) summed over
+        "model" by one `reduce_from` (so each slice's gradient is its own
+        term's), the replicated parameters' counted once."""
+        whole = split = 0.0
+        for key, layer, params in layers:
+            d = self.dims.get(key, {})
+            whole = whole + layer.reg_score(
+                {k: v for k, v in params.items() if d.get(k) is None})
+            split = split + layer.reg_score(
+                {k: v for k, v in params.items() if d.get(k) is not None})
+        if isinstance(split, torch.Tensor):
+            split = reduce_from(split, self.group)
+        return split + whole
+
+    def grad_sq(self, grads):
+        """{key: {name: the sum of squares of the whole gradient}} of the
+        container's gradients {key: {name: gradient}}, where a split
+        parameter's gradient is this rank's slice: its sums over "model"
+        (one all-reduce in f64), the replicated ones as they are. Each is
+        0-d, in the gradient's dtype widened to at least f32."""
+        out, split = {}, []
+        for key, per in grads.items():
+            d = self.dims.get(key, {})
+            out[key] = {}
+            for name, g in per.items():
+                w = g.detach().to(_buffer_dtype(g.dtype))
+                out[key][name] = torch.sum(torch.square(w))
+                if d.get(name) is not None:
+                    split.append((key, name))
+        if split:
+            sums = all_reduce_sum(torch.stack(
+                [out[k][n].double() for k, n in split]), self.group)
+            for i, (k, n) in enumerate(split):
+                out[k][n] = sums[i].to(out[k][n].dtype)
+        return out
 
 
 def shard_slice(t, dim, index, n):

@@ -91,6 +91,9 @@ def write_model(model, path, save_updater=True, normalizer=None):
             zf.writestr(NORMALIZER_ENTRY, json.dumps(normalizer.to_dict()))
 
 
+writeModel = write_model
+
+
 def _restore(path, conf_cls, net_cls, load_updater, device):
     with zipfile.ZipFile(path, "r") as zf:
         conf = conf_cls.from_json(zf.read(CONFIG_ENTRY).decode("utf-8"))
@@ -115,6 +118,9 @@ def restore_multi_layer_network(path, load_updater=True, device=None):
                     load_updater, device)
 
 
+restoreMultiLayerNetwork = restore_multi_layer_network
+
+
 def restore_computation_graph(path, load_updater=True, device=None):
     """A ComputationGraph from a zip, on the card unless `device` says
     otherwise."""
@@ -123,6 +129,9 @@ def restore_computation_graph(path, load_updater=True, device=None):
     from ..nn.graph import ComputationGraph
     return _restore(path, ComputationGraphConfiguration, ComputationGraph,
                     load_updater, device)
+
+
+restoreComputationGraph = restore_computation_graph
 
 
 def restore_model(path, load_updater=True, device=None):

@@ -605,6 +605,16 @@ def test_aliases_and_exports():
         "import_keras_sequential_model_and_weights"])
 
 
+@pytest.mark.parametrize("config", [
+    {}, {"dim_ordering": "th"}, {"dim_ordering": "tf"},
+    {"data_format": "channels_first"}, {"dim_ordering": None}])
+def test_dim_ordering_of_is_the_reference_s(J, config):
+    """A layer config's `dim_ordering` ("tf" when it names none; a Keras 2
+    `data_format` is not read), as the reference's."""
+    lc = {"class_name": "Conv2D", "config": dict(config)}
+    assert keras_import.dim_ordering_of(lc) == J.ki.dim_ordering_of(lc)
+
+
 # ---------------------------------------------------------------------------
 # Card only
 # ---------------------------------------------------------------------------

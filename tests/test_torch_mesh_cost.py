@@ -111,6 +111,14 @@ def test_run_recorded_puts_everything_back():
 
 
 def test_committed_budget_names_every_mode():
+    """The committed 4-rank budget names every mode of
+    `graft_entry.dryrun_multichip`, and each entry's totals are its ops'.
+    `dp_tp_zero1` is the wrapper's split step on (data 2, model 2), whose
+    split layers compute their columns: per split layer an all-gather of
+    its pre-activation over "model" (3) and, where its input needs a
+    gradient, an all-reduce of dX over "model" (2); the gradients'
+    all-reduce over "data" (1); ZeRO's all-gathers of each parameter's
+    updated slices over "data" (6). No weight is all-gathered."""
     path = (Path(__file__).resolve().parent / "fixtures"
             / "collective_budgets_torch.json")
     budget = json.loads(path.read_text())
@@ -124,3 +132,5 @@ def test_committed_budget_names_every_mode():
     assert "collective-permute" in budget["ring_attention_sp"]["ops"]
     assert "all-to-all" in budget["moe_ep"]["ops"]
     assert np.isfinite(budget["dp_tp_zero1"]["bytes"])
+    assert {k: r["count"] for k, r in budget["dp_tp_zero1"]["ops"].items()} \
+        == {"all-gather": 3 + 6, "all-reduce": 2 + 1}

@@ -18,16 +18,23 @@ Held:
 - three-axis (data 1, model 2, pipe 2): the loss of each of 3 steps
   (momentum 0.9) at 1e-5, every stage's parameters after them at rtol
   2e-4 / atol 2e-5, and the loss falling over 10 steps;
-- the wrapper on (data 2, model 2), LeNet-shaped conv net with Adam, TP +
-  ZeRO, and an SGD net with ClipL2PerLayer under TP: parameters and score
-  after the first batch at 1e-5 and after 3 epochs at rtol 2e-4 / atol
-  2e-5 against the reference's wrapper on the same mesh; each rank holds
-  half of every split leaf during the fit and the whole network after it;
-  a StatsListener on rank 0 alone reads the whole parameters during the
+- the wrapper on (data 2, model 2), where each split layer computes its
+  columns: LeNet-shaped conv net with Adam, TP + ZeRO, an SGD net with
+  ClipL2PerLayer under TP, and (SPLIT_CASES) Embedding -> Dense ->
+  Output, AutoEncoder -> Output, a ComputationGraph with BatchNorm and an
+  add vertex, the conv net with L2 and the health watchdog, and a net
+  whose middle layer does not divide: parameters and score after the
+  first batch at 1e-5 and after 3 epochs at rtol 2e-4 / atol 2e-5 against
+  the reference's wrapper on the same mesh; each rank holds half of every
+  split leaf during the fit and the whole network after it; a
+  StatsListener on rank 0 alone reads the whole parameters during the
   TP + ZeRO fit (its reports those of the replicated fit, 1e-5);
 - inside the port: ZeRO on 4 data ranks bit-equal to the replicated run,
   TP on (2, 2) within 1e-5 of it; `lower_step` leaves the network bit-
-  unchanged and records what a real step records.
+  unchanged and records what a real step records; under FlopCounterMode
+  a TP step counts half the FLOPs of the replicated step on the same rows
+  (within 1%), and it all-gathers the pre-activations over "model", never
+  a parameter.
 """
 import sys
 from pathlib import Path
@@ -72,6 +79,90 @@ def _wrap_conf(kind, seed, width=8):
 def _wrap_data():
     rng = np.random.default_rng(4)
     x = rng.normal(0.5, 1.0, (48, 8, 8, 2)).astype(np.float32)
+    return x, np.eye(4, dtype=np.float32)[rng.integers(0, 4, 48)]
+
+
+# the wrapper cases in which more kinds of split layer compute their
+# columns, each on (data 2, model 2): name -> (net, TP, ZeRO, watchdog)
+SPLIT_CASES = {"embed_dense": ("embed", True, False, False),
+               "autoencoder": ("autoencoder", True, True, False),
+               "graph_bn_add": ("graph", True, True, False),
+               "conv_l2_health": ("l2", True, True, True),
+               "mixed_split": ("mixed", True, False, False)}
+
+
+def _split_conf(kind, seed):
+    """The JAX package's net of a SPLIT_CASES case: (a) Embedding -> Dense
+    -> Output; (b) AutoEncoder -> Output (supervised: the forward is
+    encode); (c) a ComputationGraph conv (no bias) -> BatchNorm, conv,
+    their sum (ElementWiseVertex add) -> Dense -> Output; (d) the conv net
+    of `_wrap_conf` with L2; (e) Dense(8) -> Dense(3), which does not
+    divide over 2 -> Output, with ClipL2PerParamType."""
+    from deeplearning4j_tpu import (ComputationGraph as JGraph, InputType,
+                                    MultiLayerNetwork as JNet,
+                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu.nn.conf import layers as L
+    from deeplearning4j_tpu.nn.conf.graph_vertices import ElementWiseVertex
+    b = NeuralNetConfiguration.Builder().seed(seed)
+    out = L.OutputLayer(n_out=4, activation="softmax",
+                        loss_function="mcxent")
+    if kind == "graph":
+        gb = (b.updater("adam").learning_rate(1e-2).graph_builder()
+              .add_inputs("in"))
+        # no bias before BatchNorm: its gradient is 0 but for rounding,
+        # whose sign Adam's first step would follow
+        gb.add_layer("c1", L.ConvolutionLayer(
+            n_out=4, kernel_size=(3, 3), activation="identity",
+            has_bias=False), "in")
+        gb.add_layer("bn", L.BatchNormalization(activation="relu"), "c1")
+        gb.add_layer("c2", L.ConvolutionLayer(
+            n_out=4, kernel_size=(3, 3), activation="relu"), "in")
+        gb.add_vertex("add", ElementWiseVertex("add"), "bn", "c2")
+        gb.add_layer("fc", L.DenseLayer(n_out=8, activation="relu"), "add")
+        gb.add_layer("out", out, "fc")
+        return JGraph(gb.set_outputs("out").set_input_types(
+            InputType.convolutional(8, 8, 2)).build()).init()
+    if kind == "l2":
+        conf = (b.updater("adam").learning_rate(1e-2).l2(1e-2).list()
+                .layer(0, L.ConvolutionLayer(n_out=4, kernel_size=(3, 3),
+                                             activation="relu"))
+                .layer(1, L.SubsamplingLayer(kernel_size=(2, 2),
+                                             stride=(2, 2)))
+                .layer(2, L.DenseLayer(n_out=8, activation="relu"))
+                .layer(3, out)
+                .set_input_type(InputType.convolutional(8, 8, 2)).build())
+        return JNet(conf).init()
+    if kind == "embed":
+        b = b.updater("adam").learning_rate(1e-2)
+        hidden = [L.EmbeddingLayer(n_in=V, n_out=8, activation="identity"),
+                  L.DenseLayer(n_out=8, activation="tanh")]
+        n_in = InputType.feed_forward(1)
+    elif kind == "autoencoder":
+        b = b.updater("sgd").learning_rate(0.5)
+        hidden = [L.AutoEncoder(n_out=8, activation="sigmoid")]
+        n_in = InputType.feed_forward(16)
+    else:
+        b = (b.updater("nesterovs").momentum(0.9).learning_rate(0.1)
+             .gradient_normalization("ClipL2PerParamType")
+             .gradient_normalization_threshold(0.05))
+        hidden = [L.DenseLayer(n_out=8, activation="relu"),
+                  L.DenseLayer(n_out=3, activation="tanh")]
+        n_in = InputType.feed_forward(16)
+    lb = b.list()
+    for i, layer in enumerate(hidden + [out]):
+        lb = lb.layer(i, layer)
+    return JNet(lb.set_input_type(n_in).build()).init()
+
+
+def _split_data(kind):
+    """48 rows of a SPLIT_CASES net's features and one-hot labels."""
+    if kind in ("graph", "l2"):
+        return _wrap_data()
+    rng = np.random.default_rng(5)
+    if kind == "embed":
+        x = rng.integers(0, V, (48, 1)).astype(np.float32)
+    else:
+        x = rng.random((48, 16), dtype=np.float32)
     return x, np.eye(4, dtype=np.float32)[rng.integers(0, 4, 48)]
 
 
@@ -199,6 +290,161 @@ def _wrap_rank(name, spec):
     return out
 
 
+def _split_rank(name, spec):
+    """A SPLIT_CASES case on (data 2, model 2): the parameters and score
+    after the first batch and after 3 epochs, and each parameter's shape
+    while the state is split."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.sharding import make_mesh
+    from test_torch_parallel_wrapper import port_net
+    kind, tp, zero, health = SPLIT_CASES[name]
+    batches = list(DataSet(*_split_data(kind)).batch_by(16))
+    net = port_net(spec)
+    b = (ParallelWrapper.Builder(net)
+         .mesh(make_mesh(n_data=2, n_model=2, device="cpu"))
+         .tensor_parallel(tp).sharded_updater_state(zero))
+    pw = (b.health_policy(True) if health else b).build()
+    pw._ensure_sharded()
+    shapes = {f"{k}.{n}": tuple(p.shape)
+              for k, per in net._params.items() for n, p in per.items()}
+    pw.fit(ListDataSetIterator(batches[:1]))
+    first = (net.params().copy(), float(net._score))
+    pw.fit(ListDataSetIterator(batches), num_epochs=3)
+    return {"first": first, "params": net.params().copy(),
+            "score": float(net._score), "shapes": shapes}
+
+
+def _flops_rank(spec):
+    """One step of the LeNet-shaped case on (data 2, model 2) under
+    FlopCounterMode, with the split compute and replicated (each rank the
+    same 8 rows whole); and what the split step all-gathers over "model":
+    each gather's input shape and whether it is a parameter's storage."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel import parallel_wrapper as PWM
+    from deeplearning4j_tpu_torch.parallel import sharding
+    from deeplearning4j_tpu_torch.parallel.sharding import make_mesh
+    from test_torch_parallel_wrapper import port_net
+    x, y = _wrap_data()
+    batch = DataSet(x[:16], y[:16])
+
+    def wrapper(tp):
+        net = port_net(spec)
+        return net, (ParallelWrapper.Builder(net)
+                     .mesh(make_mesh(n_data=2, n_model=2, device="cpu"))
+                     .tensor_parallel(tp).sharded_updater_state(tp).build())
+
+    out = {}
+    for tp in (True, False):
+        _, pw = wrapper(tp)
+        with FlopCounterMode(display=False) as fc:
+            pw.lower_step(batch)
+        out["split" if tp else "replicated"] = fc.get_total_flops()
+    net, pw = wrapper(True)
+    pw._ensure_sharded()
+    ptrs = {p.data_ptr() for per in net._params.values()
+            for p in per.values()}
+    g_m, seen, orig = pw.mesh.axis_group("model"), [], sharding.all_gather
+
+    def spy(t, group, dim=0):
+        if group is g_m:
+            seen.append((tuple(t.shape), t.data_ptr() in ptrs))
+        return orig(t, group, dim)
+
+    sharding.all_gather = PWM.all_gather = spy
+    try:
+        pw._fit_allreduce(ListDataSetIterator([batch]))
+    finally:
+        sharding.all_gather = PWM.all_gather = orig
+    pw._join_state()
+    out["gathers"] = seen
+    out["model_index"] = pw.mesh.index("model")
+    dist.barrier()
+    return out
+
+
+def _dropout_rank():
+    """Inside the port, on (data 2, model 2): a conv net whose layers all
+    take input dropout (0.8 kept) and whose activation stats are armed,
+    2 steps split and 2 replicated (every rank its data index's 8 rows
+    whole): the parameters, the score and each layer's activation
+    summaries."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.sharding import make_mesh
+    conf = (NeuralNetConfiguration.Builder().seed(9).updater("adam")
+            .learning_rate(1e-2).dropout(0.8).list()
+            .layer(0, L.ConvolutionLayer(n_out=4, kernel_size=(3, 3),
+                                         activation="relu"))
+            .layer(1, L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(2, L.DenseLayer(n_out=8, activation="relu"))
+            .layer(3, L.OutputLayer(n_out=4, activation="softmax",
+                                    loss_function="mcxent"))
+            .set_input_type(InputType.convolutional(8, 8, 2)).build())
+    batches = list(DataSet(*_wrap_data()).batch_by(16))[:2]
+    out = {}
+    for tp in (True, False):
+        net = MultiLayerNetwork(conf, device="cpu").init()
+        net.collect_activation_stats(True)
+        (ParallelWrapper.Builder(net)
+         .mesh(make_mesh(n_data=2, n_model=2, device="cpu"))
+         .tensor_parallel(tp).build().fit(ListDataSetIterator(batches)))
+        out["split" if tp else "replicated"] = {
+            "params": net.params().copy(), "score": float(net._score),
+            "acts": [[float(a[k]) for k in ("mean", "stdev",
+                                            "meanMagnitude")]
+                     for a in net._last_activation_stats]}
+    return out
+
+
+def _remat_rank():
+    """A ComputationGraph built with `remat_segments=True` under the
+    split step: the message it raises."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import \
+        ElementWiseVertex
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.sharding import make_mesh
+    gb = (NeuralNetConfiguration.Builder().seed(3).graph_builder()
+          .add_inputs("in"))
+    gb.add_layer("d1", L.DenseLayer(n_out=8, activation="relu"), "in")
+    gb.add_layer("d2", L.DenseLayer(n_out=8, activation="relu"), "d1")
+    gb.add_vertex("add", ElementWiseVertex("add"), "d1", "d2")
+    gb.add_layer("out", L.OutputLayer(n_out=4, activation="softmax",
+                                      loss_function="mcxent"), "add")
+    net = ComputationGraph(gb.set_outputs("out").set_input_types(
+        InputType.feed_forward(16)).build(), remat_segments=True,
+        device="cpu").init()
+    x, y = _split_data("mixed")
+    try:
+        (ParallelWrapper.Builder(net)
+         .mesh(make_mesh(n_data=2, n_model=2, device="cpu"))
+         .tensor_parallel(True).build().fit(DataSet(x[:16], y[:16])))
+    except ValueError as e:
+        return str(e)
+    return "trained"
+
+
 def _held(net):
     return ([p for per in net._params.values() for p in per.values()]
             + [t for per in net._updater_state.values()
@@ -309,6 +555,11 @@ def _rank_main(rank, world, store, out_dir):
            "three": _three_rank(specs["three"]),
            "wrap": {name: _wrap_rank(name, specs["wrap"][name])
                     for name in WRAP_CASES},
+           "split": {name: _split_rank(name, specs["split"][name])
+                     for name in SPLIT_CASES},
+           "flops": _flops_rank(specs["wrap"]["tp_zero_adam"]),
+           "dropout": _dropout_rank(),
+           "remat": _remat_rank(),
            "w2v": _w2v_rank()}
     WRAP_OTHER.append(specs["other"])
     res["ckpt"] = _ckpt_rank(specs["wrap"]["tp_zero_adam"], out_dir)
@@ -375,7 +626,7 @@ def _reference_models(specs):
     return out
 
 
-def _reference_wrapper(name, jnet):
+def _reference_wrapper(jnet, data, tp, zero, health=False):
     import jax
 
     from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
@@ -383,12 +634,12 @@ def _reference_wrapper(name, jnet):
         ListDataSetIterator as JList
     from deeplearning4j_tpu.parallel import ParallelWrapper as JPW
     from deeplearning4j_tpu.parallel import make_mesh as jmesh
-    _, tp, zero = WRAP_CASES[name]
-    x, y = _wrap_data()
+    x, y = data
     bs = [JDataSet(x[i:i + 16], y[i:i + 16]) for i in range(0, 48, 16)]
-    pw = (JPW.Builder(jnet).mesh(jmesh(n_data=2, n_model=2,
-                                       devices=jax.devices()[:4]))
-          .tensor_parallel(tp).sharded_updater_state(zero).build())
+    b = (JPW.Builder(jnet).mesh(jmesh(n_data=2, n_model=2,
+                                      devices=jax.devices()[:4]))
+         .tensor_parallel(tp).sharded_updater_state(zero))
+    pw = (b.health_policy(True) if health else b).build()
     pw.fit(JList(bs[:1]))
     first = (np.asarray(jnet.params(), np.float64), float(jnet._score))
     pw.fit(JList(bs), num_epochs=3)
@@ -403,7 +654,8 @@ def runs(tmp_path_factory):
     jnets = {}
 
     def spec_of(jnet):
-        return {"cg": False, "conf": jnet.conf.to_json(),
+        return {"cg": isinstance(jnet._params, dict),
+                "conf": jnet.conf.to_json(),
                 "params": jax.tree.map(np.array, jnet._params),
                 "state": jax.tree.map(np.array, jnet._model_state),
                 "ustate": jax.tree.map(np.array, jnet._updater_state)}
@@ -412,10 +664,20 @@ def runs(tmp_path_factory):
         jnet = jnets[name] = _wrap_conf(WRAP_CASES[name][0], seed=60 + i)
         specs["wrap"][name] = spec_of(jnet)
     specs["other"] = spec_of(_wrap_conf("adam", seed=70, width=12))
+    specs["split"], split_nets = {}, {}
+    for i, name in enumerate(SPLIT_CASES):
+        jnet = split_nets[name] = _split_conf(SPLIT_CASES[name][0],
+                                              seed=80 + i)
+        specs["split"][name] = spec_of(jnet)
 
     def reference():
         out = _reference_models(specs)
-        out["wrap"] = {n: _reference_wrapper(n, jnets[n]) for n in jnets}
+        out["wrap"] = {n: _reference_wrapper(jnets[n], _wrap_data(),
+                                             *WRAP_CASES[n][1:])
+                       for n in jnets}
+        out["split"] = {n: _reference_wrapper(
+            split_nets[n], _split_data(SPLIT_CASES[n][0]),
+            *SPLIT_CASES[n][1:]) for n in SPLIT_CASES}
         return out
 
     tmp = tmp_path_factory.mktemp("tp")
@@ -533,8 +795,103 @@ def test_wrapper_lower_step_changes_nothing(runs, name):
         assert w["unchanged"]
         lowered, real = w["footprint"]
         assert lowered == real
-        assert lowered["all-reduce"]["count"] == 1
-        assert lowered["all-gather"]["count"] >= 6
+        # the gradients' all-reduce over "data", and dX's over "model" of
+        # the dense and output layers (the conv's input needs none); with
+        # ClipL2PerLayer one more, of the split gradients' norms
+        clip = name == "tp_clip"
+        assert lowered["all-reduce"]["count"] == 3 + clip
+        # the three split layers' pre-activations over "model"; with ZeRO
+        # each parameter's updated slices over "data" (all six divide)
+        zero = WRAP_CASES[name][2]
+        assert lowered["all-gather"]["count"] == 3 + 6 * zero
+
+
+# each split case's parameter shapes while split: half the output columns
+# of a split layer, the rest whole (1 of "model"'s 2)
+SPLIT_SHAPES = {
+    "embed_dense": {"0.W": (V, 4), "0.b": (4,), "1.W": (8, 4),
+                    "2.W": (8, 2)},
+    "autoencoder": {"0.W": (16, 4), "0.b": (4,), "0.vb": (16,),
+                    "1.W": (8, 2)},
+    "graph_bn_add": {"c1.W": (2, 2, 3, 3), "c2.W": (2, 2, 3, 3),
+                     "bn.gamma": (4,), "fc.W": (144, 4), "out.W": (8, 2)},
+    "conv_l2_health": {"0.W": (2, 2, 3, 3), "0.b": (2,), "2.W": (36, 4),
+                       "3.W": (8, 2)},
+    "mixed_split": {"0.W": (16, 4), "1.W": (8, 3), "1.b": (3,),
+                    "2.W": (3, 2)}}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_wrapper_splits_the_compute_of_every_layer_kind(runs, name):
+    """Embedding, dense, output, autoencoder and convolution layers
+    compute their columns on (data 2, model 2), in a ComputationGraph with
+    BatchNorm and an add vertex too, with L2 and the health watchdog
+    (penalty and norms summed over "model"), and beside a layer that does
+    not divide (replicated): the parameters and score after the first
+    batch at 1e-5 and after 3 epochs at rtol 2e-4 / atol 2e-5 against the
+    reference's wrapper on the same mesh; every rank ends alike."""
+    _, ref, ranks = runs
+    want = ref["split"][name]
+    for r in ranks:
+        got = r["split"][name]
+        C.close(got["first"][0], want["first"][0], 0, C.TOL, "first round")
+        assert abs(got["first"][1] - want["first"][1]) < C.TOL
+        C.close(got["params"], want["params"], what="3 epochs")
+        assert abs(got["score"] - want["score"]) < C.TOL
+        for key, shape in SPLIT_SHAPES[name].items():
+            assert got["shapes"][key] == shape, key
+    np.testing.assert_array_equal(ranks[0]["split"][name]["params"],
+                                  ranks[3]["split"][name]["params"])
+
+
+def test_each_rank_computes_half_the_replicated_step_s_flops(runs):
+    """FlopCounterMode over one step of the LeNet-shaped net (every layer
+    with parameters divides) on (data 2, model 2): with the compute split
+    each rank counts 1/2 of what it counts replicated on the same 8 rows,
+    within 1%."""
+    _, _, ranks = runs
+    for r in ranks:
+        f = r["flops"]
+        assert f["replicated"] > 0
+        assert abs(f["split"] / f["replicated"] / 0.5 - 1.0) <= 0.01, f
+
+
+def test_the_split_step_never_gathers_a_split_parameter(runs):
+    """What one TP + ZeRO step all-gathers over "model": the conv, dense
+    and output layers' slices of their pre-activations (8 rows each), and
+    no parameter's storage."""
+    _, _, ranks = runs
+    for r in ranks:
+        gathers = r["flops"]["gathers"]
+        assert [shape for shape, _ in gathers] == [(8, 2, 6, 6), (8, 4),
+                                                   (8, 2)]
+        assert not any(is_param for _, is_param in gathers)
+
+
+def test_split_layers_draw_one_dropout_mask_and_report_whole_stats(runs):
+    """With input dropout on every layer and activation stats armed, the
+    split run is the replicated run within 1e-5 (the model ranks of a data
+    index draw the same keep masks from generators that agree), and its
+    per-layer activation summaries are those of the whole activations."""
+    _, _, ranks = runs
+    for r in ranks:
+        d = r["dropout"]
+        C.close(d["split"]["params"], d["replicated"]["params"], 0, C.TOL,
+                "dropout")
+        assert abs(d["split"]["score"] - d["replicated"]["score"]) < C.TOL
+        assert len(d["split"]["acts"]) == 3
+        C.close(d["split"]["acts"], d["replicated"]["acts"], 0, C.TOL,
+                "activation stats")
+
+
+def test_remat_segments_under_the_split_step_raises(runs):
+    """A recompute would run the split layers' collectives again in the
+    backward: the split step refuses `remat_segments=True`, naming both,
+    rather than compute whole layers."""
+    _, _, ranks = runs
+    for r in ranks:
+        assert "remat_segments=True" in r["remat"]
+        assert "tensor_parallel(True)" in r["remat"]
 
 
 def test_model_sharded_word2vec_is_the_unsharded_run(runs):
