@@ -1,0 +1,7 @@
+"""The benchmark's tests import it from the checkout's root."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
