@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..common.device import card_numerics, resolve_device
+from ..optimize import profiler as P
 from .dataset import DataSet, MultiDataSet
 
 
@@ -498,6 +499,13 @@ class AsyncDataSetIterator(DataSetIterator):
       Normalizer itself), so the wire can carry raw uint8 pixels.
     * ``num_workers`` > 1 prepares and stages batches on a pool; order is
       kept (futures are collected FIFO).
+
+    The consumer's blocking take in ``next_batch`` (the queue's get and
+    the hand-over to the consumer's stream) is the program span
+    ``data.wait`` (`optimize.profiler.span`: recorded while a profiler
+    runs); each take also sets the registry's
+    ``data.async_iterator.queue_depth`` gauge and counts
+    ``data.async_iterator.batches``.
     """
 
     def __init__(self, underlying, queue_size=2, device_put=True,
@@ -761,20 +769,22 @@ class AsyncDataSetIterator(DataSetIterator):
             self._raise_if_failed()
             raise StopIteration("iterator exhausted")
         self._consumed_any = True
-        self._next = self._q.get()
-        # the staging-queue depth after the take (0 while the loop is fast
-        # means the loop is data-starved; full means compute-bound), on the
-        # shared registry; resolved once, at the first batch
-        obs = getattr(self, "_obs_metrics", None)
-        if obs is None:
-            from ..obs.registry import default_registry
-            reg = default_registry()
-            obs = self._obs_metrics = (
-                reg.gauge("data.async_iterator.queue_depth"),
-                reg.counter("data.async_iterator.batches"))
-        obs[0].set(self._q.qsize())
-        obs[1].inc()
-        return self._hand_over(b)
+        with P.span("data.wait"):
+            self._next = self._q.get()
+            # the staging-queue depth after the take (0 while the loop is
+            # fast means the loop is data-starved; full means
+            # compute-bound), on the shared registry; resolved once, at the
+            # first batch
+            obs = getattr(self, "_obs_metrics", None)
+            if obs is None:
+                from ..obs.registry import default_registry
+                reg = default_registry()
+                obs = self._obs_metrics = (
+                    reg.gauge("data.async_iterator.queue_depth"),
+                    reg.counter("data.async_iterator.batches"))
+            obs[0].set(self._q.qsize())
+            obs[1].inc()
+            return self._hand_over(b)
 
     def next(self):
         # the pre-processors already ran on the prefetch thread

@@ -38,6 +38,7 @@ def register_layer(name):
     def deco(cls):
         LAYER_REGISTRY[name] = cls
         cls.layer_type = name
+        cls.span_name = f"layer.{name}"     # its forward's program span
         return cls
     return deco
 
@@ -45,6 +46,10 @@ def register_layer(name):
 @dataclass
 class LayerConf:
     """Base for all layer configs. Fields default to None = 'inherit global'."""
+    # whether the forward's program span (`span_name`) also times the
+    # device with CUDA events: where a per-layer metric reads it, since
+    # two events cost tens of microseconds of host time under a profiler
+    span_times_device = False
     name: str = None
     activation: str = None
     weight_init: str = None

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ....optimize import profiler as P
 from ....parallel.sharding import all_reduce_sum
 from ..input_type import (ConvolutionalInputType, FeedForwardInputType,
                           InputType, RecurrentInputType)
@@ -124,28 +125,31 @@ class _BNTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        x, gamma, mean, rstd = ctx.saved_tensors
-        dims, shape = _stat_dims(x), _channel_shape(x)
-        acc = _acc_type(x.dtype)
-        n = ctx.n
-        dyf = dy.to(acc)
-        xc = x.to(acc) - mean.view(shape)
-        s1 = dyf.sum(dim=dims)
-        s2 = (dyf * xc).sum(dim=dims)
-        t1, t2 = s1, s2
-        if ctx.group is not None:
-            t1, t2 = all_reduce_sum(torch.cat([s1, s2]), ctx.group).chunk(2)
-        g = gamma.to(acc)
-        dx = (g * rstd).view(shape) * (
-            dyf - (t1 / n).view(shape)
-            - xc * (rstd * rstd * (t2 / n)).view(shape))
-        return (dx.to(x.dtype), (s2 * rstd).to(gamma.dtype),
-                s1.to(gamma.dtype), None, None, None)
+        with P.span("layer.batchnorm.backward", dy.device):
+            x, gamma, mean, rstd = ctx.saved_tensors
+            dims, shape = _stat_dims(x), _channel_shape(x)
+            acc = _acc_type(x.dtype)
+            n = ctx.n
+            dyf = dy.to(acc)
+            xc = x.to(acc) - mean.view(shape)
+            s1 = dyf.sum(dim=dims)
+            s2 = (dyf * xc).sum(dim=dims)
+            t1, t2 = s1, s2
+            if ctx.group is not None:
+                t1, t2 = all_reduce_sum(torch.cat([s1, s2]),
+                                        ctx.group).chunk(2)
+            g = gamma.to(acc)
+            dx = (g * rstd).view(shape) * (
+                dyf - (t1 / n).view(shape)
+                - xc * (rstd * rstd * (t2 / n)).view(shape))
+            return (dx.to(x.dtype), (s2 * rstd).to(gamma.dtype),
+                    s1.to(gamma.dtype), None, None, None)
 
 
 @register_layer("batchnorm")
 @dataclass
 class BatchNormalization(LayerConf):
+    span_times_device = True        # batchnorm_device_ms reads it
     decay: float = 0.9
     eps: float = 1e-5
     is_mini_batch: bool = True

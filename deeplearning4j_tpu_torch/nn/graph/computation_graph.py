@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from ...common.device import card_numerics, to_port, to_public
 from ...datasets.dataset import DataSet, MultiDataSet
 from ...datasets.iterators import DataSetIterator
+from ...optimize import profiler as P
 from ..conf.computation_graph_configuration import ComputationGraphConfiguration
 from ..conf.graph_vertices import ElementWiseVertex
 from ..conf.layers.base import DropoutTape
@@ -137,10 +138,9 @@ class ComputationGraph(Network):
                                               rng=rng, mask=in_masks[0])
             return out, None, c
         if layer.has_state():
-            out, st = layer.forward_with_state(p, x, state_entry,
-                                               train=train, rng=rng,
-                                               mask=in_masks[0],
-                                               group=self._stats_group)
+            out, st = self._layer_forward(spec.name, layer, p, x, train=train,
+                                          rng=rng, mask=in_masks[0],
+                                          state=state_entry)
             return out, st, None
         return (self._layer_forward(spec.name, layer, p, x, train=train,
                                     rng=rng, mask=in_masks[0]), None, None)
@@ -380,8 +380,10 @@ class ComputationGraph(Network):
 
     def output(self, *features, train=False, features_masks=None):
         """The network outputs' activations, as a list of numpy arrays."""
-        acts = self._forward(features, train, features_masks)
-        return [to_public(acts[n]) for n in self.conf.network_outputs]
+        with P.follow("infer.forward", self._device):
+            acts = self._forward(features, train, features_masks)
+        with P.span("infer.to_host"):
+            return [to_public(acts[n]) for n in self.conf.network_outputs]
 
     def feed_forward(self, *features, train=False):
         """Every vertex's activation (inputs included), as numpy."""
@@ -454,14 +456,18 @@ class ComputationGraph(Network):
         ev = Evaluation()
         if isinstance(data, MultiDataSet):
             data = [data]
-        for ds in self._eval_batches(data):
-            mds = _dataset_to_mds(ds) if isinstance(ds, DataSet) else ds
-            outs = self.output(mds.features,
-                               features_masks=mds.features_masks)
-            lmask = (mds.labels_masks[output_index]
-                     if mds.labels_masks else None)
-            ev.eval(_host(mds.labels[output_index]), outs[output_index],
-                    mask=_host(lmask))
+        with P.follow("eval.run"):
+            for ds in self._eval_batches(data):
+                with P.follow("eval.batch"):
+                    mds = _dataset_to_mds(ds) if isinstance(ds, DataSet) \
+                        else ds
+                    outs = self.output(mds.features,
+                                       features_masks=mds.features_masks)
+                    lmask = (mds.labels_masks[output_index]
+                             if mds.labels_masks else None)
+                    with P.span("eval.score"):
+                        ev.eval(_host(mds.labels[output_index]),
+                                outs[output_index], mask=_host(lmask))
         return ev
 
     # ------------------------------------------------------------------

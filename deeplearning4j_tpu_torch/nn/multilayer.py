@@ -98,13 +98,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import obs
+from .. import obs  # noqa: F401 (the reference's module-level name)
 from ..common import health as H
 from ..common.device import card_numerics, resolve_device, to_port, to_public
 from ..datasets.dataset import DataSet
 from ..datasets.iterators import (AsyncDataSetIterator, DataSetIterator,
                                   ListDataSetIterator, next_processed,
                                   wrap_async_for_fit)
+from ..optimize import profiler as P
 from . import fused as F
 from .conf.layers.recurrent import BaseRecurrentLayer
 from .conf.neural_net_configuration import MultiLayerConfiguration
@@ -296,24 +297,36 @@ class Network(nn.Module):
             self._column_parallel = prev
 
     def _layer_forward(self, key, layer, params, x, *, train, rng,
-                       mask=None):
+                       mask=None, state=None):
         """`layer.forward`, or the column-parallel forward of a layer split
-        over "model" (`_split_over`)."""
-        cp = self._column_parallel
-        if cp is not None and cp.splits(key):
-            return cp.forward(layer, params, x, train=train, rng=rng)
-        return layer.forward(params, x, train=train, rng=rng, mask=mask)
+        over "model" (`_split_over`); with `state` (a stateful layer's),
+        `layer.forward_with_state` -> (out, new state), its training
+        statistics over `_stats_group`. A `layer.<type>` span, which
+        times the device where the layer says so (`span_times_device`)."""
+        with P.span(layer.span_name,
+                    self._device if layer.span_times_device else None):
+            if state is not None:
+                return layer.forward_with_state(params, x, state,
+                                                train=train, rng=rng,
+                                                mask=mask,
+                                                group=self._stats_group)
+            cp = self._column_parallel
+            if cp is not None and cp.splits(key):
+                return cp.forward(layer, params, x, train=train, rng=rng)
+            return layer.forward(params, x, train=train, rng=rng, mask=mask)
 
     def _layer_score(self, key, layer, params, x, labels, *, train, rng,
                      mask=None):
         """An output layer's per-example loss (`_layer_forward`'s route)."""
-        cp = self._column_parallel
-        if cp is not None and cp.splits(key):
-            return cp.score_per_example(layer, params, x, labels,
-                                        train=train, rng=rng, mask=mask)
-        return layer.compute_score_per_example(params, x, labels,
-                                               train=train, rng=rng,
-                                               mask=mask)
+        with P.span(layer.span_name,
+                    self._device if layer.span_times_device else None):
+            cp = self._column_parallel
+            if cp is not None and cp.splits(key):
+                return cp.score_per_example(layer, params, x, labels,
+                                            train=train, rng=rng, mask=mask)
+            return layer.compute_score_per_example(params, x, labels,
+                                                   train=train, rng=rng,
+                                                   mask=mask)
 
     def _states(self):
         return {key: self._slot(key).state() for key, _ in self._keyed_layers()}
@@ -339,7 +352,7 @@ class Network(nn.Module):
         if self.conf.backprop_type == "tbptt":
             return self._fit_tbptt(batch)
         for _ in range(int(self.conf.global_conf.get("num_iterations", 1))):
-            with obs.TRACER.span("train.dispatch", cat="train"), \
+            with P.follow("train.dispatch", cat="train", tracer=True), \
                     self._act_stats_step():
                 self._train_step(lambda rng: self._loss(*batch, True, rng))
             if self._health_policy is None:
@@ -375,8 +388,9 @@ class Network(nn.Module):
         """Tell every listener that the optimizer step (or a data-parallel
         round) numbered `iteration_count - 1` is done. Called on the host,
         after the step."""
-        for listener in self.listeners:
-            listener.iteration_done(self, self.conf.iteration_count - 1)
+        with P.span("train.listeners"):
+            for listener in self.listeners:
+                listener.iteration_done(self, self.conf.iteration_count - 1)
 
     def _epoch_event(self, name):
         """`on_epoch_start` / `on_epoch_end` of the listeners that define
@@ -419,8 +433,8 @@ class Network(nn.Module):
                     continue
                 self._count_single("tbptt_tail")
             seg = self._segment(batch, t0, L)
-            with obs.TRACER.span("train.dispatch", cat="train",
-                                 tbptt=True), self._act_stats_step():
+            with P.follow("train.dispatch", cat="train", tracer=True,
+                          tbptt=True), self._act_stats_step():
                 new = self._train_step(
                     lambda rng: self._loss(*seg, True, rng, carries))
             if self._health_policy is None:
@@ -440,19 +454,20 @@ class Network(nn.Module):
         needs no reset in epoch 0); an AsyncDataSetIterator the caller built
         resets every epoch. With fused steps the staging queue holds a
         whole group ahead."""
-        wrapped_here = not isinstance(it, AsyncDataSetIterator)
-        if wrapped_here:
-            it.reset()
-        async_it = wrap_async_for_fit(
-            it, self.compute_dtype, queue_size=max(2, self._fused_steps + 1),
-            device=self._device)
-        for epoch in range(num_epochs):
-            if epoch > 0 or not wrapped_here or not async_it.has_next():
-                async_it.reset()
-            self._epoch_event("on_epoch_start")
-            self._fit_stream(async_it)
-            self._epoch_event("on_epoch_end")
-            self.conf.epoch_count += 1
+        with P.follow("train.fit"):
+            wrapped_here = not isinstance(it, AsyncDataSetIterator)
+            if wrapped_here:
+                it.reset()
+            async_it = wrap_async_for_fit(
+                it, self.compute_dtype,
+                queue_size=max(2, self._fused_steps + 1), device=self._device)
+            for epoch in range(num_epochs):
+                if epoch > 0 or not wrapped_here or not async_it.has_next():
+                    async_it.reset()
+                self._epoch_event("on_epoch_start")
+                self._fit_stream(async_it)
+                self._epoch_event("on_epoch_end")
+                self.conf.epoch_count += 1
         return self
 
     def _fit_stream(self, it):
@@ -469,11 +484,12 @@ class Network(nn.Module):
                 if self._fused_steps > 1 and self.conf.backprop_type \
                         != "tbptt":
                     self._count_single("num_iterations")
-                self._step(next_batch())
+                with P.follow("train.step"):
+                    self._step(next_batch())
                 continue
             g = F.group_size(self, k)
             group = []
-            with obs.TRACER.span("train.stage", cat="train", k=g):
+            with P.span("train.stage", cat="train", tracer=True, k=g):
                 while len(group) < g and it.has_next():
                     group.append(next_batch())
             if len(group) == g and F.uniform_group(group):
@@ -564,8 +580,10 @@ class Network(nn.Module):
         update on the device. Touches no host counter and reads nothing on
         the host. Returns (score, new carries, health or None)."""
         with card_numerics(self._device, self.compute_dtype):
-            score, new_state, new_carries = loss_fn(self._dropout_gen)
-            grads = self._grads(score)
+            with P.span("train.forward", self._device):
+                score, new_state, new_carries = loss_fn(self._dropout_gen)
+            with P.span("train.backward", self._device):
+                grads = self._grads(score)
             score = score.detach()
             if reduce is not None:
                 grads, score = reduce(grads, score)
@@ -580,15 +598,17 @@ class Network(nn.Module):
                 health = H.grad_health(grads, score, sq)
                 ok = health["all_finite"]
             minimize = self.conf.global_conf.get("minimize", True)
-            for key, layer in self._keyed_layers():
-                g = U.normalize_layer(layer, grads[key],
-                                      None if sq is None else sq[key])
-                if update is not None:
-                    update(key, layer, g, lrs[key], ok, minimize)
-                else:
-                    U.apply_layer(layer, dict(self._slot(key).params), g,
-                                  self._updater_state[key], None, minimize,
-                                  lr=lrs[key], ok=ok, inplace=True)
+            with P.span("train.update", self._device):
+                for key, layer in self._keyed_layers():
+                    g = U.normalize_layer(layer, grads[key],
+                                          None if sq is None else sq[key])
+                    if update is not None:
+                        update(key, layer, g, lrs[key], ok, minimize)
+                    else:
+                        U.apply_layer(layer, dict(self._slot(key).params), g,
+                                      self._updater_state[key], None,
+                                      minimize, lr=lrs[key], ok=ok,
+                                      inplace=True)
             self._store_state(new_state, ok)
         return score, new_carries, health
 
@@ -596,7 +616,7 @@ class Network(nn.Module):
         """The armed single step's epilogue: classify its health, act
         (skip, roll back, abort), advance the counter and checkpoint when
         due. Returns the action."""
-        with obs.TRACER.span("train.health", cat="train"):
+        with P.span("train.health", cat="train", tracer=True):
             action = H.finish_step(self, H.host_health(self._step_health),
                                    self._step_score)
         if action == H.ROLLBACK:
@@ -604,7 +624,7 @@ class Network(nn.Module):
         self.conf.iteration_count += 1
         self._fire_iteration_done()
         if action == H.OK:
-            with obs.TRACER.span("train.checkpoint", cat="train"):
+            with P.span("train.checkpoint", cat="train", tracer=True):
                 H.fit_loop_checkpoint(self)
         return action
 
@@ -655,7 +675,7 @@ class Network(nn.Module):
     def _replay(self, grp, values, g):
         """Run one fused group of g steps; returns (scores [g], stacked
         health or None, outputs)."""
-        with obs.TRACER.span("train.dispatch", cat="train", k=g):
+        with P.span("train.dispatch", cat="train", tracer=True, k=g):
             out = grp.replay(values)
         self.fused_counts["groups"] += 1
         self.fused_counts["fused_steps"] += g
@@ -695,9 +715,9 @@ class Network(nn.Module):
             grp.static["lr"], self._lr_rows(int(self.conf.iteration_count), g),
             grp.lr_rows)
         values = {"batch": group}
-        with obs.TRACER.span("train.fused_group", cat="train", k=g):
+        with P.span("train.fused_group", cat="train", tracer=True, k=g):
             scores, health, _ = self._replay(grp, values, g)
-            with obs.TRACER.span("train.health", cat="train", k=g):
+            with P.span("train.health", cat="train", tracer=True, k=g):
                 rb = H.finish_fused(self, scores, health, g)
         if rb is not None:
             self._count_single("rollback_replay", g - rb - 1)
@@ -743,11 +763,11 @@ class Network(nn.Module):
             grp.static["lr"], self._lr_rows(int(self.conf.iteration_count), g),
             grp.lr_rows)
         values = {"seq": span_batch, "carries": carries}
-        with obs.TRACER.span("train.fused_group", cat="train", k=g,
-                             tbptt=True):
+        with P.span("train.fused_group", cat="train", tracer=True, k=g,
+                    tbptt=True):
             scores, health, (out_carries,) = self._replay(grp, values, g)
             carries = F.tree_map(torch.clone, out_carries)
-            with obs.TRACER.span("train.health", cat="train", k=g):
+            with P.span("train.health", cat="train", tracer=True, k=g):
                 rb = H.finish_fused(self, scores, health, g)
         return carries, rb is not None
 
@@ -1255,9 +1275,9 @@ class MultiLayerNetwork(Network):
                     params[i], x, carries[i], train=train, rng=rng,
                     mask=fmask)
             elif layer.has_state():
-                x, new_state[i] = layer.forward_with_state(
-                    params[i], x, state[i], train=train, rng=rng, mask=fmask,
-                    group=self._stats_group)
+                x, new_state[i] = self._layer_forward(
+                    i, layer, params[i], x, train=train, rng=rng, mask=fmask,
+                    state=state[i])
             else:
                 x = self._layer_forward(i, layer, params[i], x, train=train,
                                         rng=rng, mask=fmask)
@@ -1467,9 +1487,10 @@ class MultiLayerNetwork(Network):
         i = len(self.layers) - 1
         layer = self.layers[i]
         if layer.has_state():
-            return layer.forward_with_state(params[i], h, state[i],
-                                            train=train, rng=rng)[0]
-        return layer.forward(params[i], h, train=train, rng=rng)
+            return self._layer_forward(i, layer, params[i], h, train=train,
+                                       rng=rng, state=state[i])[0]
+        return self._layer_forward(i, layer, params[i], h, train=train,
+                                   rng=rng)
 
     def predict(self, x):
         """The class index of each example: the argmax over the last axis
@@ -1479,15 +1500,17 @@ class MultiLayerNetwork(Network):
     def output(self, x, train=False, features_mask=None):
         """The output layer's activations for `x`, as numpy."""
         self._ensure_init()
-        x = self._input(x)
-        fmask = (None if features_mask is None
-                 else to_port(features_mask, self._device))
-        with torch.no_grad(), card_numerics(self._device,
-                                            self.compute_dtype):
-            out = self._forward_out(self._cast_params(), self._states(), x,
-                                    train=train, fmask=fmask,
-                                    rng=self._dropout_gen if train else None)
-        return to_public(out)
+        with P.follow("infer.forward", self._device):
+            x = self._input(x)
+            fmask = (None if features_mask is None
+                     else to_port(features_mask, self._device))
+            with torch.no_grad(), card_numerics(self._device,
+                                                self.compute_dtype):
+                out = self._forward_out(
+                    self._cast_params(), self._states(), x, train=train,
+                    fmask=fmask, rng=self._dropout_gen if train else None)
+        with P.span("infer.to_host"):
+            return to_public(out)
 
     def rnn_time_step(self, x):
         """Streaming inference: x [B, F] is one time step, [B, T, F] a
@@ -1543,14 +1566,18 @@ class MultiLayerNetwork(Network):
         from ..eval.evaluation import Evaluation
         ev = Evaluation()
         pos = 0
-        for ds in self._eval_batches(data):
-            out = self.output(ds.features, features_mask=ds.features_mask)
-            batch_meta = getattr(ds, "example_metas", None)
-            if batch_meta is None and meta is not None:
-                batch_meta = meta[pos:pos + ds.num_examples()]
-            pos += ds.num_examples()
-            ev.eval(_host(ds.labels), out, mask=_host(ds.labels_mask),
-                    meta=batch_meta)
+        with P.follow("eval.run"):
+            for ds in self._eval_batches(data):
+                with P.follow("eval.batch"):
+                    out = self.output(ds.features,
+                                      features_mask=ds.features_mask)
+                    batch_meta = getattr(ds, "example_metas", None)
+                    if batch_meta is None and meta is not None:
+                        batch_meta = meta[pos:pos + ds.num_examples()]
+                    pos += ds.num_examples()
+                    with P.span("eval.score"):
+                        ev.eval(_host(ds.labels), out,
+                                mask=_host(ds.labels_mask), meta=batch_meta)
         return ev
 
     def evaluate_regression(self, data):

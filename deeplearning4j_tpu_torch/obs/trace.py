@@ -1,7 +1,9 @@
 """Span tracer: monotonic-clock spans in a lock-light bounded ring.
 
 The port's copy of deeplearning4j_tpu/obs/trace.py (stdlib only), held against it
-by tests/test_torch_*.py; the text below is the reference's.
+by tests/test_torch_*.py; the text below is the reference's. The port adds
+`Tracer.record`, through which its profiler-following spans
+(`optimize.profiler.span`) land in the ring whatever the tracer's state.
 
 Dapper-style (Sigelman et al., 2010) host-side tracing for both servers
 and the training fit loops: a span is (name, category, track, trace_id,
@@ -197,6 +199,16 @@ class Tracer:
             cb = auto[2]
         if cb is not None:
             cb()
+
+    def record(self, name, t0_ns, dur_ns, cat="host", track=None,
+               args=None):
+        """Record one completed span whether or not the tracer is
+        enabled: for spans whose caller already decided to record them
+        (the port's spans that follow a running device profiler,
+        `optimize.profiler.span`). Does not count toward an armed
+        flight-recorder capture."""
+        self._buf.append(Span(name, cat, track, None, int(t0_ns),
+                              int(dur_ns), args))
 
     def instant(self, name, cat="host", track=None, **args):
         """Zero-duration marker (flight-recorder trigger, swap installed,
